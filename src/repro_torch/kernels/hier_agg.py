@@ -1,0 +1,224 @@
+"""Segment-weighted model aggregation and bank resync (CUDA kernels).
+
+The port of ``repro.kernels.hier_agg``. The two hot-path operations of
+the flat-bank engine each run as one launch of a hand-written CUDA
+kernel (``csrc/hier_agg.cu``, built by ``_build``):
+
+``segment_agg``
+    ``(N, P) bank x (N,) weights x (N,) segment ids -> (E, P)`` f32
+    weighted segment means (Eq. 1 with E edges, Eq. 2 with E = 1).
+    The per-segment inverse weight sums enter the kernel as an ``(E,)``
+    input and the normalization is a multiply inside the kernel, as in
+    the reference.
+``segment_sum_partial``
+    The same launch with a unit scale: unnormalized sums plus the
+    ``(E,)`` weight sums (the per-shard half of the sharded path; the
+    collective itself waits for the multi-GPU bank).
+``segment_broadcast``
+    ``(E, P) models x (N,) segment ids -> (N, P)``, ``out[i] =
+    models[seg_i]`` written in the bank's dtype: the bank resync.
+``hier_agg``
+    The single-segment legacy API.
+
+Dispatch is by the device of the tensors: CPU tensors go to the plain
+versions in ``repro_torch.kernels.ref``; CUDA tensors go to the kernel,
+or the call raises. Every wrapper checks dtype, shape, contiguity and
+device, allocates its outputs with ``torch.empty``, launches on
+``torch.cuda.current_stream()``, raises if the launcher reports a CUDA
+error, and adds one to ``LAUNCHES[<kernel>]`` for each kernel launch.
+The per-segment weight sums are a plain masked reduction (no atomics),
+so results are the same bits on every run.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+# kernel launches since the last reset, per kernel (CPU calls add nothing)
+LAUNCHES = {"segment_agg": 0, "segment_broadcast": 0}
+MAX_SEGMENTS = 32              # the register-accumulator cap of the kernel
+MAX_BROADCAST_ROWS = 65535 * 16  # 16 bank rows per grid row (gridDim.y)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("hier_agg")
+    if not getattr(lib, "_repro_bound", False):
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.repro_segment_agg.argtypes = [vp, i32, vp, vp, vp, vp, i32, i64,
+                                          i32, vp]
+        lib.repro_segment_agg.restype = i32
+        lib.repro_segment_broadcast.argtypes = [vp, vp, vp, i32, i32, i64,
+                                                i32, vp]
+        lib.repro_segment_broadcast.restype = i32
+        lib._repro_bound = True
+    return lib
+
+
+def _check_device(name: str, *tensors) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices "
+                             f"({dev} and {t.device})")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}; the kernel "
+                         f"runs on 'cuda' and its plain version on 'cpu'")
+    return dev
+
+
+def _raise_on_error(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError {rc}")
+
+
+def _launch_segment_agg(bank, w32, seg32, scale, e: int):
+    """Launch the CUDA kernel: (N, P) bank x (N,) f32 w x (N,) int32 ids
+    x (E,) f32 scale -> (E, P) f32."""
+    if bank.dtype not in _DTYPE_CODE:
+        raise TypeError(f"segment_agg: CUDA kernel takes an f32 or bf16 "
+                        f"bank, got {bank.dtype}")
+    if e < 1 or e > MAX_SEGMENTS:
+        raise ValueError(f"segment_agg: the CUDA kernel keeps at most "
+                         f"{MAX_SEGMENTS} segments in registers, got {e}")
+    for nm, t in (("bank", bank), ("weights", w32), ("segment_ids", seg32),
+                  ("scale", scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"segment_agg: {nm} must be contiguous")
+    lib = _lib()
+    n, p = bank.shape
+    out = torch.empty((e, p), dtype=torch.float32, device=bank.device)
+    stream = torch.cuda.current_stream(bank.device).cuda_stream
+    rc = lib.repro_segment_agg(bank.data_ptr(), _DTYPE_CODE[bank.dtype],
+                               w32.data_ptr(), seg32.data_ptr(),
+                               scale.data_ptr(), out.data_ptr(), n, p, e,
+                               stream)
+    _raise_on_error("segment_agg", rc)
+    LAUNCHES["segment_agg"] += 1
+    return out
+
+
+def _check_agg_inputs(bank, weights, segment_ids) -> None:
+    if bank.dim() != 2:
+        raise ValueError(f"segment_agg: bank must be (N, P), got "
+                         f"{tuple(bank.shape)}")
+    n = bank.shape[0]
+    if weights.shape != (n,) or segment_ids.shape != (n,):
+        raise ValueError(f"segment_agg: weights {tuple(weights.shape)} and "
+                         f"segment_ids {tuple(segment_ids.shape)} must be "
+                         f"({n},)")
+    if segment_ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"segment_agg: integer segment ids expected, got "
+                        f"{segment_ids.dtype}")
+    _check_device("segment_agg", bank, weights, segment_ids)
+
+
+def _scaled_segment_sum(bank, weights, segment_ids, scale, e: int):
+    """``scale[j] * sum_{i: seg_i=j} w_i bank[i]``: the kernel on CUDA,
+    the plain version on the CPU."""
+    dev = _check_device("segment_agg", bank, weights, segment_ids, scale)
+    if dev.type == "cpu":
+        return ref.segment_scaled_sum_ref(bank, weights, segment_ids, scale,
+                                          e)
+    return _launch_segment_agg(
+        bank, weights.to(torch.float32).contiguous(),
+        segment_ids.to(torch.int32).contiguous(),
+        scale.to(torch.float32).contiguous(), e)
+
+
+def segment_agg(bank, weights, segment_ids, num_segments: int):
+    """bank: (N, P) f32 or bf16; weights: (N,); segment_ids: (N,) int.
+    Returns the per-segment weighted means (num_segments, P) f32:
+
+        out[j] = sum_{i: seg_i=j} w_i bank[i] * (1 / max(sum w_i, 1e-9))
+
+    Empty segments return zeros (the weight-sum clamp)."""
+    e = int(num_segments)
+    _check_agg_inputs(bank, weights, segment_ids)
+    wsum = ref.segment_weight_sums(weights, segment_ids, e)
+    inv = 1.0 / wsum.clamp_min(1e-9)
+    return _scaled_segment_sum(bank, weights, segment_ids, inv, e)
+
+
+def segment_sum_partial(bank, weights, segment_ids, num_segments: int):
+    """The same launch as ``segment_agg`` with a unit scale. Returns
+
+        sums: (num_segments, P) f32 -- sum_{i: seg_i=j} w_i bank[i]
+        wsum: (num_segments,)   f32 -- sum_{i: seg_i=j} w_i
+    """
+    e = int(num_segments)
+    _check_agg_inputs(bank, weights, segment_ids)
+    wsum = ref.segment_weight_sums(weights, segment_ids, e)
+    sums = _scaled_segment_sum(bank, weights, segment_ids,
+                               torch.ones_like(wsum), e)
+    return sums, wsum
+
+
+def segment_broadcast(models, segment_ids, *, out_dtype=None, out=None):
+    """models: (E, P) f32; segment_ids: (N,) int. Returns (N, P) with
+    ``out[i] = models[segment_ids[i]]`` converted to ``out_dtype``
+    (default: the models' dtype) as it is written: the bank resync.
+
+    ``out`` (port-only): an existing contiguous (N, P) tensor to write
+    into, so a round can resync its bank in place (the counterpart of
+    the reference's buffer donation)."""
+    if models.dim() != 2 or segment_ids.dim() != 1:
+        raise ValueError(f"segment_broadcast: models (E, P) and "
+                         f"segment_ids (N,) expected, got "
+                         f"{tuple(models.shape)} and "
+                         f"{tuple(segment_ids.shape)}")
+    e, p = models.shape
+    n = segment_ids.shape[0]
+    out_dtype = out_dtype or (out.dtype if out is not None
+                              else models.dtype)
+    if out is not None and (out.shape != (n, p) or out.dtype != out_dtype):
+        raise ValueError(f"segment_broadcast: out must be ({n}, {p}) "
+                         f"{out_dtype}, got {tuple(out.shape)} {out.dtype}")
+    tensors = (models, segment_ids) + ((out,) if out is not None else ())
+    dev = _check_device("segment_broadcast", *tensors)
+    if dev.type == "cpu":
+        res = ref.segment_broadcast_ref(models, segment_ids, out_dtype)
+        return res if out is None else out.copy_(res)
+    if models.dtype != torch.float32:
+        raise TypeError(f"segment_broadcast: CUDA kernel takes f32 models, "
+                        f"got {models.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"segment_broadcast: CUDA kernel writes f32 or "
+                        f"bf16, got {out_dtype}")
+    if n > MAX_BROADCAST_ROWS:
+        raise ValueError(f"segment_broadcast: at most "
+                         f"{MAX_BROADCAST_ROWS} rows, got {n}")
+    if not models.is_contiguous() or (out is not None
+                                      and not out.is_contiguous()):
+        raise ValueError("segment_broadcast: models and out must be "
+                         "contiguous")
+    seg32 = segment_ids.to(torch.int32).contiguous()
+    lib = _lib()
+    if out is None:
+        out = torch.empty((n, p), dtype=out_dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.repro_segment_broadcast(models.data_ptr(), seg32.data_ptr(),
+                                     out.data_ptr(), _DTYPE_CODE[out_dtype],
+                                     n, p, e, stream)
+    _raise_on_error("segment_broadcast", rc)
+    LAUNCHES["segment_broadcast"] += 1
+    return out
+
+
+def hier_agg(bank, weights):
+    """Legacy single-segment API. bank: (R, N); weights: (R,). Returns
+    the weighted mean (N,) f32 -- ``segment_agg`` with one segment."""
+    r = bank.shape[0]
+    seg = torch.zeros((r,), dtype=torch.int32, device=bank.device)
+    return segment_agg(bank, weights, seg, 1)[0]

@@ -1,0 +1,123 @@
+"""The paper's testbed CNNs (Arena section 4.1), in PyTorch.
+
+The port of the CNN half of ``repro.models.model``. Parameters are plain
+dicts of tensors in the reference layout: conv weights HWIO
+``(kh, kw, Cin, Cout)``, dense weights ``(in, out)``; the public
+functions take NHWC images. The forward permutes to PyTorch's NCHW/OIHW
+for ``F.conv2d`` and back to NHWC before flattening, so a reference
+parameter dict loads unchanged (``repro_torch.weights``) and the flatten
+order of the first dense layer matches. Convolutions and matmuls are
+library calls, as the JAX package leaves them to XLA.
+
+Init draws from an explicit ``torch.Generator`` with the law of
+``repro.models.common.dense_init``: a normal truncated to [-3, 3], times
+``std`` (``scale`` if given, else ``1/sqrt(fan_in)``); biases are zero.
+The numbers differ from JAX's threefry draws; tests that need the same
+``w(0)`` load the reference's parameters instead.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+
+
+def dense_init(gen: torch.Generator, shape, device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated-normal fan-in init on ``device``, drawn from ``gen``."""
+    fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return t * std
+
+
+def _conv2d(x, w, b):
+    """x: (B, C, H, W); w: HWIO -> (B, Cout, H', W'), VALID padding."""
+    return F.conv2d(x, w.permute(3, 2, 0, 1), b)
+
+
+def _features(x):
+    """NCHW activations -> (B, H*W*C) in the reference's NHWC order."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+def mnist_cnn_init(gen: torch.Generator, device="cuda") -> dict:
+    """2 conv + 2 fc, 21,840 parameters: conv(1->10, 5x5),
+    conv(10->20, 5x5), fc(320->50), fc(50->10)."""
+    dev = resolve_device(device)
+    z = lambda n: torch.zeros((n,), dtype=torch.float32, device=dev)
+    return {
+        "c1_w": dense_init(gen, (5, 5, 1, 10), dev, scale=0.1),
+        "c1_b": z(10),
+        "c2_w": dense_init(gen, (5, 5, 10, 20), dev, scale=0.1),
+        "c2_b": z(20),
+        "f1_w": dense_init(gen, (320, 50), dev),
+        "f1_b": z(50),
+        "f2_w": dense_init(gen, (50, 10), dev),
+        "f2_b": z(10),
+    }
+
+
+def mnist_cnn_apply(params: dict, x):
+    """x: (B, 28, 28, 1) NHWC -> logits (B, 10)."""
+    x = x.permute(0, 3, 1, 2)
+    x = F.max_pool2d(F.relu(_conv2d(x, params["c1_w"], params["c1_b"])), 2)
+    x = F.max_pool2d(F.relu(_conv2d(x, params["c2_w"], params["c2_b"])), 2)
+    x = F.relu(_features(x) @ params["f1_w"] + params["f1_b"])
+    return x @ params["f2_w"] + params["f2_b"]
+
+
+def cifar_cnn_init(gen: torch.Generator, device="cuda") -> dict:
+    """3 conv + 3 fc, 456,906 parameters: conv(3->32, 5x5),
+    conv(32->64, 5x5), conv(64->128, 3x3), fc(1152->256),
+    fc(256->128), fc(128->10)."""
+    dev = resolve_device(device)
+    z = lambda n: torch.zeros((n,), dtype=torch.float32, device=dev)
+    return {
+        "c1_w": dense_init(gen, (5, 5, 3, 32), dev, scale=0.1),
+        "c1_b": z(32),
+        "c2_w": dense_init(gen, (5, 5, 32, 64), dev, scale=0.05),
+        "c2_b": z(64),
+        "c3_w": dense_init(gen, (3, 3, 64, 128), dev, scale=0.05),
+        "c3_b": z(128),
+        "f1_w": dense_init(gen, (1152, 256), dev),
+        "f1_b": z(256),
+        "f2_w": dense_init(gen, (256, 128), dev),
+        "f2_b": z(128),
+        "f3_w": dense_init(gen, (128, 10), dev),
+        "f3_b": z(10),
+    }
+
+
+def cifar_cnn_apply(params: dict, x):
+    """x: (B, 32, 32, 3) NHWC -> logits (B, 10)."""
+    x = x.permute(0, 3, 1, 2)
+    x = F.max_pool2d(F.relu(_conv2d(x, params["c1_w"], params["c1_b"])), 2)
+    x = F.max_pool2d(F.relu(_conv2d(x, params["c2_w"], params["c2_b"])), 2)
+    x = F.relu(_conv2d(x, params["c3_w"], params["c3_b"]))
+    x = F.relu(_features(x) @ params["f1_w"] + params["f1_b"])
+    x = F.relu(x @ params["f2_w"] + params["f2_b"])
+    return x @ params["f3_w"] + params["f3_b"]
+
+
+def cnn_loss(apply_fn: Callable, params: dict, batch: dict):
+    """Mean softmax cross-entropy of ``apply_fn(params, batch["x"])``
+    against integer labels ``batch["y"]``."""
+    logp = F.log_softmax(apply_fn(params, batch["x"]), dim=-1)
+    labels = batch["y"].to(torch.int64)
+    return -logp.gather(1, labels[:, None]).mean()
+
+
+def cnn_accuracy(apply_fn: Callable, params: dict, batch: dict):
+    logits = apply_fn(params, batch["x"])
+    return (logits.argmax(-1) == batch["y"].to(torch.int64)).to(
+        torch.float32).mean()
+
+
+def count_params(params: dict) -> int:
+    return sum(int(p.numel()) for p in params.values())

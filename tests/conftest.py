@@ -22,3 +22,9 @@ import pytest
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped (from inside the "
+        "test) where torch.cuda.is_available() is false")
