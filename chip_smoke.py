@@ -7,8 +7,9 @@ Run from the root of a checkout, on a host with one NVIDIA H100:
 
 Phases, each fatal on failure (the script exits non-zero):
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   nvcc for sm_90a (one nvcc per source, all at once);
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (``hier_agg.cu``, ``flash_attention.cu``, ``wkv6.cu``) with nvcc for
+   sm_90a (one nvcc per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card, on the
    same tensors, at the main path's shapes (MNIST and CIFAR banks, Eq. 1
    with 5 edges and Eq. 2 with 1) in f32 and with a bf16 bank, plus a
@@ -23,11 +24,31 @@ Phases, each fatal on failure (the script exits non-zero):
    ``step`` with a seeded random action -- with the launch counts of
    both kernels read around it and held to what the round's loop
    implies; then the same at the MNIST defaults;
+2b. hold ``flash_attention`` and ``wkv6`` against their plain versions
+   on the card, in bf16 and f32, at the serving path's shapes (qwen3-1.7b
+   prefill and decode, rwkv6-1.6b prefill) plus ragged, windowed, MHA,
+   non-causal and hard-decay cases, each with its stated tolerance, and
+   two runs of each kernel bitwise equal;
+3b. the LLM serving path: a reduced qwen3 and rwkv6 (f32 activations)
+   served on the card against the CPU; then the main path, the full-width
+   qwen3-1.7b and rwkv6-1.6b (random weights from seed 0) through
+   ``repro_torch.launch.serve.greedy_serve``: a (4, 1024) prompt, 32
+   greedy decode steps, the kernel launch counts held to what the loop
+   implies, and every step's logits held against ``Model.logits`` over
+   the whole sequence;
 4. kernel times at the main path's shapes (CIFAR and MNIST, Eq. 1 with
    its resync and Eq. 2): device time per launch from CUDA events around
    a CUDA-graph replay, beside the plain version's, one PyTorch library
    call's, the bound (bytes over 3.35 TB/s), and the eager wrapper's
-   time per call as the round pays it (host dispatch included).
+   time per call as the round pays it (host dispatch included);
+4b. the same for ``flash_attention`` (qwen3 prefill and decode, with
+   ``scaled_dot_product_attention`` as the library yardstick) and
+   ``wkv6`` (rwkv6 prefill; no single library call computes it), with
+   the bound the larger of bytes over 3.35 TB/s and the operations the
+   function needs over the card's peak rate for them: for attention the
+   products at the bf16 rate and one exponential per visible score at
+   the SFU rate, for the WKV recurrence its multiply-adds at the f32
+   rate.
 
 It prints the card's name and power limit, then one JSON line of the
 kernels, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -43,12 +64,44 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-KERNEL_SRC = "src/repro_torch/kernels/csrc/hier_agg.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+KERNEL_SRC = {"segment_agg": CSRC + "hier_agg.cu",
+              "segment_broadcast": CSRC + "hier_agg.cu",
+              "flash_attention": CSRC + "flash_attention.cu",
+              "wkv6": CSRC + "wkv6.cu"}
 REPLACES = {"segment_agg": "src/repro/kernels/hier_agg.py:84",
-            "segment_broadcast": "src/repro/kernels/hier_agg.py:194"}
+            "segment_broadcast": "src/repro/kernels/hier_agg.py:194",
+            "flash_attention": "src/repro/kernels/flash_attention.py:24",
+            "wkv6": "src/repro/kernels/wkv6.py:29"}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+# exponentials: 16 per clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0) x 132 SMs x
+# the H100 SXM's 1.98 GHz boost clock
+EXP_PER_S = 16 * 132 * 1.98e9
 AGG_TOL = 1e-5                  # segment_agg vs plain: summation order
+# flash_attention vs plain: both compute in f32 (online vs one-pass
+# softmax, other summation orders): 1e-5 in f32; in bf16 both round that
+# f32 result to bf16, so they may differ by one bf16 ulp (2^-8 relative)
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# wkv6 vs plain: chunked sums of O(10) terms in other orders, and __expf
+# in the kernel: the reference's own wkv6 kernel tolerance; 1e-3 for hard
+# decays, as in the reference's hard-decay test
+WKV_TOL = 2e-4
+WKV_HARD_TOL = 1e-3
+# the served model: logits of prefill + decode against Model.logits over
+# the whole sequence, relative L2 error per step. With the configs' bf16
+# activations the two paths round at other places (GEMMs of 4 rows and of
+# 4224 rows pick other cuBLAS kernels, and the decode runs the one-token
+# RWKV update where the forward runs wkv6), and random weights amplify
+# the differences through 24-28 layers: 0.1 (measured: 1.4e-2 for qwen3,
+# 5.2e-2 for rwkv6, NVIDIA H100, chip_smoke.py). The same weights with
+# f32 activations hold the two paths to summation order: 1e-3.
+SERVE_REL = {"bfloat16": 0.1, "float32": 1e-3}
+# a reduced model on the card (kernels) vs the CPU (plain versions), f32
+# activations, TF32 off: the f32 parity tolerance of the CPU tests
+SMALL_SERVE_TOL = 1e-4
 
 
 def fail(msg: str):
@@ -199,13 +252,15 @@ def small_round_check(torch, hfl, model, dev) -> None:
 def expected_launches(rounds, gamma_max: int) -> dict:
     """Launches the cloud round's loop implies: per round one
     segment_agg for the starting edge models, one segment_agg and one
-    segment_broadcast per executed t2 step, one segment_agg for Eq. 2."""
+    segment_broadcast per executed t2 step, one segment_agg for Eq. 2;
+    no LLM kernel."""
     agg = bcast = 0
     for _, g2 in rounds:
         steps = min(gamma_max, int(np.max(g2)))
         agg += 2 + steps
         bcast += steps
-    return {"segment_agg": agg, "segment_broadcast": bcast}
+    return {"segment_agg": agg, "segment_broadcast": bcast,
+            "flash_attention": 0, "wkv6": 0}
 
 
 def main_path(torch, ops, env_mod, task: str, dev) -> dict:
@@ -250,7 +305,7 @@ def main_path(torch, ops, env_mod, task: str, dev) -> dict:
     want = expected_launches(rounds, gmax)
     print(f"    launches {counts} (expected {want})")
     check(counts == want, f"{task}: launch counts {counts} != {want}")
-    check(all(v > 0 for v in counts.values()),
+    check(counts["segment_agg"] > 0 and counts["segment_broadcast"] > 0,
           f"{task}: a kernel was not launched on the main path")
     check(state.shape == env.state_shape and np.isfinite(state).all(),
           f"{task}: bad state {state.shape}")
@@ -339,10 +394,380 @@ def timings(torch, hier_agg, ops, ref, dev, counts: dict, err: dict):
     and its resync)."""
     per_shape = {name: time_shape(torch, hier_agg, ops, ref, dev, n, p, e)
                  for name, n, p, e in TIMED}
-    return [dict(name=k, route="cuda", source=KERNEL_SRC,
-                 replaces=REPLACES[k], launches=counts[k],
-                 max_abs_err=err[k], **per_shape["cifar-eq1"][k])
-            for k in ("segment_agg", "segment_broadcast")]
+    rows = []
+    for k in ("segment_agg", "segment_broadcast"):
+        t = dict(per_shape["cifar-eq1"][k])
+        t.pop("call_ms")
+        rows.append(dict(name=k, route="cuda", source=KERNEL_SRC[k],
+                         replaces=REPLACES[k], launches=counts[k],
+                         max_abs_err=err[k], **t))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the LLM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (name, B, H, Hkv, Sq, Skv, D, causal, window, q_offset)
+FLASH_CASES = [("qwen3-prefill", 4, 16, 8, 1024, 1024, 128, True, 0, 0),
+               ("qwen3-decode", 4, 16, 8, 1, 1056, 128, True, 0, 1055),
+               ("ragged", 2, 16, 8, 1000, 1000, 128, True, 0, 0),
+               ("window-64", 1, 4, 2, 256, 256, 64, True, 64, 0),
+               ("window-128", 1, 4, 2, 256, 256, 64, True, 128, 0),
+               ("mha", 2, 8, 8, 512, 512, 128, True, 0, 0),
+               ("non-causal", 2, 4, 4, 200, 200, 64, False, 0, 0)]
+# (name, B, S, nh, chunk, decay range)
+WKV_CASES = [("rwkv6-prefill", 4, 1024, 32, 64, (0.3, 0.999)),
+             ("ragged", 2, 1000, 8, 64, (0.3, 0.999)),
+             ("hard-decay", 1, 256, 4, 32, (1e-4, 0.1))]
+MAIN_FLASH = ("qwen3-prefill", "qwen3-decode")
+
+
+def flash_inputs(torch, dev, b, h, hkv, sq, skv, d, dtype, seed=0):
+    """q, k, v as the model passes them: (B, S, H, D) projections seen as
+    (B, H, S, D) transposed views."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda s_, n: torch.randn((b, s_, n, d), generator=gen,
+                                   device=dev).to(dtype).transpose(1, 2)
+    return mk(sq, h), mk(skv, hkv), mk(skv, hkv)
+
+
+def wkv_inputs(torch, dev, b, s, nh, lohi, rkv_dtype, seed=0):
+    """r, k, v in the model's activation dtype, the decay w in f32 (as
+    ``time_mix_forward`` passes them), and u."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rkv = [torch.randn((b, s, nh, 64), generator=gen, device=dev).to(
+        rkv_dtype) for _ in range(3)]
+    lo, hi = lohi
+    w = torch.rand((b, s, nh, 64), generator=gen, device=dev) * (hi - lo) + lo
+    u = torch.randn((nh, 64), generator=gen, device=dev)
+    return (*rkv, w, u)
+
+
+def llm_kernel_checks(torch, ops, ref, dev) -> dict:
+    """Each LLM kernel against its plain version on the same tensors;
+    returns the max abs error at the serving path's own shapes (bf16)."""
+    err = {"flash_attention": 0.0, "wkv6": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        for name, b, h, hkv, sq, skv, d, causal, win, off in FLASH_CASES:
+            q, k, v = flash_inputs(torch, dev, b, h, hkv, sq, skv, d, dtype)
+            kw = dict(causal=causal, window=win, q_offset=off)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            e = float((got.float() - want.float()).abs().max())
+            check(got.dtype == dtype and got.shape == (b, h, sq, d),
+                  f"flash_attention {name}: {got.dtype} {tuple(got.shape)}")
+            check(torch.allclose(got.float(), want.float(), atol=tol,
+                                 rtol=tol),
+                  f"flash_attention {name} {dtype}: max abs err {e}")
+            check(torch.equal(got, ops.flash_attention(q, k, v, **kw)),
+                  f"flash_attention {name} {dtype}: two runs differ")
+            if dtype == torch.bfloat16 and name in MAIN_FLASH:
+                err["flash_attention"] = max(err["flash_attention"], e)
+            print(f"  flash_attention {name:13s} {str(dtype):14s} "
+                  f"q {(b, h, sq, d)} kv {(b, hkv, skv, d)} causal "
+                  f"{causal} window {win} q_offset {off}: max|err| {e:.3e}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, s, nh, chunk, lohi in WKV_CASES:
+            r, k, v, w, u = wkv_inputs(torch, dev, b, s, nh, lohi, dtype)
+            y, st = ops.wkv6(r, k, v, w, u, chunk=chunk)
+            yw, stw = ref.wkv6_ref(r, k, v, w, u, chunk=chunk)
+            tol = WKV_HARD_TOL if name == "hard-decay" else WKV_TOL
+            e = float((y - yw).abs().max())
+            es = float((st - stw).abs().max())
+            check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+                  f"wkv6 {name}: not finite")
+            check(torch.allclose(y, yw, atol=tol, rtol=tol)
+                  and torch.allclose(st, stw, atol=tol, rtol=tol),
+                  f"wkv6 {name} {dtype}: max abs err y {e}, state {es}")
+            y2, st2 = ops.wkv6(r, k, v, w, u, chunk=chunk)
+            check(torch.equal(y, y2) and torch.equal(st, st2),
+                  f"wkv6 {name} {dtype}: two runs differ")
+            if dtype == torch.bfloat16 and name == "rwkv6-prefill":
+                err["wkv6"] = max(e, es)
+            print(f"  wkv6 {name:13s} r/k/v {str(dtype):14s} (B, S, nh, hd)"
+                  f" {(b, s, nh, 64)} chunk {chunk}: max|err| y {e:.3e}, "
+                  f"state {es:.3e}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the LLM serving path
+# ---------------------------------------------------------------------------
+
+def rel_err(torch, got, want) -> float:
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def small_serve_check(torch, configs, model_mod, dev) -> None:
+    """Reduced qwen3 and rwkv6 with f32 activations, the same weights and
+    tokens, prefill(16, max_new 4) + 4 teacher-forced decode steps on the
+    card (kernels) and on the CPU (plain versions)."""
+    import dataclasses
+    from repro_torch.data.synthetic import token_batch
+    for arch in ("qwen3-1.7b", "rwkv6-1.6b"):
+        cfg = dataclasses.replace(configs.get_config(arch).reduce(),
+                                  activ_dtype="float32")
+        model = model_mod.build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(3), "cpu")
+        toks = token_batch(2, 2, 20, cfg.vocab, "cpu")["tokens"]
+        outs = []
+        for d in ("cpu", dev):
+            p = _tree_to(params, d)
+            t = toks.to(d)
+            lg, cache = model.prefill(p, t[:, :16], max_new=4)
+            steps = [lg]
+            for i in range(16, 20):
+                lg, cache = model.decode_step(p, cache, t[:, i:i + 1])
+                steps.append(lg)
+            outs.append((steps, cache))
+        errs = []
+        for a, b in zip(outs[0][0], outs[1][0]):
+            errs.append(float((a - b.cpu()).abs().max()))
+            check(torch.allclose(b.cpu(), a, atol=SMALL_SERVE_TOL,
+                                 rtol=SMALL_SERVE_TOL),
+                  f"small serve {arch}: logits differ between CPU and GPU")
+        for k, a in outs[0][1].items():
+            if k != "t":
+                b = outs[1][1][k].cpu()
+                errs.append(float((a.float() - b.float()).abs().max()))
+                check(torch.allclose(b.float(), a.float(),
+                                     atol=SMALL_SERVE_TOL,
+                                     rtol=SMALL_SERVE_TOL),
+                      f"small serve {arch}: cache {k} differs")
+        print(f"  reduced {arch} (f32 activations), prefill 16 + 4 decode "
+              f"steps: GPU vs CPU max|err| {max(errs):.3e} (tolerance "
+              f"{SMALL_SERVE_TOL})")
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def serve_path(torch, ops, configs, model_mod, serve, arch, dev) -> dict:
+    """The full-width model through ``greedy_serve``: a (4, 1024) prompt,
+    32 greedy decode steps, launch counts held to what the loop implies;
+    then ``Model.logits`` over prompt + fed tokens, held against every
+    step's logits; then the same weights served with f32 activations and
+    held the same way."""
+    import dataclasses
+    from repro_torch.data.synthetic import token_batch
+    batch, prompt, new = 4, 1024, 32
+    cfg = configs.get_config(arch)
+    model = model_mod.build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    t_init = sync_time(torch) - t0
+    n_par = sum(int(t.numel()) for t in _leaves(params))
+    toks = token_batch(0, batch, prompt, cfg.vocab, dev)["tokens"]
+    print(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {n_par / 1e9:.3f} B f32 params "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated), "
+          f"init {t_init:.2f} s")
+    serve.greedy_serve(cfg, params, toks[:1, :64], 2)        # warm-up
+    ops.reset_launches()
+    res = serve.greedy_serve(cfg, params, toks, new)
+    counts = dict(ops.LAUNCHES)
+    want = {"segment_agg": 0, "segment_broadcast": 0,
+            "flash_attention": 0, "wkv6": 0}
+    if cfg.family == "dense":
+        want["flash_attention"] = cfg.n_layers * (1 + new)
+    else:
+        want["wkv6"] = cfg.n_layers
+    print(f"    prefill {prompt} tokens x{batch}: {res['prefill_s']:.4f} s; "
+          f"{new} decode steps x{batch}: {res['decode_s']:.4f} s "
+          f"({res['tok_per_s']:.1f} tok/s)")
+    print(f"    greedy tokens (first sequence): {res['tokens'][0].tolist()}")
+    print(f"    launches {counts} (expected {want})")
+    check(counts == want, f"{arch}: launch counts {counts} != {want}")
+    rel = logits_check(torch, ops, model, cfg, params, toks, res)
+    out = {"counts": counts, "prefill_s": res["prefill_s"],
+           "decode_s": res["decode_s"], "tok_per_s": res["tok_per_s"],
+           "rel_err": rel}
+    del res
+    profile_decode(torch, serve, cfg, params, toks)
+    cfg32 = dataclasses.replace(cfg, activ_dtype="float32")
+    res32 = serve.greedy_serve(cfg32, params, toks, new)
+    print(f"    f32 activations: prefill {res32['prefill_s']:.4f} s, "
+          f"{res32['tok_per_s']:.1f} tok/s")
+    logits_check(torch, ops, model_mod.build_model(cfg32), cfg32, params,
+                 toks, res32)
+    del params, res32
+    torch.cuda.empty_cache()
+    return out
+
+
+def logits_check(torch, ops, model, cfg, params, toks, res) -> float:
+    """``Model.logits`` over prompt + fed tokens (one launch of the
+    path's kernel per layer) against every step's logits; returns the
+    largest per-step relative L2 error."""
+    prompt = toks.shape[1]
+    seq = torch.cat([toks, res["tokens"]], dim=1)
+    ops.reset_launches()
+    with torch.no_grad():
+        full = model.logits(params, {"tokens": seq})
+    counts = dict(ops.LAUNCHES)
+    kern = "flash_attention" if cfg.family == "dense" else "wkv6"
+    check(counts[kern] == cfg.n_layers,
+          f"{cfg.name}: Model.logits launched {counts}")
+    errs, maxabs = [], 0.0
+    for i, lg in enumerate(res["logits"]):
+        ref_lg = full[:, prompt - 1 + i]
+        check(lg.shape == ref_lg.shape
+              and bool(torch.isfinite(lg.float()).all()),
+              f"{cfg.name}: step {i} logits {tuple(lg.shape)} not finite")
+        errs.append(rel_err(torch, lg, ref_lg))
+        maxabs = max(maxabs, float((lg.float() - ref_lg.float()).abs().max()))
+    # greedy tokens the full forward would pick at the same positions
+    agree = float((full[:, prompt - 1:-1].argmax(-1) == res["tokens"]
+                   ).float().mean())
+    tol = SERVE_REL[cfg.activ_dtype]
+    print(f"    Model.logits ({cfg.activ_dtype}) over {seq.shape[1]} tokens "
+          f"({counts[kern]} {kern} launches): per-step relative L2 error "
+          f"prefill {errs[0]:.3e}, decode max {max(errs[1:]):.3e}, mean "
+          f"{sum(errs[1:]) / len(errs[1:]):.3e} (tolerance {tol}); max abs "
+          f"err {maxabs:.3e}, logits max abs "
+          f"{float(full.float().abs().max()):.3f}; greedy tokens the full "
+          f"forward also picks: {agree:.4f}")
+    check(max(errs) <= tol, f"{cfg.name}: decode logits differ from "
+          f"Model.logits by {max(errs)} ({cfg.activ_dtype})")
+    return max(errs)
+
+
+def profile_decode(torch, serve, cfg, params, toks) -> None:
+    """Decode steps after a 1024-token prefill: the wall of an unprofiled
+    step (mean of 4), then one step under torch.profiler for the device
+    time by kernel and the number of kernels launched. The device's busy
+    share is that device time over the unprofiled wall: the profiler's
+    own cost per launch inflates the wall of the step it traces."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        _, cache = serve.make_prefill_step(cfg, max_new=6)(
+            params, {"tokens": toks})
+        nxt = toks[:, -1:]
+        step = serve.make_decode_step(cfg)
+        step(params, cache, nxt)                              # warm-up
+        t0 = sync_time(torch)
+        for _ in range(4):
+            step(params, cache, nxt)
+        wall = (sync_time(torch) - t0) / 4
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, cache, nxt)
+            wall_prof = sync_time(torch) - t0
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+    if not rows:
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "self_device_time_total", 0) > 0]
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    n_kern = sum(e.count for e in rows)
+    print(f"    one decode step: unprofiled wall {wall * 1e3:.2f} ms (mean "
+          f"of 4), device busy {dev_ms:.2f} ms under torch.profiler "
+          f"({dev_ms / (wall * 1e3) * 100:.1f}% of the unprofiled wall; "
+          f"the profiled step's wall {wall_prof * 1e3:.2f} ms), {n_kern} "
+          f"kernel launches; top device time:")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"      {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:4d}"
+              f"  {e.key[:90]}")
+    del cache
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: times of the LLM kernels
+# ---------------------------------------------------------------------------
+
+def visible_pairs(sq, skv, causal, window, q_offset) -> int:
+    """(query, key) pairs the masks leave visible: the work the
+    attention's data needs."""
+    qpos = q_offset + np.arange(sq)
+    hi = np.minimum(skv, qpos + 1) if causal else np.full(sq, skv)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def bound(nbytes, flops, flops_per_s, exps):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / flops_per_s, exps / EXP_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def time_llm(torch, ops, ref, dev) -> dict:
+    import torch.nn.functional as F
+    res = {}
+    before = dict(ops.LAUNCHES)
+    for name in MAIN_FLASH:
+        _, b, h, hkv, sq, skv, d, causal, win, off = next(
+            c for c in FLASH_CASES if c[0] == name)
+        q, k, v = flash_inputs(torch, dev, b, h, hkv, sq, skv, d,
+                               torch.bfloat16, seed=1)
+        kw = dict(causal=causal, window=win, q_offset=off)
+        # the yardstick: with q_offset = Skv - 1 a one-row decode sees
+        # every key, so SDPA without a mask computes the same function
+        lib_causal = causal and sq > 1
+        lib = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=lib_causal, enable_gqa=True)
+        check(torch.allclose(lib().float(), ops.flash_attention(
+            q, k, v, **kw).float(), atol=2e-2, rtol=2e-2),
+            f"SDPA yardstick disagrees at {name}")
+        pairs = b * h * visible_pairs(sq, skv, causal, win, off)
+        nbytes = 2 * (2 * b * h * sq * d + 2 * b * hkv * skv * d)
+        t_b, by = bound(nbytes, 4 * d * pairs, BF16_FLOPS_PER_S, pairs)
+        res[(name, "flash_attention")] = _times(
+            torch, lambda: ops.flash_attention(q, k, v, **kw),
+            lambda: ref.flash_attention_ref(q, k, v, **kw), lib, t_b, by,
+            f"flash_attention {name} bf16", nbytes)
+    _, b, s, nh, chunk, lohi = WKV_CASES[0]
+    r, k, v, w, u = wkv_inputs(torch, dev, b, s, nh, lohi, torch.bfloat16,
+                               seed=1)
+    hd = 64
+    nbytes = 3 * 2 * b * s * nh * hd + 4 * b * s * nh * hd + 4 * nh * hd \
+        + 4 * b * s * nh * hd + 4 * b * nh * hd * hd
+    # what the recurrence needs, not what this kernel's chunked log-space
+    # algorithm spends: per token and head a multiply-add per state
+    # element for S += k v^T (the decay's scaling amortised over a chunk)
+    # and one for y = r . S, 4 hd^2 flops in f32; no exponentials
+    t_b, by = bound(nbytes, 4 * hd * hd * b * s * nh, F32_FLOPS_PER_S, 0)
+    res[("rwkv6-prefill", "wkv6")] = _times(
+        torch, lambda: ops.wkv6(r, k, v, w, u, chunk=chunk),
+        lambda: ref.wkv6_ref(r, k, v, w, u, chunk=chunk), None, t_b, by,
+        "wkv6 rwkv6-prefill r/k/v bf16, w f32", nbytes)
+    ops.LAUNCHES.update(before)           # timing launches do not count
+    return res
+
+
+def _times(torch, kern, plain, lib, t_bound, by, label, nbytes) -> dict:
+    """kernel and plain in turns (plain, kernel, kernel, plain), the
+    library call, and the eager wrapper."""
+    t_call = event_ms(torch, kern, iters=20)
+    t_p1 = graph_ms(torch, plain, iters=5)
+    t_k1 = graph_ms(torch, kern, iters=20)
+    t_k2 = graph_ms(torch, kern, iters=20)
+    t_p2 = graph_ms(torch, plain, iters=5)
+    t_lib = graph_ms(torch, lib, iters=20) if lib is not None else None
+    ms = min(t_k1, t_k2)
+    lib_txt = f"{t_lib:.4f} ms" if t_lib is not None else "none"
+    print(f"  {label}: kernel {t_k1:.4f}/{t_k2:.4f} ms, plain {t_p1:.4f}/"
+          f"{t_p2:.4f} ms, library {lib_txt}, eager wrapper call "
+          f"{t_call:.4f} ms, {nbytes / 1e6:.2f} MB, bound "
+          f"{t_bound * 1e3:.2f} us by {by} ({t_bound / ms * 100:.1f}% of "
+          f"bound)")
+    return {"ms": ms, "plain_ms": min(t_p1, t_p2), "bound_ms": t_bound,
+            "bound_by": by, "library_ms": t_lib, "call_ms": t_call}
 
 
 def main() -> int:
@@ -357,8 +782,12 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    from repro_torch import configs
     from repro_torch.core import hfl
-    from repro_torch.kernels import _build, hier_agg, ops, ref
+    from repro_torch.device import disable_tf32
+    from repro_torch.kernels import _build, flash_attention, hier_agg, ops
+    from repro_torch.kernels import ref, wkv6
+    from repro_torch.launch import serve
     from repro_torch.models import model
     from repro_torch.sim import env as env_mod
 
@@ -375,24 +804,48 @@ def main() -> int:
         print(f"  nvcc {name}.cu:\n    " + "\n    ".join(
             ln for ln in log.strip().splitlines() if ln.strip()))
     lib_t0 = time.perf_counter()
-    hier_agg._lib()
+    for mod in (hier_agg, flash_attention, wkv6):
+        mod._lib()
     print(f"  built in {t_build:.2f} s, loaded in "
           f"{time.perf_counter() - lib_t0:.3f} s")
 
     print("phase 2: kernels against their plain versions (atol=rtol=1e-5 "
           "for segment_agg, bitwise for segment_broadcast)")
     err = kernel_checks(torch, ops, ref, dev)
+    print("phase 2b: LLM kernels against their plain versions (flash: "
+          f"atol=rtol {FLASH_TOL}; wkv6: atol=rtol {WKV_TOL}, hard decay "
+          f"{WKV_HARD_TOL})")
+    err.update(llm_kernel_checks(torch, ops, ref, dev))
 
     print("phase 3: the main path")
     small_round_check(torch, hfl, model, dev)
     runs = {task: main_path(torch, ops, env_mod, task, dev)
             for task in ("cifar", "mnist")}
 
+    print("phase 3b: the LLM serving path")
+    disable_tf32()
+    small_serve_check(torch, configs, model, dev)
+    served = {arch: serve_path(torch, ops, configs, model, serve, arch, dev)
+              for arch in ("qwen3-1.7b", "rwkv6-1.6b")}
+
     print("phase 4: times per call, CUDA events around a CUDA-graph "
           "replay of 50 calls (kernel and plain each twice, in turns); "
           "the eager wrapper call is 50 back-to-back calls")
     rows = timings(torch, hier_agg, ops, ref, dev, runs["cifar"]["counts"],
                    err)
+    print("phase 4b: LLM kernel times, CUDA events around a CUDA-graph "
+          "replay (20 kernel calls, 5 plain calls; kernel and plain each "
+          "twice, in turns); the eager wrapper call is 20 back-to-back calls")
+    llm = time_llm(torch, ops, ref, dev)
+    for name, shape, arch in (("flash_attention", "qwen3-prefill",
+                               "qwen3-1.7b"),
+                              ("wkv6", "rwkv6-prefill", "rwkv6-1.6b")):
+        t = dict(llm[(shape, name)])
+        t.pop("call_ms")
+        rows.append(dict(name=name, route="cuda", source=KERNEL_SRC[name],
+                         replaces=REPLACES[name],
+                         launches=served[arch]["counts"][name],
+                         max_abs_err=err[name], **t))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

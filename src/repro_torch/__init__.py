@@ -7,9 +7,15 @@ host that has no JAX installed.
 
 Every entry point defaults to ``device="cuda"`` and raises where no
 card is present (``repro_torch.device.resolve_device``); the CPU runs
-only when a caller passes ``device="cpu"``, as the tests do. The two
-hot-path kernels of the synchronous cloud round (``segment_agg`` for
-Eqs. 1/2 and ``segment_broadcast`` for the edge->device resync) are
-hand-written CUDA C++ for ``sm_90a`` under ``kernels/csrc/``; they are
-compiled with ``nvcc`` at first use (``kernels/_build.py``).
+only when a caller passes ``device="cpu"``, as the tests do.
+
+Two paths are ported. The synchronous cloud round of the HFL simulator
+(``sim``, ``core``) runs its aggregation kernels ``segment_agg`` (Eqs.
+1/2) and ``segment_broadcast`` (the edge->device resync). The LLM
+serving path (``configs``, ``models``, ``launch.serve``: prefill, then
+greedy one-token decode of the ``dense`` and ``ssm`` families, e.g.
+qwen3-1.7b and rwkv6-1.6b) runs ``flash_attention`` for every attention
+and ``wkv6`` for every multi-token RWKV6 time-mix. All four kernels are
+hand-written CUDA C++ for ``sm_90a`` under ``kernels/csrc/``, compiled
+with ``nvcc`` at first use (``kernels/_build.py``).
 """

@@ -1,4 +1,4 @@
-"""Synthetic datasets and the federated partitioners."""
+"""Synthetic datasets, LM token batches and the federated partitioners."""
 from repro_torch.data.federated import (  # noqa: F401
     FederatedDataset,
     make_federated,
@@ -6,4 +6,8 @@ from repro_torch.data.federated import (  # noqa: F401
     partition_iid,
     partition_label_k,
 )
-from repro_torch.data.synthetic import synth_cifar, synth_mnist  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    synth_cifar,
+    synth_mnist,
+    token_batch,
+)

@@ -1,4 +1,5 @@
-"""Synthetic MNIST/CIFAR-like datasets; the port of ``repro.data.synthetic``.
+"""Synthetic MNIST/CIFAR-like datasets and LM token batches; the port of
+``repro.data.synthetic``.
 
 Class-conditional structured images: each class has a random
 low-frequency template; samples are template + per-sample noise + a
@@ -64,3 +65,15 @@ def synth_cifar(n_train: int = 50000, n_test: int = 10000, seed: int = 1,
     Lower sharpness than MNIST: a harder task, as in the paper."""
     rng = np.random.default_rng(seed)
     return _split(rng, 32, 3, 0.28, n_train, n_test, device)
+
+
+def token_batch(rng_seed: int, batch: int, seq: int, vocab: int,
+                device="cuda"):
+    """LM smoke-test batch: structured random tokens (Zipf-ish) with
+    shifted labels, the reference's numpy draws, as int32 tensors on
+    ``device``: {"tokens": (batch, seq), "labels": (batch, seq)}."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(rng_seed)
+    z = rng.zipf(1.3, size=(batch, seq + 1))
+    toks = torch.from_numpy(np.minimum(z, vocab - 1).astype(np.int32))
+    return {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}

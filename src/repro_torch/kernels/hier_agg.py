@@ -35,20 +35,17 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels._common import (  # noqa: F401
+    DTYPE_CODE,
+    LAUNCHES,
+    check_device,
+    raise_on_error,
+    reset_launches,
+)
 
-# kernel launches since the last reset, per kernel (CPU calls add nothing)
-LAUNCHES = {"segment_agg": 0, "segment_broadcast": 0}
 MAX_SEGMENTS = 32              # the register-accumulator cap of the kernel
 MAX_BROADCAST_ROWS = 65535 * 16  # 16 bank rows per grid row (gridDim.y)
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -65,28 +62,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_device(name: str, *tensors) -> torch.device:
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on different devices "
-                             f"({dev} and {t.device})")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}; the kernel "
-                         f"runs on 'cuda' and its plain version on 'cpu'")
-    return dev
-
-
-def _raise_on_error(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
-                           f"cudaError {rc}")
-
-
 def _launch_segment_agg(bank, w32, seg32, scale, e: int):
     """Launch the CUDA kernel: (N, P) bank x (N,) f32 w x (N,) int32 ids
     x (E,) f32 scale -> (E, P) f32."""
-    if bank.dtype not in _DTYPE_CODE:
+    if bank.dtype not in DTYPE_CODE:
         raise TypeError(f"segment_agg: CUDA kernel takes an f32 or bf16 "
                         f"bank, got {bank.dtype}")
     if e < 1 or e > MAX_SEGMENTS:
@@ -100,11 +79,11 @@ def _launch_segment_agg(bank, w32, seg32, scale, e: int):
     n, p = bank.shape
     out = torch.empty((e, p), dtype=torch.float32, device=bank.device)
     stream = torch.cuda.current_stream(bank.device).cuda_stream
-    rc = lib.repro_segment_agg(bank.data_ptr(), _DTYPE_CODE[bank.dtype],
+    rc = lib.repro_segment_agg(bank.data_ptr(), DTYPE_CODE[bank.dtype],
                                w32.data_ptr(), seg32.data_ptr(),
                                scale.data_ptr(), out.data_ptr(), n, p, e,
                                stream)
-    _raise_on_error("segment_agg", rc)
+    raise_on_error("segment_agg", rc)
     LAUNCHES["segment_agg"] += 1
     return out
 
@@ -121,13 +100,13 @@ def _check_agg_inputs(bank, weights, segment_ids) -> None:
     if segment_ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"segment_agg: integer segment ids expected, got "
                         f"{segment_ids.dtype}")
-    _check_device("segment_agg", bank, weights, segment_ids)
+    check_device("segment_agg", bank, weights, segment_ids)
 
 
 def _scaled_segment_sum(bank, weights, segment_ids, scale, e: int):
     """``scale[j] * sum_{i: seg_i=j} w_i bank[i]``: the kernel on CUDA,
     the plain version on the CPU."""
-    dev = _check_device("segment_agg", bank, weights, segment_ids, scale)
+    dev = check_device("segment_agg", bank, weights, segment_ids, scale)
     if dev.type == "cpu":
         return ref.segment_scaled_sum_ref(bank, weights, segment_ids, scale,
                                           e)
@@ -186,14 +165,14 @@ def segment_broadcast(models, segment_ids, *, out_dtype=None, out=None):
         raise ValueError(f"segment_broadcast: out must be ({n}, {p}) "
                          f"{out_dtype}, got {tuple(out.shape)} {out.dtype}")
     tensors = (models, segment_ids) + ((out,) if out is not None else ())
-    dev = _check_device("segment_broadcast", *tensors)
+    dev = check_device("segment_broadcast", *tensors)
     if dev.type == "cpu":
         res = ref.segment_broadcast_ref(models, segment_ids, out_dtype)
         return res if out is None else out.copy_(res)
     if models.dtype != torch.float32:
         raise TypeError(f"segment_broadcast: CUDA kernel takes f32 models, "
                         f"got {models.dtype}")
-    if out_dtype not in _DTYPE_CODE:
+    if out_dtype not in DTYPE_CODE:
         raise TypeError(f"segment_broadcast: CUDA kernel writes f32 or "
                         f"bf16, got {out_dtype}")
     if n > MAX_BROADCAST_ROWS:
@@ -209,9 +188,9 @@ def segment_broadcast(models, segment_ids, *, out_dtype=None, out=None):
         out = torch.empty((n, p), dtype=out_dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.repro_segment_broadcast(models.data_ptr(), seg32.data_ptr(),
-                                     out.data_ptr(), _DTYPE_CODE[out_dtype],
+                                     out.data_ptr(), DTYPE_CODE[out_dtype],
                                      n, p, e, stream)
-    _raise_on_error("segment_broadcast", rc)
+    raise_on_error("segment_broadcast", rc)
     LAUNCHES["segment_broadcast"] += 1
     return out
 

@@ -1,30 +1,21 @@
 """Public kernel entry points, under the names ``repro.kernels.ops`` uses.
 
 ``segment_agg``, ``segment_sum_partial``, ``segment_broadcast`` and
-``hier_agg`` are the flat-bank hot path (``core/hfl.py``). They run the
-CUDA kernels of ``hier_agg`` for CUDA tensors and the plain versions for
-CPU tensors. ``flash_attention`` and ``wkv6`` serve only the LLM path,
-which is not ported yet.
+``hier_agg`` are the flat-bank hot path (``core/hfl.py``);
+``flash_attention`` (every attention of the dense LLMs) and ``wkv6``
+(every multi-token RWKV6 time-mix) serve the LLM path (``models/``,
+``launch/serve.py``). Each runs its CUDA kernel for CUDA tensors and its
+plain version (``kernels/ref.py``) for CPU tensors; ``LAUNCHES`` counts
+the kernel launches.
 """
 from __future__ import annotations
 
+from repro_torch.kernels._common import LAUNCHES, reset_launches  # noqa: F401
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.hier_agg import (  # noqa: F401
-    LAUNCHES,
     hier_agg,
-    reset_launches,
     segment_agg,
     segment_broadcast,
     segment_sum_partial,
 )
-
-
-def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
-    raise NotImplementedError(
-        "flash_attention is not ported yet: see ROADMAP.md, 'TPU kernels "
-        "still to port', kernels/flash_attention.py::_flash_kernel")
-
-
-def wkv6(r, k, v, w, u, *, chunk=64):
-    raise NotImplementedError(
-        "wkv6 is not ported yet: see ROADMAP.md, 'TPU kernels still to "
-        "port', kernels/wkv6.py::_wkv_kernel")
+from repro_torch.kernels.wkv6 import wkv6  # noqa: F401

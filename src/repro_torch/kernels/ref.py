@@ -1,15 +1,20 @@
-"""Plain PyTorch versions of the aggregation kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Each function states in tensor operations what a kernel of
-``repro_torch.kernels.hier_agg`` computes. The kernel wrappers use them
-for tensors that lie on the CPU, and ``chip_smoke.py`` holds each CUDA
+Each function states in tensor operations what a CUDA kernel of
+``repro_torch.kernels`` computes. The kernel wrappers use them for
+tensors that lie on the CPU, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. They mirror the oracles of
 ``repro.kernels.ref`` (``segment_agg_ref``, ``segment_broadcast_ref``,
-``hier_agg_ref``).
+``hier_agg_ref``, ``flash_attention_ref``, ``wkv6_ref``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30          # the reference's finite mask value
 
 
 def segment_weight_sums(weights, segment_ids, num_segments: int):
@@ -70,3 +75,74 @@ def hier_agg_ref(bank, weights):
     w = weights.to(torch.float32)
     wsum = w.sum().clamp_min(1e-9)
     return (w[:, None] * bank.to(torch.float32)).sum(0) / wsum
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+    """What the ``flash_attention`` kernel computes, as one masked
+    softmax in f32. q: (B, H, Sq, D); k/v: (B, Hkv, Skv, D) with
+    H % Hkv == 0 (query head j reads kv head j // (H / Hkv)). Query row t
+    sits at position ``q_offset + t``, kv row u at u; ``causal`` keeps
+    u <= qpos, ``window`` > 0 also keeps u > qpos - window. Masked scores
+    take the finite -1e30, and the result is ``(e @ v) / max(sum e,
+    1e-30)`` in q's dtype, as the kernel finishes."""
+    b, h, sq, d = q.shape
+    rep = h // k.shape[1]
+    skv = k.shape[2]
+    qf = q.float() * (1.0 / math.sqrt(d))
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    s = qf @ kf.transpose(-1, -2)                            # (B,H,Sq,Skv)
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = (e @ vf) / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return out.to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, *, chunk: int = 64):
+    """What the ``wkv6`` kernel computes: the chunked RWKV6 recurrence
+    from a zero state, the torch twin of ``repro.models.rwkv.
+    wkv_chunked``. r/k/v/w: (B, S, nh, hd) (w the decay in (0, 1));
+    u: (nh, hd). Returns y (B, S, nh, hd) f32 and the final state
+    (B, nh, hd, hd) f32. A ragged tail is padded with r = k = v = 0 and
+    w = 1, which leaves y and the state unchanged."""
+    b, s, nh, hd = r.shape
+    pad = (-s) % chunk
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    if pad:
+        r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
+        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    sp = s + pad
+    nc = sp // chunk
+    rs, ks, vs, ws = (a.reshape(b, nc, chunk, nh, hd).permute(0, 1, 3, 2, 4)
+                      for a in (r, k, v, w))               # (B,nc,nh,C,hd)
+    logw = torch.log(ws.clamp_min(1e-38))
+    logcum = torch.cumsum(logw, dim=3)                    # inclusive
+    lprev = logcum - logw
+    lower = torch.ones((chunk, chunk), dtype=torch.bool,
+                       device=r.device).tril(-1)          # t > u
+    diff = lprev[..., :, None, :] - logcum[..., None, :, :]
+    dd = torch.exp(torch.where(lower[:, :, None], diff, NEG_INF))
+    a = (rs[..., :, None, :] * ks[..., None, :, :] * dd).sum(-1)
+    bonus = (rs * (ks * u.float()[None, None, :, None, :])).sum(-1)
+    a = a + torch.diag_embed(bonus)
+    y = a @ vs                                            # (B,nc,nh,C,hd)
+    rd = rs * torch.exp(lprev)
+    dend = torch.exp(logcum[..., -1:, :] - logcum)
+    inc = (ks * dend).transpose(-1, -2) @ vs              # (B,nc,nh,hd,hd)
+    cdecay = torch.exp(logcum[..., -1, :])                # (B,nc,nh,hd)
+    state = torch.zeros((b, nh, hd, hd), dtype=torch.float32,
+                        device=r.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = state * cdecay[:, c, :, :, None] + inc[:, c]
+    y = y + rd @ torch.stack(s_in, dim=1)
+    y = y.permute(0, 1, 3, 2, 4).reshape(b, sp, nh, hd)[:, :s]
+    return y, state

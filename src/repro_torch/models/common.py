@@ -1,0 +1,98 @@
+"""Shared model components the LLM serving slice needs; the port of
+``repro.models.common``.
+
+Plain functions on tensors over plain-dict parameters. Initializers draw
+from an explicit ``torch.Generator`` with the laws of the reference (the
+numbers differ from JAX's threefry draws; tests that need equal weights
+load the reference's parameters through ``repro_torch.weights``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, device,
+               scale: Optional[float] = None,
+               dtype=torch.float32) -> torch.Tensor:
+    """Truncated-normal fan-in init on ``device``, drawn from ``gen``: a
+    normal truncated to [-3, 3], times ``scale`` if given, else
+    ``1/sqrt(fan_in)`` (``fan_in = shape[0]``, or the only dim)."""
+    fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (t * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, device,
+               dtype=torch.float32) -> torch.Tensor:
+    """Normal(0, 0.02) embedding init."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    t.normal_(0.0, 1.0, generator=gen)
+    return (t * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms, MLP
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMS norm over the last dim, computed in f32, returned in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
+def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, device,
+                dtype=torch.float32) -> dict:
+    return {
+        "w_gate": dense_init(gen, (d_model, d_ff), device, dtype=dtype),
+        "w_up": dense_init(gen, (d_model, d_ff), device, dtype=dtype),
+        "w_down": dense_init(gen, (d_ff, d_model), device, dtype=dtype),
+    }
+
+
+def swiglu(params, x):
+    """silu(x W_gate) * (x W_up) W_down, in x's dtype."""
+    g = x @ params["w_gate"].to(x.dtype)
+    u = x @ params["w_up"].to(x.dtype)
+    return (F.silu(g) * u) @ params["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: broadcastable to (..., S). Rotates
+    the INTERLEAVED pairs (x[..., ::2], x[..., 1::2]) as the reference
+    does (not the rotate-half convention), in f32, returned in x's
+    dtype."""
+    if theta <= 0:
+        return x
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                    # (d/2,)
+    ang = positions[..., None].to(torch.float32) * freqs      # (..., S, d/2)
+    ang = ang[..., None, :]                               # (..., S, 1, d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xf = x.float()
+    x1, x2 = xf[..., ::2], xf[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)

@@ -1,9 +1,12 @@
-"""The paper's testbed CNNs (Arena section 4.1), in PyTorch.
+"""Public model API: ``build_model(cfg)`` -> ``Model`` with init /
+logits / prefill / decode for the families the port serves (``dense``,
+``ssm``), and the paper's testbed CNNs (Arena section 4.1); the port of
+``repro.models.model``. ``Model.loss`` (LLM training) is not ported yet
+(ROADMAP.md, "Modules still to port", item 11).
 
-The port of the CNN half of ``repro.models.model``. Parameters are plain
-dicts of tensors in the reference layout: conv weights HWIO
-``(kh, kw, Cin, Cout)``, dense weights ``(in, out)``; the public
-functions take NHWC images. The forward permutes to PyTorch's NCHW/OIHW
+The CNNs' parameters are plain dicts of tensors in the reference layout:
+conv weights HWIO ``(kh, kw, Cin, Cout)``, dense weights ``(in, out)``;
+the public functions take NHWC images. The forward permutes to PyTorch's NCHW/OIHW
 for ``F.conv2d`` and back to NHWC before flattening, so a reference
 parameter dict loads unchanged (``repro_torch.weights``) and the flatten
 order of the first dense layer matches. Convolutions and matmuls are
@@ -17,23 +20,61 @@ The numbers differ from JAX's threefry draws; tests that need the same
 """
 from __future__ import annotations
 
-import math
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import decode, transformer
+from repro_torch.models.common import dense_init
 
 
-def dense_init(gen: torch.Generator, shape, device,
-               scale: Optional[float] = None) -> torch.Tensor:
-    """Truncated-normal fan-in init on ``device``, drawn from ``gen``."""
-    fan_in = shape[0] if len(shape) > 1 else shape[-1]
-    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return t * std
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+
+    # ---- parameters -------------------------------------------------------
+    def init(self, gen: torch.Generator, device="cuda") -> dict:
+        """Random parameters on ``device``, drawn from ``gen`` (a
+        generator on the same device type)."""
+        return transformer.init_params(gen, self.cfg, resolve_device(device))
+
+    # ---- forward ----------------------------------------------------------
+    def logits(self, params, batch, *, window: int = 0):
+        """batch: {"tokens": (B, S) int}. Returns (B, S, vocab) logits in
+        the activation dtype."""
+        h, _ = transformer.forward_hidden(params, self.cfg, batch["tokens"],
+                                          window=window)
+        return transformer.logits_from_hidden(params, self.cfg, h)
+
+    # ---- serving ----------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int, *, window: int = 0,
+                   device="cuda"):
+        return decode.init_cache(self.cfg, batch, cache_len, window=window,
+                                 device=device)
+
+    def prefill(self, params, tokens, *, window: int = 0, max_new: int = 0):
+        return decode.prefill(params, self.cfg, tokens, window=window,
+                              max_new=max_new)
+
+    def decode_step(self, params, cache, tokens, *, window: int = 0):
+        return decode.decode_step(params, self.cfg, cache, tokens,
+                                  window=window)
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    """The model of ``cfg``; raises ``NotImplementedError`` for a family
+    the port does not serve yet."""
+    transformer.check_family(cfg)
+    return Model(cfg)
+
+
+# ===========================================================================
+# Paper testbed CNNs (Arena section 4.1)
+# ===========================================================================
 
 
 def _conv2d(x, w, b):

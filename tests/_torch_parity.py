@@ -34,6 +34,14 @@ def assert_close(got, want, *, atol: float, rtol: float = 0.0) -> float:
     return float(np.max(np.abs(g.astype(np.float64) - w))) if g.size else 0.0
 
 
+def rel_err(got, want) -> float:
+    """Relative L2 error ``|got - want| / |want|`` over all elements."""
+    g = to_numpy(got).astype(np.float64)
+    w = to_numpy(want).astype(np.float64)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+
 def assert_tree_close(got: dict, want: dict, *, atol: float,
                       rtol: float = 0.0) -> float:
     """Leafwise ``assert_close`` of a port dict against a reference dict

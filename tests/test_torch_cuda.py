@@ -1,16 +1,22 @@
 """The port's CUDA kernels on the card, against their plain versions on
-the same CUDA tensors. Marked ``cuda``: each test skips (from inside the
+the same CUDA tensors, and the reduced serving path on the card against
+the CPU. Marked ``cuda``: each test skips (from inside the
 ``cuda_dev`` fixture) where no CUDA device is available. On a GPU host:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Imports no JAX, so it runs on a host without it.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import hfl
+from repro_torch.data.synthetic import token_batch
+from repro_torch.device import disable_tf32
 from repro_torch.kernels import hier_agg, ops, ref
 from repro_torch.models import model
 
@@ -120,8 +126,170 @@ def test_cloud_round_on_card_matches_cpu(cuda_dev):
         outs.append(rnd(bank, x.to(d), y.to(d),
                         torch.full((n,), 64.0, device=d), ea.to(d),
                         np.array([2, 1]), np.array([1, 2]), perms.to(d)))
-    assert hier_agg.LAUNCHES == {"segment_agg": 4, "segment_broadcast": 2}
+    assert hier_agg.LAUNCHES == {"segment_agg": 4, "segment_broadcast": 2,
+                                 "flash_attention": 0, "wkv6": 0}
     for cpu_part, gpu_part in zip(*outs):
         for k in cpu_part:
             torch.testing.assert_close(gpu_part[k].cpu(), cpu_part[k],
                                        rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and wkv6
+# ---------------------------------------------------------------------------
+
+# flash vs plain: both compute in f32 (online vs one-pass softmax): 1e-5
+# in f32; in bf16 both round that result to bf16: one ulp, 2^-8 relative
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# (B, H, Hkv, Sq, Skv, D, causal, window, q_offset)
+FLASH_SHAPES = [(4, 16, 8, 1024, 1024, 128, True, 0, 0),
+                (4, 16, 8, 1, 1056, 128, True, 0, 1055),
+                (2, 16, 8, 1000, 1000, 128, True, 0, 0),
+                (1, 4, 2, 256, 256, 64, True, 64, 0),
+                (2, 8, 8, 512, 512, 128, True, 0, 0),
+                (2, 4, 4, 200, 200, 64, False, 0, 0),
+                (1, 4, 2, 40, 300, 64, True, 0, 260)]
+FLASH_IDS = ["qwen3-prefill", "qwen3-decode", "ragged", "window", "mha",
+             "non-causal", "continuation"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window,q_offset",
+                         FLASH_SHAPES, ids=FLASH_IDS)
+def test_flash_attention_kernel_matches_plain(cuda_dev, b, h, hkv, sq, skv,
+                                              d, causal, window, q_offset,
+                                              dtype):
+    gen = torch.Generator(device=cuda_dev).manual_seed(0)
+    mk = lambda s_, n: torch.randn((b, s_, n, d), generator=gen,
+                                   device=cuda_dev).to(dtype).transpose(1, 2)
+    q, k, v = mk(sq, h), mk(skv, hkv), mk(skv, hkv)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == (b, h, sq, d)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, ops.flash_attention(q, k, v, **kw))  # bitwise
+
+
+# chunked sums in other orders and __expf in the kernel: the reference's
+# own wkv6 tolerance; 1e-3 for hard decays, as in the reference
+@pytest.mark.parametrize("rkv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,nh,chunk,lo,hi,tol", [
+    (4, 1024, 32, 64, 0.3, 0.999, 2e-4),
+    (2, 1000, 8, 64, 0.3, 0.999, 2e-4),
+    (2, 130, 3, 32, 0.3, 0.999, 2e-4),
+    (1, 256, 4, 32, 1e-4, 0.1, 1e-3)],
+    ids=["rwkv6-prefill", "ragged", "ragged-32", "hard-decay"])
+def test_wkv6_kernel_matches_plain(cuda_dev, b, s, nh, chunk, lo, hi, tol,
+                                   rkv_dtype):
+    gen = torch.Generator(device=cuda_dev).manual_seed(1)
+    r, k, v = (torch.randn((b, s, nh, 64), generator=gen,
+                           device=cuda_dev).to(rkv_dtype) for _ in range(3))
+    w = torch.rand((b, s, nh, 64), generator=gen, device=cuda_dev) \
+        * (hi - lo) + lo
+    u = torch.randn((nh, 64), generator=gen, device=cuda_dev)
+    ops.reset_launches()
+    y, st = ops.wkv6(r, k, v, w, u, chunk=chunk)
+    assert ops.LAUNCHES["wkv6"] == 1
+    yw, stw = ref.wkv6_ref(r, k, v, w, u, chunk=chunk)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    torch.testing.assert_close(y, yw, atol=tol, rtol=tol)
+    torch.testing.assert_close(st, stw, atol=tol, rtol=tol)
+    y2, st2 = ops.wkv6(r, k, v, w, u, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(st, st2)           # bitwise
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_kernel_ragged_scores_far_below_zero(cuda_dev,
+                                                             dtype):
+    """Non-causal, Skv = 200 (no multiple of the 64-row kv tile), every
+    score near -160: the kv rows past Skv that the kernel stages as zero
+    must not enter the row max, or exp(s - 0) underflows every weight and
+    the rows come out zero. Tolerance as in the kernel-vs-plain test."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(2)
+    b, h, hkv, s, d = 2, 4, 2, 200, 64
+    noise = lambda n: 0.1 * torch.randn((b, s, n, d), generator=gen,
+                                        device=cuda_dev)
+    q = (1.0 + noise(h)).to(dtype).transpose(1, 2)
+    k = (-20.0 + noise(hkv)).to(dtype).transpose(1, 2)
+    v = torch.randn((b, s, hkv, d), generator=gen,
+                    device=cuda_dev).to(dtype).transpose(1, 2)
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    assert float(want.float().abs().max()) > 0.01
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_llm_wrappers_raise_on_what_the_kernels_do_not_take(cuda_dev):
+    q = torch.zeros((1, 4, 8, 128), device=cuda_dev)
+    kv = torch.zeros((1, 2, 8, 128), device=cuda_dev)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q[..., :96], kv[..., :96], kv[..., :96])
+    with pytest.raises(ValueError, match="contiguous"):
+        qt = torch.zeros((1, 4, 128, 8), device=cuda_dev).transpose(2, 3)
+        kt = torch.zeros((1, 2, 128, 8), device=cuda_dev).transpose(2, 3)
+        ops.flash_attention(qt, kt, kt)
+    with pytest.raises(ValueError, match="16-byte"):
+        qm = torch.zeros((1, 4, 8, 129), device=cuda_dev)[..., 1:]
+        ops.flash_attention(qm, kv, kv)
+    with pytest.raises(ValueError, match="devices"):
+        ops.flash_attention(q, kv.cpu(), kv)
+    r = torch.zeros((1, 8, 2, 64), device=cuda_dev)
+    u = torch.zeros((2, 64), device=cuda_dev)
+    with pytest.raises(ValueError, match="chunks"):
+        ops.wkv6(r, r, r, r, u, chunk=48)
+    with pytest.raises(ValueError, match="head size"):
+        ops.wkv6(r[..., :32], r[..., :32], r[..., :32], r[..., :32],
+                 u[:, :32])
+    with pytest.raises(ValueError, match="contiguous"):
+        rt = torch.zeros((1, 2, 8, 64), device=cuda_dev).transpose(1, 2)
+        ops.wkv6(rt, rt, rt, rt, u)
+    with pytest.raises(TypeError):
+        ops.wkv6(r.bfloat16(), r, r, r, u)
+    with pytest.raises(TypeError, match="decay w must be f32"):
+        ops.wkv6(r, r, r, r.bfloat16(), u)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-1.6b"])
+def test_reduced_serve_on_card_matches_cpu(cuda_dev, arch):
+    """A reduced model with f32 activations, the same weights and tokens:
+    prefill(16, max_new 4) + 4 teacher-forced decode steps on the card
+    (kernels) and on the CPU (plain versions). TF32 off; tolerance 1e-4,
+    the f32 parity tolerance of the CPU tests."""
+    disable_tf32()
+    cfg = dataclasses.replace(get_config(arch).reduce(),
+                              activ_dtype="float32")
+    m = model.build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(3), "cpu")
+    toks = token_batch(2, 2, 20, cfg.vocab, "cpu")["tokens"]
+    to = lambda t, d: ({k: to(v, d) for k, v in t.items()}
+                       if isinstance(t, dict) else t.to(d))
+    outs = []
+    for d in ("cpu", cuda_dev):
+        p, t = to(params, d), toks.to(d)
+        ops.reset_launches()
+        lg, cache = m.prefill(p, t[:, :16], max_new=4)
+        steps = [lg]
+        for i in range(16, 20):
+            lg, cache = m.decode_step(p, cache, t[:, i:i + 1])
+            steps.append(lg)
+        outs.append((steps, cache, dict(ops.LAUNCHES)))
+    kern = "flash_attention" if cfg.family == "dense" else "wkv6"
+    assert outs[0][2][kern] == 0
+    assert outs[1][2][kern] == (5 if kern == "flash_attention" else 1) \
+        * cfg.n_layers
+    for a, b in zip(outs[0][0], outs[1][0]):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    for k, a in outs[0][1].items():
+        if k != "t":
+            torch.testing.assert_close(outs[1][1][k].cpu(), a, atol=1e-4,
+                                       rtol=1e-4)

@@ -59,7 +59,8 @@ def test_cloud_round_matches_reference_mnist_4dev_2edge():
     # the round updated the bank's own storage (in-place reuse)
     assert b["c1_b"].data_ptr() == bank["c1_b"].data_ptr()
     # CPU tensors ran the plain versions: no kernel launch was counted
-    assert ops.LAUNCHES == {"segment_agg": 0, "segment_broadcast": 0}
+    assert ops.LAUNCHES == {"segment_agg": 0, "segment_broadcast": 0,
+                            "flash_attention": 0, "wkv6": 0}
 
 
 def test_cloud_round_syncs_bank_in_place_3dev():

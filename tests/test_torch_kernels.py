@@ -1,8 +1,16 @@
-"""The port's aggregation kernels on the CPU (their plain versions)
-against the reference's Pallas kernels in interpret mode
-(``repro.kernels.ops``), on the shapes of ``tests/test_flatbank.py``.
-Also: a CUDA tensor never takes the plain path on a host without a card.
+"""The port's kernels on the CPU (their plain versions) against the
+reference: the aggregation kernels against the Pallas kernels in
+interpret mode (``repro.kernels.ops``), on the shapes of
+``tests/test_flatbank.py``; ``flash_attention`` and ``wkv6`` against the
+pure-jnp oracles (``repro.kernels.ref``, ``repro.models.rwkv``), since
+the Pallas versions of those two do not run on the installed jax
+(ROADMAP.md, "Reference-side caveats"), on the shapes of
+``tests/test_kernels.py`` plus ragged and decode cases. Also: a CUDA
+tensor never takes the plain path on a host without a card.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +18,12 @@ import torch
 from _torch_parity import assert_close, to_torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import rwkv as jrwkv
+from repro_torch.configs import get_config
 from repro_torch.kernels import hier_agg, ops, ref
+from repro_torch.models import decode
+from repro_torch.models.model import build_model
 
 # f32 sums of a few O(1) products: the two summation orders differ by a
 # few ulp (~1e-7)
@@ -110,7 +123,11 @@ def test_cpu_calls_count_no_kernel_launch():
     jmat, w, seg = _inputs(9, 997, 4, 1)
     ops.segment_agg(to_torch(jmat), to_torch(w), to_torch(seg), 4)
     ops.segment_broadcast(torch.zeros(4, 5), to_torch(seg))
-    assert ops.LAUNCHES == {"segment_agg": 0, "segment_broadcast": 0}
+    x = torch.zeros(1, 2, 3, 64)
+    ops.flash_attention(x, x, x)
+    ops.wkv6(x, x, x, x + 0.5, torch.zeros(3, 64))
+    assert ops.LAUNCHES == {"segment_agg": 0, "segment_broadcast": 0,
+                            "flash_attention": 0, "wkv6": 0}
 
 
 def test_cuda_tensors_raise_instead_of_running_on_cpu():
@@ -127,6 +144,13 @@ def test_cuda_tensors_raise_instead_of_running_on_cpu():
             ops.segment_agg(bank, w, seg, 4)
         with pytest.raises(RuntimeError):
             ops.segment_broadcast(torch.empty((4, 997), device="cuda"), seg)
+        q = torch.empty((1, 4, 8, 128), device="cuda", dtype=torch.bfloat16)
+        kv = torch.empty((1, 2, 8, 128), device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(RuntimeError):
+            ops.flash_attention(q, kv, kv)
+        r = torch.empty((1, 8, 2, 64), device="cuda")
+        with pytest.raises(RuntimeError):
+            ops.wkv6(r, r, r, r, torch.empty((2, 64), device="cuda"))
 
 
 def test_wrappers_reject_bad_inputs():
@@ -137,7 +161,145 @@ def test_wrappers_reject_bad_inputs():
         ops.segment_agg(torch.zeros(4, 5, device="meta"),
                         torch.ones(4, device="meta"),
                         torch.zeros(4, dtype=torch.int32, device="meta"), 2)
+    with pytest.raises(ValueError, match="H % Hkv"):
+        ops.flash_attention(torch.zeros(1, 3, 4, 64), torch.zeros(1, 2, 4, 64),
+                            torch.zeros(1, 2, 4, 64))
+    with pytest.raises(ValueError, match="u must be"):
+        x = torch.zeros(1, 4, 2, 64)
+        ops.wkv6(x, x, x, x, torch.zeros(3, 64))
+    with pytest.raises(TypeError, match="decay w must be f32"):
+        ops.wkv6(x, x, x, x.bfloat16(), torch.zeros(2, 64))
+    # what the slice does not serve raises instead of computing something
+    # else: ring-buffer (window > 0) decode and the unported families
+    cfg = get_config("qwen3-1.7b").reduce()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.flash_attention(None, None, None)
+        decode.init_cache(cfg, 1, 8, window=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.wkv6(None, None, None, None, None)
+        decode.decode_step({}, cfg, {"t": 0}, torch.zeros(1, 1), window=4)
+    for arch in ("olmoe-1b-7b", "zamba2-7b", "whisper-base", "qwen2-vl-7b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(get_config(arch).reduce())
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and wkv6: the plain versions against the jnp oracles
+# ---------------------------------------------------------------------------
+
+def _qkv(seed, b, h, hkv, sq, skv, d, dtype):
+    rng = np.random.default_rng(seed)
+    return (jnp.asarray(rng.normal(size=(b, h, sq, d)), dtype),
+            jnp.asarray(rng.normal(size=(b, hkv, skv, d)), dtype),
+            jnp.asarray(rng.normal(size=(b, hkv, skv, d)), dtype))
+
+
+# f32: both compute one softmax in f32 (the oracle online over 1024-wide
+# kv chunks): a few ulp of O(1) outputs. bf16: the oracle scales q and
+# rounds p to bf16 before P.V, the plain version does all of it in f32
+# (as the kernel does): the tolerance of the reference's own bf16 kernel
+# test (tests/test_kernels.py).
+FLASH_TOL = {jnp.float32: 5e-6, jnp.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,q_offset", [
+    (1, 2, 2, 128, 128, 64, 0),        # MHA
+    (2, 4, 2, 256, 256, 64, 0),        # GQA 2:1
+    (1, 8, 2, 128, 384, 128, 256),     # GQA 4:1, rectangular (continuation)
+    (1, 4, 2, 100, 100, 128, 0),       # ragged: no multiple of a tile
+    (2, 4, 2, 1, 33, 128, 32),         # one-token decode, ragged cache
+], ids=["mha", "gqa2", "gqa4-rect", "ragged", "decode"])
+def test_flash_attention_ref_matches_oracle(b, h, hkv, sq, skv, d, q_offset,
+                                            dtype):
+    q, k, v = _qkv(0, b, h, hkv, sq, skv, d, dtype)
+    want = jref.flash_attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    got = ops.flash_attention(to_torch(q), to_torch(k), to_torch(v),
+                              causal=True, q_offset=q_offset)
+    assert got.dtype == to_torch(q).dtype and got.shape == (b, h, sq, d)
+    tol = FLASH_TOL[dtype]
+    assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [64, 128])
+def test_flash_attention_ref_window(window):
+    q, k, v = _qkv(1, 1, 2, 2, 256, 256, 64, jnp.float32)
+    want = jref.flash_attention_ref(q, k, v, causal=True, window=window)
+    got = ref.flash_attention_ref(to_torch(q), to_torch(k), to_torch(v),
+                                  causal=True, window=window)
+    assert_close(got, want, atol=5e-6, rtol=5e-6)
+
+
+def test_flash_attention_ref_q_offset_decode():
+    """A 128-row query block at absolute positions 128.. (the reference's
+    decode-shape test)."""
+    rng = np.random.default_rng(2)
+    q = jnp.asarray(rng.normal(size=(2, 2, 128, 64)), jnp.float32)
+    k = jnp.asarray(rng.normal(size=(2, 2, 256, 64)), jnp.float32)
+    v = jnp.asarray(rng.normal(size=(2, 2, 256, 64)), jnp.float32)
+    want = jref.flash_attention_ref(q, k, v, causal=True, q_offset=128)
+    got = ref.flash_attention_ref(to_torch(q), to_torch(k), to_torch(v),
+                                  causal=True, q_offset=128)
+    assert_close(got, want, atol=5e-6, rtol=5e-6)
+
+
+def _wkv_inputs(seed, b, s, nh, hd, wlo=0.3, whi=0.999):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, s, nh, hd)).astype(np.float32)
+               for _ in range(3))
+    w = rng.uniform(wlo, whi, size=(b, s, nh, hd)).astype(np.float32)
+    u = rng.normal(size=(nh, hd)).astype(np.float32)
+    return r, k, v, w, u
+
+
+# the tolerance of the reference's own wkv6 kernel test: chunked and
+# sequential sums of O(10) terms differ by f32 rounding
+WKV_TOL = 2e-4
+
+
+_wkv_chunked_jit = jax.jit(jrwkv.wkv_chunked, static_argnames=("chunk",))
+
+
+@functools.lru_cache(maxsize=None)
+def _wkv_scan_oracle(seed, b, s, nh, hd):
+    """The sequential oracle's (y, state) as numpy, once per shape."""
+    jin = map(jnp.asarray, _wkv_inputs(seed, b, s, nh, hd))
+    return tuple(np.asarray(a) for a in jref.wkv6_ref(*jin))
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("b,s,nh,hd", [(1, 128, 2, 64), (2, 192, 3, 64),
+                                       (2, 100, 3, 64)],
+                         ids=["1x128x2", "2x192x3", "ragged-2x100x3"])
+def test_wkv6_ref_matches_scan_and_chunked(b, s, nh, hd, chunk):
+    r, k, v, w, u = _wkv_inputs(5, b, s, nh, hd)
+    y, st = ops.wkv6(*map(to_torch, (r, k, v, w, u)), chunk=chunk)
+    assert y.dtype == torch.float32 and y.shape == (b, s, nh, hd)
+    assert st.shape == (b, nh, hd, hd)
+    ys, sts = _wkv_scan_oracle(5, b, s, nh, hd)         # sequential scan
+    assert_close(y, ys, atol=WKV_TOL, rtol=WKV_TOL)
+    assert_close(st, sts, atol=WKV_TOL, rtol=WKV_TOL)
+    yc, stc = _wkv_chunked_jit(*map(jnp.asarray, (r, k, v, w, u)),
+                               chunk=chunk)             # chunked twin
+    assert_close(y, yc, atol=WKV_TOL, rtol=WKV_TOL)
+    assert_close(st, stc, atol=WKV_TOL, rtol=WKV_TOL)
+
+
+def test_wkv6_ref_hard_decay():
+    """Strong decays (w in [1e-4, 0.1]) do not overflow the chunked form;
+    the tolerance of the reference's hard-decay test."""
+    r, k, v, w, u = _wkv_inputs(6, 1, 64, 1, 64, 1e-4, 0.1)
+    y, st = ref.wkv6_ref(*map(to_torch, (r, k, v, w, u)), chunk=32)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    ys, _ = jref.wkv6_ref(*map(jnp.asarray, (r, k, v, w, u)))
+    assert_close(y, ys, atol=1e-3, rtol=1e-3)
+
+
+def test_wkv6_ref_bf16_inputs_match_f32():
+    """bf16 r/k/v (the model's activations) are converted exactly to f32:
+    the result equals the f32 call on the converted values."""
+    r, k, v, w, u = _wkv_inputs(7, 1, 70, 2, 64)
+    rb, kb, vb = (to_torch(a).to(torch.bfloat16) for a in (r, k, v))
+    y1, s1 = ops.wkv6(rb, kb, vb, to_torch(w), to_torch(u))
+    y2, s2 = ops.wkv6(rb.float(), kb.float(), vb.float(), to_torch(w),
+                      to_torch(u))
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
