@@ -9,7 +9,10 @@ Phases, each fatal on failure (the script exits non-zero):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``hier_agg.cu``, ``flash_attention.cu``, ``wkv6.cu``) with nvcc for
-   sm_90a (one nvcc per source, all at once);
+   sm_90a (one nvcc per source, all at once), and count each
+   ``flash_attention`` instantiation's tensor-core instructions in its
+   SASS (``cuobjdump``): the bf16 tile path (``flash_wgmma_kernel``) must
+   have some;
 2. hold each kernel against its plain PyTorch version on the card, on the
    same tensors, at the main path's shapes (MNIST and CIFAR banks, Eq. 1
    with 5 edges and Eq. 2 with 1) in f32 and with a bf16 bank, plus a
@@ -27,22 +30,27 @@ Phases, each fatal on failure (the script exits non-zero):
 2b. hold ``flash_attention`` and ``wkv6`` against their plain versions
    on the card, in bf16 and f32, at the serving path's shapes (qwen3-1.7b
    prefill and decode, rwkv6-1.6b prefill) plus ragged, windowed, MHA,
-   non-causal and hard-decay cases, each with its stated tolerance, and
-   two runs of each kernel bitwise equal;
+   non-causal and hard-decay cases, and for ``flash_attention``'s
+   split-KV decode path GQA groups of 1, 4 and 8, Skv 1, 65 and 4097, a
+   causal end and an empty split inside the range, and both sides of the
+   16-packed-row routing edge; each with its stated tolerance, and two
+   runs of each kernel bitwise equal;
 3b. the LLM serving path: a reduced qwen3 and rwkv6 (f32 activations)
    served on the card against the CPU; then the main path, the full-width
    qwen3-1.7b and rwkv6-1.6b (random weights from seed 0) through
    ``repro_torch.launch.serve.greedy_serve``: a (4, 1024) prompt, 32
    greedy decode steps, the kernel launch counts held to what the loop
-   implies, and every step's logits held against ``Model.logits`` over
-   the whole sequence;
+   implies (for qwen3 also the ``flash_attention`` path: prefill on the
+   tensor-core tile kernel, decode on split-KV), and every step's logits
+   held against ``Model.logits`` over the whole sequence;
 4. kernel times at the main path's shapes (CIFAR and MNIST, Eq. 1 with
    its resync and Eq. 2): device time per launch from CUDA events around
    a CUDA-graph replay, beside the plain version's, one PyTorch library
    call's, the bound (bytes over 3.35 TB/s), and the eager wrapper's
    time per call as the round pays it (host dispatch included);
-4b. the same for ``flash_attention`` (qwen3 prefill and decode, with
-   ``scaled_dot_product_attention`` as the library yardstick) and
+4b. the same for ``flash_attention`` (qwen3 prefill and decode, one
+   JSON row each, with ``scaled_dot_product_attention`` as the library
+   yardstick) and
    ``wkv6`` (rwkv6 prefill; no single library call computes it), with
    the bound the larger of bytes over 3.35 TB/s and the operations the
    function needs over the card's peak rate for them: for attention the
@@ -53,7 +61,16 @@ Phases, each fatal on failure (the script exits non-zero):
 It prints the card's name and power limit, then one JSON line of the
 kernels, and last ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --serve-only [--root DIR]
+
+serves only the two full-width models (the timed part of phase 3b: prefill
+seconds, decode tokens/s, one profiled decode step) with the package under
+``DIR/src`` (default: this checkout), and prints one JSON line of those
+numbers. Run it for two trees in turns in one call to compare them on
+one card and host.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -415,7 +432,19 @@ FLASH_CASES = [("qwen3-prefill", 4, 16, 8, 1024, 1024, 128, True, 0, 0),
                ("window-64", 1, 4, 2, 256, 256, 64, True, 64, 0),
                ("window-128", 1, 4, 2, 256, 256, 64, True, 128, 0),
                ("mha", 2, 8, 8, 512, 512, 128, True, 0, 0),
-               ("non-causal", 2, 4, 4, 200, 200, 64, False, 0, 0)]
+               ("non-causal", 2, 4, 4, 200, 200, 64, False, 0, 0),
+               ("decode-rep1", 2, 8, 8, 1, 300, 128, True, 0, 299),
+               ("decode-rep4", 2, 16, 4, 1, 1056, 128, True, 0, 1055),
+               ("decode-rep8", 1, 32, 4, 1, 500, 64, True, 0, 499),
+               ("skv-1", 2, 4, 2, 1, 1, 64, True, 0, 0),
+               ("skv-65", 1, 8, 4, 1, 65, 128, True, 0, 64),
+               ("skv-4097", 1, 16, 8, 1, 4097, 128, True, 0, 4096),
+               ("mid-split", 4, 16, 8, 1, 1056, 128, True, 0, 700),
+               ("split-emptied", 1, 8, 4, 2, 65, 128, True, 0, 63),
+               ("decode-window", 1, 8, 2, 1, 300, 64, True, 64, 299),
+               ("prefill-d64", 2, 8, 4, 512, 512, 64, True, 0, 0),
+               ("rows-16-edge", 2, 16, 8, 8, 300, 128, True, 0, 292),
+               ("continuation-40", 2, 16, 8, 40, 1064, 128, True, 0, 1024)]
 # (name, B, S, nh, chunk, decay range)
 WKV_CASES = [("rwkv6-prefill", 4, 1024, 32, 64, (0.3, 0.999)),
              ("ragged", 2, 1000, 8, 64, (0.3, 0.999)),
@@ -444,15 +473,22 @@ def wkv_inputs(torch, dev, b, s, nh, lohi, rkv_dtype, seed=0):
     return (*rkv, w, u)
 
 
-def llm_kernel_checks(torch, ops, ref, dev) -> dict:
+def llm_kernel_checks(torch, ops, ref, fa, dev) -> dict:
     """Each LLM kernel against its plain version on the same tensors;
-    returns the max abs error at the serving path's own shapes (bf16)."""
-    err = {"flash_attention": 0.0, "wkv6": 0.0}
+    returns the max abs error at the serving path's own shapes (bf16),
+    per flash shape."""
+    err = {"flash_attention": {}, "wkv6": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         tol = FLASH_TOL[str(dtype).split(".")[-1]]
         for name, b, h, hkv, sq, skv, d, causal, win, off in FLASH_CASES:
             q, k, v = flash_inputs(torch, dev, b, h, hkv, sq, skv, d, dtype)
             kw = dict(causal=causal, window=win, q_offset=off)
+            path = fa.plan(b, h, hkv, sq, skv, dtype, **kw)["path"]
+            want_path = ("split_kv" if h // hkv * sq <= fa.MAX_PACKED_ROWS
+                         else "wgmma" if dtype == torch.bfloat16
+                         else "f32_tile")
+            check(path == want_path, f"flash_attention {name} {dtype}: "
+                  f"routed to {path}, expected {want_path}")
             got = ops.flash_attention(q, k, v, **kw)
             want = ref.flash_attention_ref(q, k, v, **kw)
             e = float((got.float() - want.float()).abs().max())
@@ -464,10 +500,11 @@ def llm_kernel_checks(torch, ops, ref, dev) -> dict:
             check(torch.equal(got, ops.flash_attention(q, k, v, **kw)),
                   f"flash_attention {name} {dtype}: two runs differ")
             if dtype == torch.bfloat16 and name in MAIN_FLASH:
-                err["flash_attention"] = max(err["flash_attention"], e)
-            print(f"  flash_attention {name:13s} {str(dtype):14s} "
+                err["flash_attention"][name] = e
+            print(f"  flash_attention {name:15s} {str(dtype):14s} "
                   f"q {(b, h, sq, d)} kv {(b, hkv, skv, d)} causal "
-                  f"{causal} window {win} q_offset {off}: max|err| {e:.3e}")
+                  f"{causal} window {win} q_offset {off} [{path}]: "
+                  f"max|err| {e:.3e}")
     for dtype in (torch.bfloat16, torch.float32):
         for name, b, s, nh, chunk, lohi in WKV_CASES:
             r, k, v, w, u = wkv_inputs(torch, dev, b, s, nh, lohi, dtype)
@@ -547,7 +584,8 @@ def _tree_to(tree, dev):
             for k, v in tree.items()}
 
 
-def serve_path(torch, ops, configs, model_mod, serve, arch, dev) -> dict:
+def serve_path(torch, ops, fa, configs, model_mod, serve, arch, dev,
+               timed_only=False) -> dict:
     """The full-width model through ``greedy_serve``: a (4, 1024) prompt,
     32 greedy decode steps, launch counts held to what the loop implies;
     then ``Model.logits`` over prompt + fed tokens, held against every
@@ -569,12 +607,17 @@ def serve_path(torch, ops, configs, model_mod, serve, arch, dev) -> dict:
           f"init {t_init:.2f} s")
     serve.greedy_serve(cfg, params, toks[:1, :64], 2)        # warm-up
     ops.reset_launches()
+    paths = getattr(fa, "PATH_CALLS", None)    # absent in older trees
+    if paths is not None:
+        fa.reset_paths()
     res = serve.greedy_serve(cfg, params, toks, new)
     counts = dict(ops.LAUNCHES)
     want = {"segment_agg": 0, "segment_broadcast": 0,
             "flash_attention": 0, "wkv6": 0}
+    want_paths = {"split_kv": 0, "wgmma": 0, "f32_tile": 0}
     if cfg.family == "dense":
         want["flash_attention"] = cfg.n_layers * (1 + new)
+        want_paths.update(wgmma=cfg.n_layers, split_kv=cfg.n_layers * new)
     else:
         want["wkv6"] = cfg.n_layers
     print(f"    prefill {prompt} tokens x{batch}: {res['prefill_s']:.4f} s; "
@@ -583,12 +626,23 @@ def serve_path(torch, ops, configs, model_mod, serve, arch, dev) -> dict:
     print(f"    greedy tokens (first sequence): {res['tokens'][0].tolist()}")
     print(f"    launches {counts} (expected {want})")
     check(counts == want, f"{arch}: launch counts {counts} != {want}")
-    rel = logits_check(torch, ops, model, cfg, params, toks, res)
     out = {"counts": counts, "prefill_s": res["prefill_s"],
-           "decode_s": res["decode_s"], "tok_per_s": res["tok_per_s"],
-           "rel_err": rel}
+           "decode_s": res["decode_s"], "tok_per_s": res["tok_per_s"]}
+    if paths is not None:
+        out["paths"] = dict(paths)
+        print(f"    flash_attention calls by path {out['paths']} (expected "
+              f"{want_paths})")
+        check(out["paths"] == want_paths,
+              f"{arch}: flash_attention paths {out['paths']}")
+    if not timed_only:
+        out["rel_err"] = logits_check(torch, ops, model, cfg, params, toks,
+                                      res)
     del res
-    profile_decode(torch, serve, cfg, params, toks)
+    out.update(profile_decode(torch, serve, cfg, params, toks))
+    if timed_only:
+        del params
+        torch.cuda.empty_cache()
+        return out
     cfg32 = dataclasses.replace(cfg, activ_dtype="float32")
     res32 = serve.greedy_serve(cfg32, params, toks, new)
     print(f"    f32 activations: prefill {res32['prefill_s']:.4f} s, "
@@ -637,12 +691,13 @@ def logits_check(torch, ops, model, cfg, params, toks, res) -> float:
     return max(errs)
 
 
-def profile_decode(torch, serve, cfg, params, toks) -> None:
+def profile_decode(torch, serve, cfg, params, toks) -> dict:
     """Decode steps after a 1024-token prefill: the wall of an unprofiled
     step (mean of 4), then one step under torch.profiler for the device
     time by kernel and the number of kernels launched. The device's busy
     share is that device time over the unprofiled wall: the profiler's
-    own cost per launch inflates the wall of the step it traces."""
+    own cost per launch inflates the wall of the step it traces. Returns
+    those numbers (and the flash kernels' share of the device time)."""
     from torch.profiler import ProfilerActivity, profile
     with torch.no_grad():
         _, cache = serve.make_prefill_step(cfg, max_new=6)(
@@ -667,6 +722,8 @@ def profile_decode(torch, serve, cfg, params, toks) -> None:
                 if getattr(e, "self_device_time_total", 0) > 0]
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
     n_kern = sum(e.count for e in rows)
+    flash_ms = sum(e.self_device_time_total for e in rows
+                   if "flash" in e.key) / 1e3
     print(f"    one decode step: unprofiled wall {wall * 1e3:.2f} ms (mean "
           f"of 4), device busy {dev_ms:.2f} ms under torch.profiler "
           f"({dev_ms / (wall * 1e3) * 100:.1f}% of the unprofiled wall; "
@@ -676,6 +733,8 @@ def profile_decode(torch, serve, cfg, params, toks) -> None:
         print(f"      {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:4d}"
               f"  {e.key[:90]}")
     del cache
+    return {"step_wall_ms": wall * 1e3, "step_device_ms": dev_ms,
+            "step_flash_ms": flash_ms, "step_launches": n_kern}
 
 
 def _leaves(tree):
@@ -770,17 +829,66 @@ def _times(torch, kern, plain, lib, t_bound, by, label, nbytes) -> dict:
             "bound_by": by, "library_ms": t_lib, "call_ms": t_call}
 
 
+def tensor_core_check(_build) -> None:
+    """Each flash_attention instantiation's tensor-core instructions in
+    its SASS; the bf16 tile path (flash_wgmma_kernel) must have some."""
+    counts = _build.tensor_core_ops("flash_attention")
+    for k, n in sorted(counts.items()):
+        print(f"  SASS {k}: {n} tensor-core instructions (HMMA/HGMMA)")
+    tile = {k: n for k, n in counts.items()
+            if k.startswith("flash_wgmma_kernel")}
+    check(len(tile) == 2 and all(n > 0 for n in tile.values()),
+          f"the bf16 tile path has no tensor-core instructions: {counts}")
+
+
+def serve_only(torch, root: str) -> int:
+    """The timed part of phase 3b for the package under ``root``/src."""
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch import configs
+    from repro_torch.device import disable_tf32
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    check(os.path.dirname(os.path.abspath(fa.__file__)).startswith(
+        os.path.abspath(root)), f"repro_torch not imported from {root}")
+    dev = torch.device("cuda", 0)
+    print(f"serve-only: {os.path.abspath(root)}, device "
+          f"{torch.cuda.get_device_name(0)}")
+    print(f"  kernels built in {_build.build_all():.2f} s")
+    disable_tf32()
+    res = {arch: serve_path(torch, ops, fa, configs, model, serve, arch, dev,
+                            timed_only=True)
+           for arch in ("qwen3-1.7b", "rwkv6-1.6b")}
+    print(json.dumps({"serve": {a: {k: v for k, v in r.items()
+                                    if k not in ("counts", "paths")}
+                                for a, r in res.items()},
+                      "root": os.path.abspath(root)}))
+    return 0
+
+
 def main() -> int:
     import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--serve-only", action="store_true",
+                        help="serve the two full-width models only")
+    parser.add_argument("--root", default=ROOT,
+                        help="with --serve-only: the checkout whose src/ "
+                        "is imported (default: this one)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this script runs only on an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        print(f"chip_smoke: {SRC}/repro_torch not found; run this script "
+    root = args.root if args.serve_only else ROOT
+    src = os.path.join(root, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: {src}/repro_torch not found; run this script "
               f"from a checkout of the repository", file=sys.stderr)
         return 1
+    if args.serve_only:
+        return serve_only(torch, root)
     sys.path.insert(0, SRC)
     from repro_torch import configs
     from repro_torch.core import hfl
@@ -808,6 +916,7 @@ def main() -> int:
         mod._lib()
     print(f"  built in {t_build:.2f} s, loaded in "
           f"{time.perf_counter() - lib_t0:.3f} s")
+    tensor_core_check(_build)
 
     print("phase 2: kernels against their plain versions (atol=rtol=1e-5 "
           "for segment_agg, bitwise for segment_broadcast)")
@@ -815,7 +924,7 @@ def main() -> int:
     print("phase 2b: LLM kernels against their plain versions (flash: "
           f"atol=rtol {FLASH_TOL}; wkv6: atol=rtol {WKV_TOL}, hard decay "
           f"{WKV_HARD_TOL})")
-    err.update(llm_kernel_checks(torch, ops, ref, dev))
+    err.update(llm_kernel_checks(torch, ops, ref, flash_attention, dev))
 
     print("phase 3: the main path")
     small_round_check(torch, hfl, model, dev)
@@ -825,7 +934,8 @@ def main() -> int:
     print("phase 3b: the LLM serving path")
     disable_tf32()
     small_serve_check(torch, configs, model, dev)
-    served = {arch: serve_path(torch, ops, configs, model, serve, arch, dev)
+    served = {arch: serve_path(torch, ops, flash_attention, configs, model,
+                               serve, arch, dev)
               for arch in ("qwen3-1.7b", "rwkv6-1.6b")}
 
     print("phase 4: times per call, CUDA events around a CUDA-graph "
@@ -837,15 +947,25 @@ def main() -> int:
           "replay (20 kernel calls, 5 plain calls; kernel and plain each "
           "twice, in turns); the eager wrapper call is 20 back-to-back calls")
     llm = time_llm(torch, ops, ref, dev)
-    for name, shape, arch in (("flash_attention", "qwen3-prefill",
-                               "qwen3-1.7b"),
-                              ("wkv6", "rwkv6-prefill", "rwkv6-1.6b")):
-        t = dict(llm[(shape, name)])
+    # flash_attention: one row per serving shape, each with the calls its
+    # path took in the qwen3 serve (prefill: wgmma, decode: split_kv)
+    qwen = served["qwen3-1.7b"]
+    for shape, path in (("qwen3-prefill", "wgmma"), ("qwen3-decode",
+                                                     "split_kv")):
+        t = dict(llm[(shape, "flash_attention")])
         t.pop("call_ms")
-        rows.append(dict(name=name, route="cuda", source=KERNEL_SRC[name],
-                         replaces=REPLACES[name],
-                         launches=served[arch]["counts"][name],
-                         max_abs_err=err[name], **t))
+        rows.append(dict(name="flash_attention", route="cuda",
+                         source=KERNEL_SRC["flash_attention"],
+                         replaces=REPLACES["flash_attention"],
+                         launches=qwen["paths"][path],
+                         max_abs_err=err["flash_attention"][shape],
+                         shape=shape, path=path, **t))
+    t = dict(llm[("rwkv6-prefill", "wkv6")])
+    t.pop("call_ms")
+    rows.append(dict(name="wkv6", route="cuda", source=KERNEL_SRC["wkv6"],
+                     replaces=REPLACES["wkv6"],
+                     launches=served["rwkv6-1.6b"]["counts"]["wkv6"],
+                     max_abs_err=err["wkv6"], **t))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

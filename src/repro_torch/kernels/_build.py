@@ -10,12 +10,15 @@ changes. A failed build raises with nvcc's output; nothing falls back.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for
 all of them, so the build time is that of the slowest source.
+``tensor_core_ops(name)`` reads the built library's SASS (``cuobjdump``)
+and counts each kernel's tensor-core instructions.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -116,3 +119,42 @@ def load(name: str) -> ctypes.CDLL:
             raise RuntimeError(err)
         lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
         return lib
+
+
+def tensor_core_ops(name: str) -> dict:
+    """{kernel: number of tensor-core instructions (HMMA, HGMMA)} in the
+    SASS of the built ``csrc/<name>.cu`` (``cuobjdump -sass``, from the
+    toolkit of ``nvcc_path()``), one entry per kernel instantiation,
+    named ``kernel<template arguments>`` as the mangled name gives them.
+    Builds the library first if needed."""
+    load(name)
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = _kernel_label(line.split("Function :", 1)[1].strip())
+            counts[kernel] = 0
+        elif kernel is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[kernel] += 1
+    return counts
+
+
+def _kernel_label(mangled: str) -> str:
+    """``name<args>`` of a mangled ``..._kernel<...>`` template
+    instantiation (``flash_wgmma_kernel<128>``,
+    ``flash_split_kernel<bf16,128>``); the mangled name otherwise."""
+    end = mangled.find("_kernelI") + len("_kernel")
+    if end < len("_kernel"):
+        return mangled
+    for size in range(1, end):        # the identifier's length prefix
+        start = end - size
+        if mangled[:start].endswith(str(size)):
+            break
+    else:
+        return mangled
+    args = mangled[end + 1:mangled.find("EE", end) + 1]
+    args = re.sub(r"Li(\d+)E", r"\1,", args)
+    args = re.sub(r"^f", "float,", args.replace("13__nv_bfloat16", "bf16,"))
+    return f"{mangled[start:end]}<{args.rstrip(',')}>"

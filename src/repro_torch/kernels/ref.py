@@ -5,7 +5,9 @@ Each function states in tensor operations what a CUDA kernel of
 tensors that lie on the CPU, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. They mirror the oracles of
 ``repro.kernels.ref`` (``segment_agg_ref``, ``segment_broadcast_ref``,
-``hier_agg_ref``, ``flash_attention_ref``, ``wkv6_ref``).
+``hier_agg_ref``, ``flash_attention_ref``, ``wkv6_ref``);
+``flash_attention_split_ref`` states the decode path's split-KV
+algorithm for the same function.
 """
 from __future__ import annotations
 
@@ -103,6 +105,60 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     out = (e @ vf) / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return out.to(q.dtype)
+
+
+def kv_visible_range(sq: int, skv: int, causal: bool, window: int,
+                     q_offset: int) -> tuple:
+    """[kv_begin, kv_end): the kv rows that some query row at positions
+    ``q_offset .. q_offset + sq - 1`` can see (empty: kv_begin ==
+    kv_end)."""
+    kv_end = min(skv, q_offset + sq) if causal else skv
+    kv_begin = max(0, q_offset - window + 1) if window else 0
+    return min(kv_begin, kv_end), kv_end
+
+
+def flash_attention_split_ref(q, k, v, *, causal=True, window=0, q_offset=0,
+                              split: int = 64):
+    """The split-KV algorithm of the ``flash_attention`` decode path in
+    plain PyTorch: the rep = H / Hkv query heads that share a kv head are
+    packed into rep * Sq rows, the visible range ``kv_visible_range`` is
+    cut into splits of ``split`` keys, each split gives f32 partials
+    (m, l, acc) with masked keys weighing exactly zero (a split the mask
+    empties has m = NEG_INF, l = 0), and the partials are merged in split
+    order: ``sum_s exp(m_s - m) acc_s / max(sum_s exp(m_s - m) l_s,
+    1e-30)``. Same function as ``flash_attention_ref``; shapes as there."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    lo, hi = kv_visible_range(sq, skv, causal, window, q_offset)
+    nsplit = max(1, -(-(hi - lo) // split))
+    qp = (q.float() * (1.0 / math.sqrt(d))).reshape(b, hkv, rep * sq, d)
+    qpos = q_offset + torch.arange(sq, device=q.device).repeat(rep)[:, None]
+    parts = []
+    for s in range(nsplit):
+        u0, u1 = lo + s * split, min(lo + (s + 1) * split, hi)
+        kpos = torch.arange(u0, u1, device=q.device)[None, :]
+        vis = torch.ones((rep * sq, u1 - u0), dtype=torch.bool,
+                         device=q.device)
+        if causal:
+            vis &= kpos <= qpos
+        if window:
+            vis &= kpos > qpos - window
+        sc = qp @ k[:, :, u0:u1].float().transpose(-1, -2)  # (B,Hkv,R,U)
+        sc = torch.where(vis, sc, NEG_INF)
+        m = torch.cat([sc, torch.full_like(sc[..., :1], NEG_INF)],
+                      dim=-1).amax(dim=-1)
+        p = torch.where(vis, torch.exp(sc - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1), p @ v[:, :, u0:u1].float()))
+    m = torch.stack([pm for pm, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for pm, pl, pa in parts:                       # in split order
+        w = torch.exp(pm - m)
+        l = l + w * pl
+        acc = acc + w[..., None] * pa
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, sq, d).to(q.dtype)
 
 
 def wkv6_ref(r, k, v, w, u, *, chunk: int = 64):

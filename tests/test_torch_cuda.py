@@ -17,7 +17,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import hfl
 from repro_torch.data.synthetic import token_batch
 from repro_torch.device import disable_tf32
-from repro_torch.kernels import hier_agg, ops, ref
+from repro_torch.kernels import _build, flash_attention, hier_agg, ops, ref
 from repro_torch.models import model
 
 pytestmark = pytest.mark.cuda
@@ -141,16 +141,33 @@ def test_cloud_round_on_card_matches_cpu(cuda_dev):
 # flash vs plain: both compute in f32 (online vs one-pass softmax): 1e-5
 # in f32; in bf16 both round that result to bf16: one ulp, 2^-8 relative
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-# (B, H, Hkv, Sq, Skv, D, causal, window, q_offset)
+# (B, H, Hkv, Sq, Skv, D, causal, window, q_offset); the path each takes
+# (flash_attention.plan): split_kv where rep * Sq <= 16, else the tile
+# path of the dtype (wgmma for bf16, f32_tile for f32)
 FLASH_SHAPES = [(4, 16, 8, 1024, 1024, 128, True, 0, 0),
                 (4, 16, 8, 1, 1056, 128, True, 0, 1055),
                 (2, 16, 8, 1000, 1000, 128, True, 0, 0),
                 (1, 4, 2, 256, 256, 64, True, 64, 0),
                 (2, 8, 8, 512, 512, 128, True, 0, 0),
                 (2, 4, 4, 200, 200, 64, False, 0, 0),
-                (1, 4, 2, 40, 300, 64, True, 0, 260)]
+                (1, 4, 2, 40, 300, 64, True, 0, 260),
+                (2, 8, 8, 1, 300, 128, True, 0, 299),
+                (2, 16, 4, 1, 1056, 128, True, 0, 1055),
+                (1, 32, 4, 1, 500, 64, True, 0, 499),
+                (2, 4, 2, 1, 1, 64, True, 0, 0),
+                (1, 8, 4, 1, 65, 128, True, 0, 64),
+                (1, 16, 8, 1, 4097, 128, True, 0, 4096),
+                (4, 16, 8, 1, 1056, 128, True, 0, 700),
+                (1, 8, 4, 2, 65, 128, True, 0, 63),
+                (1, 8, 2, 1, 300, 64, True, 64, 299),
+                (2, 8, 4, 512, 512, 64, True, 0, 0),
+                (2, 16, 8, 8, 300, 128, True, 0, 292),
+                (2, 16, 8, 40, 1064, 128, True, 0, 1024)]
 FLASH_IDS = ["qwen3-prefill", "qwen3-decode", "ragged", "window", "mha",
-             "non-causal", "continuation"]
+             "non-causal", "continuation", "decode-rep1", "decode-rep4",
+             "decode-rep8", "skv-1", "skv-65", "skv-4097",
+             "causal-end-mid-split", "split-emptied", "decode-window",
+             "prefill-d64", "rows-16-edge", "continuation-d128"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -165,14 +182,28 @@ def test_flash_attention_kernel_matches_plain(cuda_dev, b, h, hkv, sq, skv,
                                    device=cuda_dev).to(dtype).transpose(1, 2)
     q, k, v = mk(sq, h), mk(skv, hkv), mk(skv, hkv)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    path = flash_attention.plan(b, h, hkv, sq, skv, dtype, **kw)["path"]
+    assert path == ("split_kv" if h // hkv * sq <= 16 else
+                    "wgmma" if dtype == torch.bfloat16 else "f32_tile")
     ops.reset_launches()
     got = ops.flash_attention(q, k, v, **kw)
-    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES["flash_attention"] == 1       # one per call
     assert got.dtype == dtype and got.shape == (b, h, sq, d)
     want = ref.flash_attention_ref(q, k, v, **kw)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert torch.equal(got, ops.flash_attention(q, k, v, **kw))  # bitwise
+
+
+def test_flash_attention_bf16_tile_path_uses_tensor_cores(cuda_dev):
+    """The SASS of the built library (cuobjdump): both instantiations of
+    the bf16 tile kernel (D 64 and 128) issue tensor-core instructions
+    (HGMMA for wgmma, HMMA for mma.sync)."""
+    counts = _build.tensor_core_ops("flash_attention")
+    tile = {k: n for k, n in counts.items()
+            if k.startswith("flash_wgmma_kernel")}
+    assert set(tile) == {"flash_wgmma_kernel<64>", "flash_wgmma_kernel<128>"}
+    assert all(n > 0 for n in tile.values()), counts
 
 
 # chunked sums in other orders and __expf in the kernel: the reference's

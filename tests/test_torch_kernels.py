@@ -19,9 +19,10 @@ from _torch_parity import assert_close, to_torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import attention as jattn
 from repro.models import rwkv as jrwkv
 from repro_torch.configs import get_config
-from repro_torch.kernels import hier_agg, ops, ref
+from repro_torch.kernels import _build, flash_attention, hier_agg, ops, ref
 from repro_torch.models import decode
 from repro_torch.models.model import build_model
 
@@ -242,6 +243,116 @@ def test_flash_attention_ref_q_offset_decode():
     assert_close(got, want, atol=5e-6, rtol=5e-6)
 
 
+# The split-KV algorithm of the decode path (per-split partials merged in
+# split order) against the jnp oracle, f32: both compute one softmax in
+# f32, in other summation orders.
+SPLIT_TOL = 1e-5
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window,q_offset", [
+    (2, 4, 4, 1, 1056, 64, True, 0, 1055),     # rep 1, 17 splits
+    (2, 4, 2, 1, 63, 64, True, 0, 62),         # rep 2, Skv 63: one split
+    (1, 8, 2, 1, 64, 64, True, 0, 63),         # rep 4, Skv 64: one full split
+    (1, 16, 2, 2, 65, 64, True, 0, 63),        # rep 8, 16 rows, Skv 65
+    (2, 4, 2, 1, 1, 64, True, 0, 0),           # Skv 1
+    (1, 4, 2, 1, 1056, 128, True, 0, 1055),    # the qwen3 decode shape's D
+    (2, 4, 2, 1, 300, 64, True, 0, 100),       # causal end inside a split
+    (1, 4, 2, 2, 65, 64, True, 0, 63),         # row 0 sees split 1 empty
+    (1, 4, 2, 3, 300, 64, True, 64, 200),      # window 64, q_offset 200
+    (1, 4, 2, 2, 130, 64, False, 0, 0),        # non-causal
+], ids=["rep1-skv1056", "rep2-skv63", "rep4-skv64", "rep8-skv65", "skv1",
+        "d128-skv1056", "causal-end-mid-split", "split-emptied",
+        "window64-offset", "non-causal"])
+def test_flash_attention_split_ref_matches_oracle(b, h, hkv, sq, skv, d,
+                                                  causal, window, q_offset):
+    q, k, v = _qkv(3, b, h, hkv, sq, skv, d, jnp.float32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if causal:
+        want = jref.flash_attention_ref(q, k, v, **kw)
+    else:   # the reference's encoder form: every kv position at 0
+        tr = lambda a: a.transpose(0, 2, 1, 3)
+        want = tr(jattn.chunked_attention(
+            tr(q), tr(k), tr(v), causal=False, chunk=skv,
+            kv_positions=jnp.zeros((b, skv), jnp.int32)))
+    got = ref.flash_attention_split_ref(to_torch(q), to_torch(k),
+                                        to_torch(v), **kw)
+    assert got.dtype == torch.float32 and got.shape == (b, h, sq, d)
+    assert_close(got, want, atol=SPLIT_TOL, rtol=SPLIT_TOL)
+
+
+@pytest.mark.parametrize("split", [1, 7, 64])
+def test_flash_attention_split_ref_is_independent_of_split_size(split):
+    """The merge adds splits exactly: any split size gives the oracle's
+    result (a split of 1 key makes every masked key its own split)."""
+    q, k, v = _qkv(4, 1, 4, 2, 2, 100, 64, jnp.float32)
+    kw = dict(causal=True, window=16, q_offset=90)
+    want = jref.flash_attention_ref(q, k, v, **kw)
+    got = ref.flash_attention_split_ref(to_torch(q), to_torch(k),
+                                        to_torch(v), split=split, **kw)
+    assert_close(got, want, atol=SPLIT_TOL, rtol=SPLIT_TOL)
+
+
+# (B, H, Hkv, Sq, Skv, causal, window, q_offset)
+PLAN_CASES = [(4, 16, 8, 1, 1056, True, 0, 1055),
+              (4, 16, 8, 1024, 1024, True, 0, 0),
+              (2, 16, 8, 8, 300, True, 0, 292),
+              (2, 16, 8, 40, 1064, True, 0, 1024),
+              (1, 32, 4, 1, 500, True, 0, 499),
+              (1, 16, 8, 1, 4097, True, 0, 4096),
+              (2, 4, 2, 1, 1, True, 0, 0),
+              (1, 8, 2, 3, 300, True, 64, 200),
+              (1, 4, 2, 2, 130, False, 0, 0),
+              (1, 4, 2, 1, 50, True, 8, 100),           # nothing visible
+              (4096, 16, 8, 1, 64, True, 0, 63)]
+PLAN_IDS = ["qwen3-decode", "qwen3-prefill", "rows-16-edge",
+            "continuation-40", "rep8", "skv-4097", "skv-1", "window",
+            "non-causal", "empty-range", "batch-4096"]
+
+
+def _visible_keys(sq, skv, causal, window, q_offset):
+    qpos = q_offset + np.arange(sq)[:, None]
+    kpos = np.arange(skv)[None, :]
+    vis = np.ones((sq, skv), bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window:
+        vis &= kpos > qpos - window
+    return set(np.nonzero(vis.any(axis=0))[0].tolist())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,causal,window,q_offset",
+                         PLAN_CASES, ids=PLAN_IDS)
+def test_flash_attention_plan(b, h, hkv, sq, skv, causal, window, q_offset,
+                              dtype):
+    """The route follows dtype and packed rows alone; the splits tile the
+    visible keys exactly, none lies outside [0, Skv), and the grids stay
+    within CUDA's limits (x < 2^31, y <= 65535)."""
+    p = flash_attention.plan(b, h, hkv, sq, skv, dtype, causal=causal,
+                             window=window, q_offset=q_offset)
+    rows = (h // hkv) * sq
+    if rows <= flash_attention.MAX_PACKED_ROWS:
+        assert p["path"] == "split_kv" and p["rows"] == rows
+        lo, hi, n, sp = p["kv_begin"], p["kv_end"], p["n_splits"], p["split"]
+        assert 0 <= lo <= hi <= skv and n >= 1 and sp == flash_attention.SPLIT
+        splits = [(lo + s * sp, min(lo + (s + 1) * sp, hi)) for s in range(n)]
+        assert all(lo <= u0 <= u1 <= hi for u0, u1 in splits)
+        assert all(a[1] == c[0] for a, c in zip(splits, splits[1:]))
+        assert splits[0][0] == lo and splits[-1][1] == hi
+        assert n == 1 or all(u1 > u0 for u0, u1 in splits)   # none empty
+        visible = _visible_keys(sq, skv, causal, window, q_offset)
+        assert visible <= set(range(lo, hi))
+        if visible:
+            assert min(visible) == lo and max(visible) == hi - 1
+        assert p["grid"] == (n, b * hkv) and p["merge_grid"] == (b * hkv, 1)
+    else:
+        assert p["path"] == ("wgmma" if dtype == torch.bfloat16
+                             else "f32_tile")
+        assert p["grid"] == (-(-sq // p["block_rows"]), b * h)
+    assert 1 <= p["grid"][0] < 2**31 and 1 <= p["grid"][1] <= 65535
+
+
 def _wkv_inputs(seed, b, s, nh, hd, wlo=0.3, whi=0.999):
     rng = np.random.default_rng(seed)
     r, k, v = (rng.normal(size=(b, s, nh, hd)).astype(np.float32)
@@ -303,3 +414,22 @@ def test_wkv6_ref_bf16_inputs_match_f32():
     y2, s2 = ops.wkv6(rb.float(), kb.float(), vb.float(), to_torch(w),
                       to_torch(u))
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1818flash_wgmma_"
+     "kernelILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16NS_7StridesEii",
+     "flash_wgmma_kernel<128>"),
+    ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1818flash_split_"
+     "kernelI13__nv_bfloat16Li128ELi2EEEvPKT_S4_S4_PfS5_NS_7StridesE",
+     "flash_split_kernel<bf16,128,2>"),
+    ("_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELi16EEEvPKfS2_S2_Pf",
+     "flash_fwd_kernel<64,16>"),
+    ("_ZN12_GLOBAL__N_118flash_merge_kernelIfLi64EEEvPKfS2_PT_",
+     "flash_merge_kernel<float,64>"),
+    ("_ZN12_GLOBAL__N_111wkv6_kernelILi64EEEvPKfS2_", "wkv6_kernel<64>"),
+    ("segment_agg_kernel", "segment_agg_kernel")])
+def test_sass_kernel_labels(mangled, label):
+    """The SASS check names each kernel instantiation from its mangled
+    name (the anonymous namespace's hash holds digits and letters)."""
+    assert _build._kernel_label(mangled) == label
