@@ -7,13 +7,12 @@ kernel (``csrc/hier_agg.cu``, built by ``_build``):
 ``segment_agg``
     ``(N, P) bank x (N,) weights x (N,) segment ids -> (E, P)`` f32
     weighted segment means (Eq. 1 with E edges, Eq. 2 with E = 1).
-    The per-segment inverse weight sums enter the kernel as an ``(E,)``
-    input and the normalization is a multiply inside the kernel, as in
-    the reference.
+    The kernel sums the segment weights itself and normalizes by
+    multiplying with ``1 / max(sum, 1e-9)``, as the reference does.
 ``segment_sum_partial``
-    The same launch with a unit scale: unnormalized sums plus the
-    ``(E,)`` weight sums (the per-shard half of the sharded path; the
-    collective itself waits for the multi-GPU bank).
+    The same launch unnormalized: the sums plus the ``(E,)`` weight sums,
+    which the kernel writes too (the per-shard half of the sharded path;
+    the collective itself waits for the multi-GPU bank).
 ``segment_broadcast``
     ``(E, P) models x (N,) segment ids -> (N, P)``, ``out[i] =
     models[seg_i]`` written in the bank's dtype: the bank resync.
@@ -26,8 +25,10 @@ or the call raises. Every wrapper checks dtype, shape, contiguity and
 device, allocates its outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()``, raises if the launcher reports a CUDA
 error, and adds one to ``LAUNCHES[<kernel>]`` for each kernel launch.
-The per-segment weight sums are a plain masked reduction (no atomics),
-so results are the same bits on every run.
+With f32 weights and contiguous int32 ids (what the cloud round passes)
+a ``segment_agg`` call issues no torch operation but ``torch.empty``
+before its one launch. Nothing uses atomics, so results are the same
+bits on every run.
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_repro_bound", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.repro_segment_agg.argtypes = [vp, i32, vp, vp, vp, vp, i32, i64,
-                                          i32, vp]
+                                          i32, i32, vp]
         lib.repro_segment_agg.restype = i32
         lib.repro_segment_broadcast.argtypes = [vp, vp, vp, i32, i32, i64,
                                                 i32, vp]
@@ -62,33 +63,42 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch_segment_agg(bank, w32, seg32, scale, e: int):
-    """Launch the CUDA kernel: (N, P) bank x (N,) f32 w x (N,) int32 ids
-    x (E,) f32 scale -> (E, P) f32."""
+def _launch_segment_agg(bank, weights, segment_ids, e: int, *,
+                        normalize: bool, with_wsum: bool = False):
+    """Launch the CUDA kernel: (N, P) bank x (N,) w x (N,) ids -> (E, P)
+    f32 sums, scaled by ``1 / max(sum w, 1e-9)`` per segment when
+    ``normalize``; returns ``(out, wsum)`` with the kernel's ``(E,)`` f32
+    weight sums when ``with_wsum``, else ``(out, None)``. Weights other
+    than f32 and ids other than contiguous int32 are converted first."""
     if bank.dtype not in DTYPE_CODE:
         raise TypeError(f"segment_agg: CUDA kernel takes an f32 or bf16 "
                         f"bank, got {bank.dtype}")
     if e < 1 or e > MAX_SEGMENTS:
         raise ValueError(f"segment_agg: the CUDA kernel keeps at most "
                          f"{MAX_SEGMENTS} segments in registers, got {e}")
-    for nm, t in (("bank", bank), ("weights", w32), ("segment_ids", seg32),
-                  ("scale", scale)):
-        if not t.is_contiguous():
-            raise ValueError(f"segment_agg: {nm} must be contiguous")
+    if not bank.is_contiguous():
+        raise ValueError("segment_agg: bank must be contiguous")
     lib = _lib()
+    if weights.dtype != torch.float32 or not weights.is_contiguous():
+        weights = weights.to(torch.float32).contiguous()
+    if segment_ids.dtype != torch.int32 or not segment_ids.is_contiguous():
+        segment_ids = segment_ids.to(torch.int32).contiguous()
     n, p = bank.shape
     out = torch.empty((e, p), dtype=torch.float32, device=bank.device)
+    wsum = (torch.empty((e,), dtype=torch.float32, device=bank.device)
+            if with_wsum else None)
     stream = torch.cuda.current_stream(bank.device).cuda_stream
     rc = lib.repro_segment_agg(bank.data_ptr(), DTYPE_CODE[bank.dtype],
-                               w32.data_ptr(), seg32.data_ptr(),
-                               scale.data_ptr(), out.data_ptr(), n, p, e,
-                               stream)
+                               weights.data_ptr(), segment_ids.data_ptr(),
+                               out.data_ptr(),
+                               wsum.data_ptr() if with_wsum else None, n, p,
+                               e, int(normalize), stream)
     raise_on_error("segment_agg", rc)
     LAUNCHES["segment_agg"] += 1
-    return out
+    return out, wsum
 
 
-def _check_agg_inputs(bank, weights, segment_ids) -> None:
+def _check_agg_inputs(bank, weights, segment_ids) -> torch.device:
     if bank.dim() != 2:
         raise ValueError(f"segment_agg: bank must be (N, P), got "
                          f"{tuple(bank.shape)}")
@@ -100,20 +110,7 @@ def _check_agg_inputs(bank, weights, segment_ids) -> None:
     if segment_ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"segment_agg: integer segment ids expected, got "
                         f"{segment_ids.dtype}")
-    check_device("segment_agg", bank, weights, segment_ids)
-
-
-def _scaled_segment_sum(bank, weights, segment_ids, scale, e: int):
-    """``scale[j] * sum_{i: seg_i=j} w_i bank[i]``: the kernel on CUDA,
-    the plain version on the CPU."""
-    dev = check_device("segment_agg", bank, weights, segment_ids, scale)
-    if dev.type == "cpu":
-        return ref.segment_scaled_sum_ref(bank, weights, segment_ids, scale,
-                                          e)
-    return _launch_segment_agg(
-        bank, weights.to(torch.float32).contiguous(),
-        segment_ids.to(torch.int32).contiguous(),
-        scale.to(torch.float32).contiguous(), e)
+    return check_device("segment_agg", bank, weights, segment_ids)
 
 
 def segment_agg(bank, weights, segment_ids, num_segments: int):
@@ -124,24 +121,28 @@ def segment_agg(bank, weights, segment_ids, num_segments: int):
 
     Empty segments return zeros (the weight-sum clamp)."""
     e = int(num_segments)
-    _check_agg_inputs(bank, weights, segment_ids)
-    wsum = ref.segment_weight_sums(weights, segment_ids, e)
-    inv = 1.0 / wsum.clamp_min(1e-9)
-    return _scaled_segment_sum(bank, weights, segment_ids, inv, e)
+    if _check_agg_inputs(bank, weights, segment_ids).type == "cpu":
+        inv = 1.0 / ref.segment_weight_sums(weights, segment_ids,
+                                            e).clamp_min(1e-9)
+        return ref.segment_scaled_sum_ref(bank, weights, segment_ids, inv, e)
+    return _launch_segment_agg(bank, weights, segment_ids, e,
+                               normalize=True)[0]
 
 
 def segment_sum_partial(bank, weights, segment_ids, num_segments: int):
-    """The same launch as ``segment_agg`` with a unit scale. Returns
+    """The same launch as ``segment_agg``, unnormalized. Returns
 
         sums: (num_segments, P) f32 -- sum_{i: seg_i=j} w_i bank[i]
         wsum: (num_segments,)   f32 -- sum_{i: seg_i=j} w_i
     """
     e = int(num_segments)
-    _check_agg_inputs(bank, weights, segment_ids)
-    wsum = ref.segment_weight_sums(weights, segment_ids, e)
-    sums = _scaled_segment_sum(bank, weights, segment_ids,
-                               torch.ones_like(wsum), e)
-    return sums, wsum
+    if _check_agg_inputs(bank, weights, segment_ids).type == "cpu":
+        wsum = ref.segment_weight_sums(weights, segment_ids, e)
+        sums = ref.segment_scaled_sum_ref(bank, weights, segment_ids,
+                                          torch.ones_like(wsum), e)
+        return sums, wsum
+    return _launch_segment_agg(bank, weights, segment_ids, e,
+                               normalize=False, with_wsum=True)
 
 
 def segment_broadcast(models, segment_ids, *, out_dtype=None, out=None):

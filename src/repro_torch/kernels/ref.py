@@ -7,7 +7,8 @@ kernel against them on the card. They mirror the oracles of
 ``repro.kernels.ref`` (``segment_agg_ref``, ``segment_broadcast_ref``,
 ``hier_agg_ref``, ``flash_attention_ref``, ``wkv6_ref``);
 ``flash_attention_split_ref`` states the decode path's split-KV
-algorithm for the same function.
+algorithm for the same function, and ``wkv6_step_ref`` the ``wkv6``
+kernel's algorithm (16-token steps, running products of the decay).
 """
 from __future__ import annotations
 
@@ -201,4 +202,53 @@ def wkv6_ref(r, k, v, w, u, *, chunk: int = 64):
         state = state * cdecay[:, c, :, :, None] + inc[:, c]
     y = y + rd @ torch.stack(s_in, dim=1)
     y = y.permute(0, 1, 3, 2, 4).reshape(b, sp, nh, hd)[:, :s]
+    return y, state
+
+
+WKV_STEP = 16                  # tokens per step of the wkv6 kernel
+
+
+def wkv6_step_ref(r, k, v, w, u):
+    """The algorithm of the ``wkv6`` kernel in plain PyTorch; the same
+    function as ``wkv6_ref``, shapes as there. The sequence is cut into
+    steps of ``WKV_STEP`` tokens (a ragged tail padded with r = k = v = 0
+    and w = 1), w is clamped to ``max(w, 1e-38)``, and no exponential or
+    logarithm is taken: within a step from state S_in,
+
+        A[t, u] = sum_k r_t[k] q_u[k],  q_u = k_u * prod_{m=u+1}^{t-1} w_m
+                  (u < t; q_u starts as k_u and is multiplied by w_t
+                  after each row t > u, so it ends as k~_u)
+        A[t, t] = sum_k r_t[k] u[k] k_t[k]
+        y       = A V + (r * prod_{m<t} w_m) S_in
+        S_out   = diag(prod_m w_m) S_in + k~^T V"""
+    step = WKV_STEP
+    b, s, nh, hd = r.shape
+    pad = (-s) % step
+    r, k, v = (a.float() for a in (r, k, v))
+    w = w.float().clamp_min(1e-38)
+    if pad:
+        r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
+        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    r, k, v, w = (a.permute(0, 2, 1, 3) for a in (r, k, v, w))  # (B,nh,S,hd)
+    bonus = u.float()[None, :, :]
+    state = torch.zeros((b, nh, hd, hd), dtype=torch.float32,
+                        device=r.device)
+    ys = []
+    for t0 in range(0, s + pad, step):
+        rs, ks, vs, ws = (a[:, :, t0:t0 + step] for a in (r, k, v, w))
+        pre = torch.ones_like(ws[:, :, 0])
+        rt = []
+        for t in range(step):                         # prefix products
+            rt.append(rs[:, :, t] * pre)
+            pre = pre * ws[:, :, t]
+        a = torch.zeros((b, nh, step, step), dtype=torch.float32,
+                        device=r.device)
+        q = ks.clone()
+        for t in range(step):                         # running products
+            a[:, :, t, t] = (rs[:, :, t] * (ks[:, :, t] * bonus)).sum(-1)
+            a[:, :, t, :t] = (rs[:, :, t, None, :] * q[:, :, :t]).sum(-1)
+            q[:, :, :t] = q[:, :, :t] * ws[:, :, t, None, :]
+        ys.append(a @ vs + torch.stack(rt, dim=2) @ state)
+        state = pre[..., None] * state + q.transpose(-1, -2) @ vs
+    y = torch.cat(ys, dim=2)[:, :, :s].permute(0, 2, 1, 3)
     return y, state

@@ -1,5 +1,4 @@
-"""RWKV6 WKV recurrence, chunked (CUDA kernel); the port of
-``repro.kernels.wkv6``.
+"""RWKV6 WKV recurrence (CUDA kernel); the port of ``repro.kernels.wkv6``.
 
 ``wkv6(r, k, v, w, u, *, chunk)`` runs one launch of the hand-written
 kernel ``csrc/wkv6.cu`` for CUDA tensors and the plain version
@@ -9,8 +8,14 @@ starts from a zero state, as the Pallas kernel does. r/k/v: (B, S, nh,
 (0, 1); u: (nh, 64) bonus. Returns y (B, S, nh, 64) f32 and the final
 state (B, nh, 64, 64) f32.
 
-Unlike the Pallas kernel, S need not be a multiple of ``chunk``: the
-kernel pads the last chunk itself with r = k = v = 0 and w = 1.
+The function does not depend on ``chunk``: it is the chunk length (32 or
+64) of the plain version and the reference, which compute the
+recurrence chunk by chunk in log space. The kernel computes it in steps
+of 16 tokens with running products of the decay, one block per
+(batch, head) (``ref.wkv6_step_ref`` states that algorithm); the card
+tests hold it to the same tolerances at both chunk lengths. S need not
+be a multiple of anything: the kernel masks the ragged tail itself (r = k = v = 0, w = 1). r, k, v and w must start at
+16-byte aligned addresses (the kernel copies whole 16-byte pieces).
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from repro_torch.kernels._common import (
 )
 
 HEAD_SIZE = 64                 # the head size the kernel is built for
-CHUNKS = (32, 64)              # the chunk lengths it is built for
+CHUNKS = (32, 64)              # the chunk lengths callers may name
 
 
 def _lib() -> ctypes.CDLL:
@@ -35,7 +40,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_repro_bound", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.repro_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
-                                   i32, i32, i32, vp]
+                                   i32, i32, vp]
         lib.repro_wkv6.restype = i32
         lib._repro_bound = True
     return lib
@@ -66,6 +71,9 @@ def wkv6(r, k, v, w, u, *, chunk=64):
                          f"{chunk}")
     if not all(t.is_contiguous() for t in (r, k, v, w)):
         raise ValueError("wkv6: r, k, v and w must be contiguous")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("wkv6: r, k, v and w must start at 16-byte "
+                         "aligned addresses")
     lib = _lib()
     u32 = u.to(torch.float32).contiguous()
     y = torch.empty((b, s, nh, hd), dtype=torch.float32, device=dev)
@@ -74,7 +82,7 @@ def wkv6(r, k, v, w, u, *, chunk=64):
     rc = lib.repro_wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                         w.data_ptr(), u32.data_ptr(), y.data_ptr(),
                         state.data_ptr(), DTYPE_CODE[r.dtype], b, s, nh, hd,
-                        int(chunk), stream)
+                        stream)
     raise_on_error("wkv6", rc)
     LAUNCHES["wkv6"] += 1
     return y, state

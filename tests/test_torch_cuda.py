@@ -19,6 +19,7 @@ from repro_torch.data.synthetic import token_batch
 from repro_torch.device import disable_tf32
 from repro_torch.kernels import _build, flash_attention, hier_agg, ops, ref
 from repro_torch.models import model
+from repro_torch.models.rwkv import wkv_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -58,6 +59,138 @@ def test_segment_agg_kernel_matches_plain(cuda_dev, n, p, e, dtype):
     want = ref.segment_agg_ref(bank, w, seg, e)
     torch.testing.assert_close(got, want, atol=AGG_TOL, rtol=AGG_TOL)
     assert torch.equal(got, ops.segment_agg(bank, w, seg, e))  # bitwise
+
+
+def _check_agg(bank, w, seg, e):
+    """One segment_agg and one segment_sum_partial call against the plain
+    versions: one launch each, sums and weight sums within AGG_TOL, and
+    two runs bitwise equal."""
+    hier_agg.reset_launches()
+    got = ops.segment_agg(bank, w, seg, e)
+    assert hier_agg.LAUNCHES["segment_agg"] == 1
+    assert got.dtype == torch.float32 and got.shape == (e, bank.shape[1])
+    torch.testing.assert_close(got, ref.segment_agg_ref(bank, w, seg, e),
+                               atol=AGG_TOL, rtol=AGG_TOL)
+    assert torch.equal(got, ops.segment_agg(bank, w, seg, e))
+    sums, wsum = ops.segment_sum_partial(bank, w, seg, e)
+    assert hier_agg.LAUNCHES["segment_agg"] == 3
+    want_w = ref.segment_weight_sums(w, seg, e)
+    torch.testing.assert_close(wsum, want_w, atol=AGG_TOL, rtol=AGG_TOL)
+    torch.testing.assert_close(
+        sums, ref.segment_scaled_sum_ref(bank, w, seg, torch.ones_like(
+            want_w), e), atol=AGG_TOL, rtol=AGG_TOL)
+    sums2, wsum2 = ops.segment_sum_partial(bank, w, seg, e)
+    assert torch.equal(sums, sums2) and torch.equal(wsum, wsum2)
+    return got
+
+
+# every start of a bank row mod 16 bytes that a vector load could meet,
+# the block-width switch (P 21,840 and 21,841) and the CIFAR bank
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("p", [1, 3, 997, 21840, 21841, 456906])
+def test_segment_agg_row_alignments(cuda_dev, p, dtype):
+    _check_agg(*_inputs(cuda_dev, 50, p, 5, dtype, seed=p), 5)
+
+
+# E at the edges of the register slots (1, 8 | 9, 32), and banks of at
+# most 8 rows (the kernel's 8-row batches)
+@pytest.mark.parametrize("n,e", [(60, 1), (60, 8), (60, 9), (100, 32),
+                                 (3, 4), (8, 9)],
+                         ids=["e1", "e8", "e9", "e32", "n3-e4", "n8-e9"])
+def test_segment_agg_segment_counts(cuda_dev, n, e):
+    _check_agg(*_inputs(cuda_dev, n, 3001, e, torch.float32, seed=n + e), e)
+
+
+@pytest.mark.parametrize("e", [5, 32])
+def test_segment_agg_1000_rows(cuda_dev, e):
+    """N = 1000 rows for the weight sums each warp takes in the kernel.
+    Bank values are integers in [-8, 8] and weights multiples of 1/8, so
+    every partial sum is exact in f32 and any summation order gives the
+    same sums: the unnormalised sums and the weight sums must equal the
+    plain version's bit for bit (with random reals, two f32 orders of
+    200-term sums differ by more than AGG_TOL where they cancel)."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(e)
+    bank = torch.randint(-8, 9, (1000, 3001), generator=gen,
+                         device=cuda_dev).float()
+    w = torch.randint(1, 25, (1000,), generator=gen,
+                      device=cuda_dev).float() / 8
+    seg = torch.randint(0, e, (1000,), generator=gen, device=cuda_dev,
+                        dtype=torch.int32)
+    _check_agg(bank, w, seg, e)
+    sums, wsum = ops.segment_sum_partial(bank, w, seg, e)
+    assert torch.equal(wsum, ref.segment_weight_sums(w, seg, e))
+    assert torch.equal(sums, ref.segment_scaled_sum_ref(
+        bank, w, seg, torch.ones_like(wsum), e))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("e", [5, 32])
+def test_segment_agg_1000_rows_real_valued(cuda_dev, e, dtype):
+    """N = 1000 rows of random reals against the same sums in f64. The
+    kernel adds each segment's rows in one f32 chain of at most N fmaf
+    (each product exact inside its fmaf), so with u = 2^-24 and
+    g = N u / (1 - N u) the standard bound of recursive summation gives,
+    per segment j and column c, with A = sum_i |w_i x_ic| and
+    W = sum_i w_i (w > 0) over the segment's rows:
+        |S~ - S| <= g A,   |W~ - W| <= g W,
+    and the normalised output (S~ times the rounded 1 / W~, one rounding
+    each) is off by at most g (A + |S|) / W + 4 u |S / W|, the last term
+    with room for the reciprocal's and the product's roundings. AGG_TOL
+    is not used: it covers two f32 orders at small N."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(100 + e)
+    n = 1000
+    bank = torch.randn((n, 3001), generator=gen, device=cuda_dev).to(dtype)
+    w = torch.rand((n,), generator=gen, device=cuda_dev) * 2.9 + 0.1
+    seg = torch.randint(0, e, (n,), generator=gen, device=cuda_dev,
+                        dtype=torch.int32)
+    got = ops.segment_agg(bank, w, seg, e)
+    sums, wsum = ops.segment_sum_partial(bank, w, seg, e)
+    onehot = torch.nn.functional.one_hot(seg.long(), e).double()   # (n, e)
+    x, wd = bank.double(), w.double()
+    s64 = onehot.T @ (wd[:, None] * x)                             # (e, P)
+    a64 = onehot.T @ (wd[:, None] * x).abs()
+    w64 = onehot.T @ wd                                            # (e,)
+    u = 2.0 ** -24
+    g = n * u / (1 - n * u)
+    assert bool((wsum.double() - w64).abs().le(g * w64).all())
+    assert bool((sums.double() - s64).abs().le(g * a64).all())
+    out64 = s64 / w64[:, None]
+    bound = g * (a64 + s64.abs()) / w64[:, None] + 4 * u * out64.abs()
+    assert bool((got.double() - out64).abs().le(bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_segment_agg_empty_segment_and_ids_out_of_range(cuda_dev, dtype):
+    """Segment 2 has no row, and ids -1, 6 and 40 (outside [0, 6)) add
+    nothing to the sums or the weight sums."""
+    bank, w, seg = _inputs(cuda_dev, 40, 997, 6, dtype, seed=5)
+    seg[seg == 2] = 0
+    seg[3], seg[11], seg[27] = -1, 6, 40
+    got = _check_agg(bank, w, seg, 6)
+    assert int(torch.count_nonzero(got[2])) == 0
+    _, wsum = ops.segment_sum_partial(bank, w, seg, 6)
+    assert float(wsum[2]) == 0.0
+
+
+def test_segment_agg_is_one_device_kernel(cuda_dev):
+    """With f32 weights and contiguous int32 ids (what the cloud round
+    passes) one segment_agg call runs exactly one device kernel: the
+    weight sums are inside it."""
+    from torch.profiler import ProfilerActivity, profile
+    bank, w, seg = _inputs(cuda_dev, 50, 21840, 5, torch.float32)
+    ops.segment_agg(bank, w, seg, 5)                 # build and warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.segment_agg(bank, w, seg, 5)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    assert [e.name for e in kernels] == [kernels[0].name]
+    assert "segment_agg_kernel" in kernels[0].name
 
 
 def test_segment_agg_zero_weight_rows_are_neutral(cuda_dev):
@@ -206,33 +339,69 @@ def test_flash_attention_bf16_tile_path_uses_tensor_cores(cuda_dev):
     assert all(n > 0 for n in tile.values()), counts
 
 
-# chunked sums in other orders and __expf in the kernel: the reference's
-# own wkv6 tolerance; 1e-3 for hard decays, as in the reference
+# 16-token steps with running decay products against the plain chunked
+# log-space version: sums in other orders; the reference's own wkv6
+# tolerance, 1e-3 for hard decays as in the reference. The kernel does not
+# depend on the chunk; the plain version runs at the chunk named.
+WKV_SHAPES = [(4, 1024, 32, 64, 0.3, 0.999, 2e-4),
+              (2, 1000, 8, 64, 0.3, 0.999, 2e-4),
+              (2, 130, 3, 32, 0.3, 0.999, 2e-4),
+              (1, 256, 4, 32, 1e-4, 0.1, 1e-3),
+              (2, 1, 3, 64, 0.3, 0.999, 2e-4),
+              (2, 15, 3, 32, 0.3, 0.999, 2e-4),
+              (2, 16, 3, 64, 0.3, 0.999, 2e-4),
+              (2, 17, 3, 32, 0.3, 0.999, 2e-4),
+              (1, 100, 1, 64, 0.3, 0.999, 2e-4),
+              (3, 77, 5, 32, 0.3, 0.999, 2e-4),
+              (2, 200, 3, 64, 0.0, 0.1, 1e-3)]
+WKV_IDS = ["rwkv6-prefill", "ragged", "ragged-32", "hard-decay", "s1",
+           "s15", "s16", "s17", "one-head", "odd-heads-15", "w-zero"]
+
+
+def _wkv_inputs(dev, b, s, nh, lo, hi, rkv_dtype):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    r, k, v = (torch.randn((b, s, nh, 64), generator=gen,
+                           device=dev).to(rkv_dtype) for _ in range(3))
+    w = torch.rand((b, s, nh, 64), generator=gen, device=dev) \
+        * (hi - lo) + lo
+    if lo == 0.0:          # w = 0 exactly: the kernel's 1e-38 clamp
+        w[..., ::7] = 0.0
+    u = torch.randn((nh, 64), generator=gen, device=dev)
+    return r, k, v, w, u
+
+
 @pytest.mark.parametrize("rkv_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,s,nh,chunk,lo,hi,tol", [
-    (4, 1024, 32, 64, 0.3, 0.999, 2e-4),
-    (2, 1000, 8, 64, 0.3, 0.999, 2e-4),
-    (2, 130, 3, 32, 0.3, 0.999, 2e-4),
-    (1, 256, 4, 32, 1e-4, 0.1, 1e-3)],
-    ids=["rwkv6-prefill", "ragged", "ragged-32", "hard-decay"])
+@pytest.mark.parametrize("b,s,nh,chunk,lo,hi,tol", WKV_SHAPES, ids=WKV_IDS)
 def test_wkv6_kernel_matches_plain(cuda_dev, b, s, nh, chunk, lo, hi, tol,
                                    rkv_dtype):
-    gen = torch.Generator(device=cuda_dev).manual_seed(1)
-    r, k, v = (torch.randn((b, s, nh, 64), generator=gen,
-                           device=cuda_dev).to(rkv_dtype) for _ in range(3))
-    w = torch.rand((b, s, nh, 64), generator=gen, device=cuda_dev) \
-        * (hi - lo) + lo
-    u = torch.randn((nh, 64), generator=gen, device=cuda_dev)
+    r, k, v, w, u = _wkv_inputs(cuda_dev, b, s, nh, lo, hi, rkv_dtype)
     ops.reset_launches()
     y, st = ops.wkv6(r, k, v, w, u, chunk=chunk)
     assert ops.LAUNCHES["wkv6"] == 1
-    yw, stw = ref.wkv6_ref(r, k, v, w, u, chunk=chunk)
+    if lo == 0.0:
+        # w = 0: the chunked plain version's exponents of clamped logs
+        # (-87 per step) lose precision, so the sequential recurrence is
+        # the yardstick (the kernel's 1e-38 clamp adds 1e-38 * S)
+        yw, stw = wkv_scan(r, k, v, w, u)
+    else:
+        yw, stw = ref.wkv6_ref(r, k, v, w, u, chunk=chunk)
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
     torch.testing.assert_close(y, yw, atol=tol, rtol=tol)
     torch.testing.assert_close(st, stw, atol=tol, rtol=tol)
     y2, st2 = ops.wkv6(r, k, v, w, u, chunk=chunk)
     assert torch.equal(y, y2) and torch.equal(st, st2)           # bitwise
+
+
+def test_wkv6_kernel_matches_its_algorithm_stated_plainly(cuda_dev):
+    """The kernel against ``ref.wkv6_step_ref`` (the same 16-token steps
+    and running products) on the card, f32, tolerance of the test above."""
+    r, k, v, w, u = _wkv_inputs(cuda_dev, 2, 100, 3, 0.3, 0.999,
+                                torch.float32)
+    y, st = ops.wkv6(r, k, v, w, u)
+    yw, stw = ref.wkv6_step_ref(r, k, v, w, u)
+    torch.testing.assert_close(y, yw, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(st, stw, atol=2e-4, rtol=2e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -288,6 +457,12 @@ def test_llm_wrappers_raise_on_what_the_kernels_do_not_take(cuda_dev):
         ops.wkv6(r.bfloat16(), r, r, r, u)
     with pytest.raises(TypeError, match="decay w must be f32"):
         ops.wkv6(r, r, r, r.bfloat16(), u)
+    rm = torch.zeros(1 * 8 * 2 * 64 + 1, device=cuda_dev)[1:].view(1, 8, 2,
+                                                                   64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.wkv6(rm, r, r, r, u)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.wkv6(r, r, r, rm, u)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-1.6b"])

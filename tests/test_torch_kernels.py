@@ -416,6 +416,64 @@ def test_wkv6_ref_bf16_inputs_match_f32():
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
+# The wkv6 kernel's algorithm (16-token steps, running products of the
+# decay) against the sequential oracle and the chunked jnp twin at each
+# chunk length, at every step edge (S = 1, 15, 16, 17, 33); the
+# tolerances as above.
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("b,s,nh", [(1, 128, 2), (2, 100, 3), (1, 17, 1),
+                                    (2, 1, 3), (1, 15, 2), (1, 16, 1),
+                                    (2, 33, 1), (1, 64, 2), (3, 47, 1)],
+                         ids=["1x128x2", "ragged-2x100x3", "ragged-1x17x1",
+                              "s1-2x1x3", "s15-1x15x2", "s16-1x16x1",
+                              "s33-2x33x1", "1x64x2", "ragged-3x47x1"])
+def test_wkv6_step_ref_matches_scan_and_chunked(b, s, nh, chunk):
+    r, k, v, w, u = _wkv_inputs(5, b, s, nh, 64)
+    y, st = ref.wkv6_step_ref(*map(to_torch, (r, k, v, w, u)))
+    assert y.dtype == torch.float32 and y.shape == (b, s, nh, 64)
+    assert st.shape == (b, nh, 64, 64)
+    ys, sts = _wkv_scan_oracle(5, b, s, nh, 64)
+    assert_close(y, ys, atol=WKV_TOL, rtol=WKV_TOL)
+    assert_close(st, sts, atol=WKV_TOL, rtol=WKV_TOL)
+    yc, stc = _wkv_chunked_jit(*map(jnp.asarray, (r, k, v, w, u)),
+                               chunk=chunk)
+    assert_close(y, yc, atol=WKV_TOL, rtol=WKV_TOL)
+    assert_close(st, stc, atol=WKV_TOL, rtol=WKV_TOL)
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_wkv6_step_ref_hard_decay(chunk):
+    """w in [1e-4, 0.1]: the running products underflow where the oracles'
+    exponentials of summed logarithms do; the reference's hard-decay
+    tolerance."""
+    r, k, v, w, u = _wkv_inputs(6, 1, 70, 2, 64, 1e-4, 0.1)
+    y, st = ref.wkv6_step_ref(*map(to_torch, (r, k, v, w, u)))
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    ys, sts = jref.wkv6_ref(*map(jnp.asarray, (r, k, v, w, u)))
+    assert_close(y, ys, atol=1e-3, rtol=1e-3)
+    assert_close(st, sts, atol=1e-3, rtol=1e-3)
+    yc, stc = _wkv_chunked_jit(*map(jnp.asarray, (r, k, v, w, u)),
+                               chunk=chunk)
+    assert_close(y, yc, atol=1e-3, rtol=1e-3)
+    assert_close(st, stc, atol=1e-3, rtol=1e-3)
+
+
+def test_wkv6_step_ref_zero_decays():
+    """w = 0 exactly in every 5th channel, the rest in [1e-4, 0.1]: the
+    1e-38 clamp. Held against the sequential oracle only: the chunked jnp
+    twin's clamp value 1e-38 is subnormal in f32, XLA on the CPU flushes
+    it to 0, and log(0) gives NaN there (a reference-side caveat); the
+    plain chunked ``ref.wkv6_ref`` stays finite but loses precision to
+    exponents near -87 per clamped step."""
+    r, k, v, w, u = _wkv_inputs(6, 1, 70, 2, 64, 1e-4, 0.1)
+    w[..., ::5] = 0.0
+    y, st = ref.wkv6_step_ref(*map(to_torch, (r, k, v, w, u)))
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    ys, sts = jref.wkv6_ref(*map(jnp.asarray, (r, k, v, w, u)))
+    assert_close(y, ys, atol=1e-3, rtol=1e-3)
+    assert_close(st, sts, atol=1e-3, rtol=1e-3)
+
+
 @pytest.mark.parametrize("mangled,label", [
     ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c45a2b1818flash_wgmma_"
      "kernelILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16NS_7StridesEii",
