@@ -27,6 +27,23 @@ Phases, each fatal on failure (the script exits non-zero):
    ``step`` with a seeded random action -- with the launch counts of
    both kernels read around it and held to what the round's loop
    implies; then the same at the MNIST defaults;
+3c. the agent and the schemes (``repro_torch.core.sync``,
+   ``core.agent``): (a) one PPO update on the card against the same
+   update on the CPU (same seed, so the same init; a seeded 40-step
+   rollout at the CIFAR state shape (6, 9), 10 actions; the same
+   shuffle seed) within atol 1e-4, and its wall; (b) ``HFLEnv`` real
+   mode at the paper's CIFAR width with T cut to 500 s:
+   ``sync.train_agent`` for 2 episodes, then ``run_scheme("arena")``;
+   (c) at the MNIST defaults with T cut to 160 s: every synchronous
+   scheme (vanilla-fl, vanilla-hfl, var-freq-a, var-freq-b, favor,
+   hwamei trained for one episode then run, share), and
+   ``async-fedavg`` raising ``TypeError`` on ``HFLEnv``; each run with
+   the launch counts set to 0 before it and held after it to what its
+   rounds' (gamma1, gamma2) imply, a finite history and a synced bank,
+   and its per-round walls printed; (d) ``hfl.make_fedavg_round`` on a
+   50 x 456,906 CIFAR bank with every other device participating:
+   exactly one ``segment_agg`` launch, every row the global model, and
+   with no local epoch the global model within 1e-5 of the plain mean;
 2b. hold ``flash_attention`` and ``wkv6`` against their plain versions
    on the card, in bf16 and f32, at the serving path's shapes (qwen3-1.7b
    prefill and decode, rwkv6-1.6b prefill) plus ragged, windowed, MHA,
@@ -341,6 +358,249 @@ def main_path(torch, ops, env_mod, task: str, dev) -> dict:
         check(torch.equal(v, env.global_model[k].expand_as(v)),
               f"{task}: bank rows not synced to the global model")
     return {"counts": counts, "rounds": len(rounds)}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the agent and the schemes
+# ---------------------------------------------------------------------------
+
+# the agent's update on the card vs the same update on the CPU, TF32 off:
+# f32 gradients in other summation orders (cuDNN's conv backward is not
+# bitwise) through 6 Adam steps
+AGENT_TOL = 1e-4
+# the paper's CIFAR schedule, passed explicitly: EnvConfig.fixup applies
+# it only at the default T. T is cut from 12000 s (about 55 rounds) and
+# MNIST's from 3000 s so an episode of the fixed schemes is 2-3 rounds
+# after reset (CIFAR: reset about 60 s, a (5, 4) round about 240 s;
+# MNIST: about 20 s and 70 s)
+CIFAR_ARENA = dict(task="cifar", mode="real", n_local=1000, lr=0.01,
+                   epsilon=0.004, threshold_time=500.0)
+MNIST_SCHEMES = dict(task="mnist", mode="real", threshold_time=160.0)
+STATIC_SCHEMES = ("vanilla-fl", "vanilla-hfl", "var-freq-a", "var-freq-b",
+                  "favor", "share")
+
+
+def agent_update_check(torch, ppo, ops, dev) -> None:
+    """(a) One PPO update on the card against the same update on the
+    CPU: the same seed (so the same init), a seeded 40-step rollout at
+    the CIFAR state shape (6, 9) with action dim 10, the same shuffle
+    seed; then a second update on the card, timed."""
+    shape, adim, n = (6, 9), 10, 40
+    rng = np.random.default_rng(3)
+    roll = [(rng.normal(size=shape).astype(np.float32),
+             rng.normal(size=adim).astype(np.float32), float(rng.normal()),
+             float(rng.normal()), float(rng.normal()), t == n - 1)
+            for t in range(n)]
+    agents = [ppo.PPOAgent(0, shape, adim, device=d,
+                           shuffle_seed_source=lambda: 1234)
+              for d in ("cpu", dev)]
+    for k, v in agents[0].params.items():
+        check(torch.equal(v, agents[1].params[k].cpu()),
+              f"agent: init {k} differs between CPU and card")
+    ops.reset_launches()
+    walls = []
+    for agent in agents:
+        for r in roll:
+            agent.remember(*r)
+        t0 = sync_time(torch)
+        agent.update()
+        walls.append(sync_time(torch) - t0)
+    err = max(float((agents[0].params[k] - v.cpu()).abs().max())
+              for k, v in agents[1].params.items())
+    check(err <= AGENT_TOL, f"agent update: card vs CPU max|err| {err:.3e}"
+          f" > {AGENT_TOL}")
+    check(all(v.device == dev for v in agents[1].params.values()),
+          "agent params not on the card")
+    card = agents[1]
+    for r in roll:
+        card.remember(*r)
+    t0 = sync_time(torch)
+    card.update()
+    t_update = sync_time(torch) - t0
+    check(all(c == 0 for c in ops.LAUNCHES.values()),
+          f"the agent launched a kernel: {ops.LAUNCHES}")
+    print(f"  (a) PPO update, 40-step rollout, state (6, 9), 10 actions: "
+          f"card vs CPU max|err| {err:.3e} (tolerance {AGENT_TOL}); "
+          f"update wall CPU {walls[0]:.3f} s, card first {walls[1]:.3f} s, "
+          f"second {t_update:.3f} s")
+
+
+class RoundLog:
+    """Records, for one env, each round's (g1, g2) (the reset's warmup
+    round at 2, 2; ``step``'s from its ``info``; ``step_raw``'s from its
+    arguments) and its host wall, synchronised: it wraps the instance's
+    ``reset``, ``step`` and ``step_raw``."""
+
+    def __init__(self, torch, env):
+        self.rounds, self.walls = [], []
+        reset, step, step_raw = env.reset, env.step, env.step_raw
+        warm = np.full(env.cfg.n_edges, 2)
+
+        def timed(fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self.walls.append(sync_time(torch) - t0)
+            return out
+
+        def reset_():
+            self.rounds.append((warm, warm))
+            return timed(reset)
+
+        def step_(action):
+            out = timed(step, action)
+            self.rounds.append((out[3]["g1"], out[3]["g2"]))
+            return out
+
+        def step_raw_(g1, g2, participate=None):
+            self.rounds.append((np.asarray(g1), np.asarray(g2)))
+            return timed(step_raw, g1, g2, participate)
+
+        env.reset, env.step, env.step_raw = reset_, step_, step_raw_
+
+    def take(self):
+        out = (self.rounds, self.walls)
+        self.rounds, self.walls = [], []
+        return out
+
+
+def drive(torch, ops, env, log, label: str, fn):
+    """Run ``fn()`` on ``env`` with the launch counts set to 0 just before
+    and read just after; hold them to what the rounds' (g1, g2) imply,
+    check what came out and print the run's walls. Returns fn's
+    result."""
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = sync_time(torch) - t0
+    counts = dict(ops.LAUNCHES)
+    rounds, walls = log.take()
+    want = expected_launches(rounds, env.cfg.gamma_max)
+    check(counts == want, f"{label}: launch counts {counts} != {want}")
+    check(counts["segment_agg"] > 0 and counts["segment_broadcast"] > 0,
+          f"{label}: a kernel was not launched")
+    acc = np.asarray(env.acc_hist)
+    check(len(acc) > 0 and np.isfinite(acc).all() and (acc >= 0).all()
+          and (acc <= 1).all() and np.isfinite(env.energy_hist).all(),
+          f"{label}: bad history {env.acc_hist}")
+    for k, v in env.bank.items():
+        check(v.device == env.device and bool(torch.isfinite(v).all())
+              and torch.equal(v, env.global_model[k].expand_as(v)),
+              f"{label}: bank leaf {k} not finite or not synced")
+    w = np.asarray(walls)
+    print(f"    {label:13s} {len(rounds):3d} rounds (resets included), "
+          f"final acc {env.acc:.4f}, wall {wall:.2f} s; per round "
+          f"min/median/max {w.min():.3f}/{np.median(w):.3f}/{w.max():.3f}"
+          f" s; launches {counts}")
+    return out
+
+
+def fedavg_check(torch, hfl, model, ops, ref, env, dev) -> None:
+    """(d) ``make_fedavg_round`` at CIFAR width: a 50 x 456,906 bank of
+    distinct rows, every other device participating. One local epoch:
+    exactly one ``segment_agg`` launch and every row equal to the global
+    model. No local epoch: the global model within AGG_TOL of the plain
+    weighted mean of the participating rows."""
+    n = env.cfg.n_devices
+    loss = lambda p, b: model.cnn_loss(model.cifar_cnn_apply, p, b)
+    rnd = hfl.make_fedavg_round(loss, env.cfg.lr, env.cfg.batch_size, 1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    part = np.arange(n) % 2 == 0
+    sizes = env.fed.device_sizes()
+    perms = torch.rand((1, n, env.fed.n_local), generator=gen,
+                       device=dev).argsort(dim=-1)
+    for g1 in (1, 0):
+        bank = hfl.init_bank(model.cifar_cnn_init, gen, n, device=dev)
+        mat = hfl.flatbank.bank_spec(bank).flatten(bank)
+        mat.add_(0.01 * torch.randn(mat.shape, generator=gen, device=dev))
+        before = mat.clone()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        bank, glob = rnd(bank, env.fed.x, env.fed.y, sizes, part, g1,
+                         perms)
+        wall = sync_time(torch) - t0
+        counts = dict(ops.LAUNCHES)
+        want = {"segment_agg": 1, "segment_broadcast": 0,
+                "flash_attention": 0, "wkv6": 0}
+        check(counts == want, f"fedavg round: launches {counts} != {want}")
+        for k, v in bank.items():
+            check(bool(torch.isfinite(v).all())
+                  and torch.equal(v, glob[k].expand_as(v)),
+                  f"fedavg round: bank leaf {k} not the global model")
+        msg = ""
+        if g1 == 0:
+            w = sizes * torch.as_tensor(part, device=dev)
+            seg = torch.zeros((n,), dtype=torch.int32, device=dev)
+            plain = ref.segment_agg_ref(before, w, seg, 1)[0]
+            got = hfl.flatbank.model_spec(glob).flatten_model(glob)
+            err = float((got - plain).abs().max())
+            check(torch.allclose(got, plain, atol=AGG_TOL, rtol=AGG_TOL),
+                  f"fedavg round: global model vs plain mean {err:.3e}")
+            msg = f", global vs plain mean max|err| {err:.3e}"
+        print(f"  (d) make_fedavg_round, CIFAR {n} x {mat.shape[1]}, "
+              f"{int(part.sum())} participating, gamma1 {g1}: wall "
+              f"{wall:.3f} s, launches {counts}{msg}")
+
+
+def agents_and_schemes(torch, ops, ref, env_mod, sync, ppo, hfl, model,
+                       dev) -> None:
+    """Phase 3c: (a) the agent's update card vs CPU; (b) the Arena path
+    at the paper's CIFAR width; (c) every synchronous scheme at the
+    MNIST defaults; (d) ``make_fedavg_round`` at CIFAR width."""
+    agent_update_check(torch, ppo, ops, dev)
+
+    t0 = time.perf_counter()
+    env = env_mod.HFLEnv(env_mod.EnvConfig(**CIFAR_ARENA))
+    check(env.device == dev, "the env's data is not on the card")
+    c = env.cfg
+    check((c.n_devices, c.n_edges, c.n_local, c.batch_size, c.gamma_max,
+           c.lr, c.epsilon) == (50, 5, 1000, 32, 8, 0.01, 0.004),
+          f"the CIFAR configuration is not the paper's: {c}")
+    print(f"  (b) Arena, CIFAR: {c.n_devices} devices, {c.n_edges} edges, "
+          f"n_local {c.n_local}, batch {c.batch_size}, gamma_max "
+          f"{c.gamma_max}, lr {c.lr}, epsilon {c.epsilon}, T "
+          f"{c.threshold_time} s; setup {sync_time(torch) - t0:.2f} s")
+    log = RoundLog(torch, env)
+    agent, tlog = drive(
+        torch, ops, env, log, "train_agent",
+        lambda: sync.train_agent(env, episodes=2))
+    check(len(tlog.episode_acc) == 2
+          and np.isfinite(tlog.episode_rewards).all(),
+          f"train_agent: bad log {tlog}")
+    check(all(v.device == dev and bool(torch.isfinite(v).all())
+              for v in agent.params.values()),
+          "the agent's params are not finite on the card")
+    print(f"      episode rewards {np.round(tlog.episode_rewards, 4)}, "
+          f"acc {np.round(tlog.episode_acc, 4)}")
+    drive(torch, ops, env, log, "arena",
+          lambda: sync.run_scheme("arena", env, agent=agent))
+    fedavg_check(torch, hfl, model, ops, ref, env, dev)
+    del env, log, agent
+
+    t0 = time.perf_counter()
+    env = env_mod.HFLEnv(env_mod.EnvConfig(**MNIST_SCHEMES))
+    check(env.device == dev, "the env's data is not on the card")
+    c = env.cfg
+    print(f"  (c) the schemes, MNIST: {c.n_devices} devices, {c.n_edges} "
+          f"edges, n_local {c.n_local}, batch {c.batch_size}, gamma_max "
+          f"{c.gamma_max}, lr {c.lr}, T {c.threshold_time} s; setup "
+          f"{sync_time(torch) - t0:.2f} s")
+    log = RoundLog(torch, env)
+    for name in STATIC_SCHEMES[:-1]:
+        drive(torch, ops, env, log, name,
+              lambda: sync.run_scheme(name, env))
+    hw, _ = drive(
+        torch, ops, env, log, "train hwamei",
+        lambda: sync.train_agent(env, episodes=1, enhancements=False))
+    drive(torch, ops, env, log, "hwamei",
+          lambda: sync.run_scheme("hwamei", env, agent=hw))
+    drive(torch, ops, env, log, "share",
+          lambda: sync.run_scheme("share", env))
+    try:
+        sync.run_scheme("async-fedavg", env)
+    except TypeError as e:
+        print(f"    async-fedavg on HFLEnv raises TypeError: {e}")
+    else:
+        fail("async-fedavg ran on a synchronous HFLEnv")
 
 
 # ---------------------------------------------------------------------------
@@ -907,7 +1167,8 @@ def main() -> int:
         return serve_only(torch, root)
     sys.path.insert(0, SRC)
     from repro_torch import configs
-    from repro_torch.core import hfl
+    from repro_torch.core import hfl, sync
+    from repro_torch.core.agent import ppo
     from repro_torch.device import disable_tf32
     from repro_torch.kernels import _build, flash_attention, hier_agg, ops
     from repro_torch.kernels import ref, wkv6
@@ -946,6 +1207,11 @@ def main() -> int:
     small_round_check(torch, hfl, model, dev)
     runs = {task: main_path(torch, ops, env_mod, task, dev)
             for task in ("cifar", "mnist")}
+
+    print(f"phase 3c: the agent and the schemes ({smi})")
+    t0 = time.perf_counter()
+    agents_and_schemes(torch, ops, ref, env_mod, sync, ppo, hfl, model, dev)
+    print(f"  phase 3c took {time.perf_counter() - t0:.1f} s")
 
     print("phase 3b: the LLM serving path")
     disable_tf32()

@@ -9,7 +9,9 @@ leaves as views into it (``flatbank.BankSpec``), so
 * Eq. 1 (edge aggregation) and Eq. 2 (cloud aggregation) read the
   matrix with one ``segment_agg`` kernel launch each;
 * the edge->device resync writes the matrix in place with one
-  ``segment_broadcast`` launch.
+  ``segment_broadcast`` launch;
+* the FedAvg round (``make_fedavg_round``, the Vanilla-FL baseline)
+  aggregates the participating devices with one ``segment_agg`` launch.
 
 The reference donates the bank buffer to its jit'd round; here the
 round reuses the bank's storage in place. Per-edge frequencies (gamma1_j,
@@ -20,7 +22,8 @@ them under masks and throws the results away, so no number changes.
 The reference draws each epoch's shuffles from a ``jax.random`` key
 chain inside the round. The port takes them as an input instead: a
 ``perms`` tensor of shape ``(max_g2, max_g1, N, n_local)``, indexed by
-(t2, epoch) so a skipped step never shifts them. ``repro_torch.sim.env`` draws them from its
+(t2, epoch) so a skipped step never shifts them (``(max_g1, N,
+n_local)`` for the FedAvg round). ``repro_torch.sim.env`` draws them from its
 ``torch.Generator``; the parity tests inject the reference's.
 """
 from __future__ import annotations
@@ -197,6 +200,15 @@ def make_local_trainer(loss_fn: Callable, lr: float, batch_size: int):
     return local_train
 
 
+def _check_one_dtype(spec, where: str) -> None:
+    """A round updates the bank in place through its (N, P) matrix, which
+    needs every leaf in the matrix's dtype."""
+    if any(d != spec.dtype for d in spec.dtypes) or spec.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise TypeError(f"{where}: the bank needs one dtype, f32 or bf16; "
+                        f"got {spec.dtypes}")
+
+
 # ---------------------------------------------------------------------------
 # one cloud round (Eq. 5 composition)
 # ---------------------------------------------------------------------------
@@ -227,10 +239,7 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
     @torch.no_grad()
     def cloud_round(bank, x, y, sizes, edge_assign, g1, g2, perms):
         spec = flatbank.bank_spec(bank)
-        if any(d != spec.dtype for d in spec.dtypes) or spec.dtype not in (
-                torch.float32, torch.bfloat16):
-            raise TypeError(f"cloud_round: the bank needs one dtype, f32 "
-                            f"or bf16; got {spec.dtypes}")
+        _check_one_dtype(spec, "cloud_round")
         mat = spec.flatten(bank)
         bank = spec.unflatten(mat)           # views: updates land in mat
         dev = mat.device
@@ -261,3 +270,45 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
         return bank, spec.unflatten_model(glob), spec.unflatten(edge_mat)
 
     return cloud_round
+
+
+# ---------------------------------------------------------------------------
+# Vanilla-FL (FedAvg) round -- the paper's two-layer baseline
+# ---------------------------------------------------------------------------
+
+def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
+                      max_g1: int, ctx: Optional[AggContext] = None):
+    """FedAvg with random participation: selected devices run gamma1
+    local epochs, the cloud aggregates them directly (gamma2 = 1).
+
+    fedavg_round(bank, x, y, sizes, participate (N,) bool, g1, perms)
+      -> (bank synced to the global model, global model)
+
+    ``perms`` (``(max_g1, N, n_local)``) replaces the reference's key, as
+    in ``make_cloud_round``. One ``segment_agg`` launch (E = 1, weights
+    ``sizes * participate``) and no ``segment_broadcast``: like the
+    reference's ``broadcast_model``, the global model is copied to every
+    row, here into the bank's own storage. Turns TF32 off.
+    """
+    _resolve_ctx(ctx, "make_fedavg_round")
+    disable_tf32()
+    local_train = make_local_trainer(loss_fn, lr, batch_size)
+
+    @torch.no_grad()
+    def fedavg_round(bank, x, y, sizes, participate, g1, perms):
+        spec = flatbank.bank_spec(bank)
+        _check_one_dtype(spec, "fedavg_round")
+        mat = spec.flatten(bank)
+        bank = spec.unflatten(mat)           # views: updates land in mat
+        dev = mat.device
+        part = _host_ints(participate).astype(bool)
+        g1_dev = np.where(part, int(_host_ints(g1)[0]), 0)
+        local_train(bank, x, y, g1_dev, max_g1, perms)
+        w = torch.as_tensor(sizes, dtype=torch.float32, device=dev) \
+            * torch.as_tensor(part, device=dev)
+        seg = torch.zeros((mat.shape[0],), dtype=torch.int32, device=dev)
+        glob = ops.segment_agg(mat, w, seg, 1)[0]
+        mat.copy_(glob.to(mat.dtype).expand_as(mat))
+        return bank, spec.unflatten_model(glob)
+
+    return fedavg_round

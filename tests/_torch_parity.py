@@ -51,22 +51,33 @@ def assert_tree_close(got: dict, want: dict, *, atol: float,
                for k in want)
 
 
+def jax_fedavg_perms(key, max_g1: int, n: int,
+                     n_local: int) -> np.ndarray:
+    """The shuffles the reference's local trainer draws from ``key`` over
+    ``max_g1`` epochs, as a ``(max_g1, n, n_local)`` int64 array: each
+    epoch splits ``key`` and draws one permutation per device from
+    ``split(sub, n)`` (``make_local_trainer``). ``make_fedavg_round``
+    hands its key straight to the trainer."""
+    out = np.empty((max_g1, n, n_local), np.int64)
+    perm = jax.vmap(lambda k: jax.random.permutation(k, n_local))
+    for e in range(max_g1):
+        key, sub = jax.random.split(key)
+        out[e] = np.asarray(perm(jax.random.split(sub, n)))
+    return out
+
+
 def jax_round_perms(key, max_g2: int, max_g1: int, n: int,
                     n_local: int) -> np.ndarray:
     """The shuffles one reference cloud round draws from ``key``, as a
     ``(max_g2, max_g1, n, n_local)`` int64 array indexed by (t2, epoch).
 
     Reproduces the key chain of ``repro.core.hfl``: each t2 step splits
-    ``key`` (``make_cloud_round``'s ``t2_step``), and each epoch of the
-    local trainer splits the step's key again and draws one permutation
-    per device from ``split(sub, n)`` (``make_local_trainer``)."""
+    ``key`` (``make_cloud_round``'s ``t2_step``) and hands the step's key
+    to the local trainer (:func:`jax_fedavg_perms`)."""
     out = np.empty((max_g2, max_g1, n, n_local), np.int64)
-    perm = jax.vmap(lambda k: jax.random.permutation(k, n_local))
     for t2 in range(max_g2):
         key, sub = jax.random.split(key)
-        for e in range(max_g1):
-            sub, sub2 = jax.random.split(sub)
-            out[t2, e] = np.asarray(perm(jax.random.split(sub2, n)))
+        out[t2] = jax_fedavg_perms(sub, max_g1, n, n_local)
     return out
 
 
@@ -84,3 +95,26 @@ def jax_env_perm_source(seed: int, max_g2: int, max_g1: int, n: int,
             jax_round_perms(sub, max_g2, max_g1, n, n_local))
 
     return source
+
+
+def jax_agent_draws(seed: int, action_dim: int):
+    """``(noise_source, shuffle_seed_source)`` for
+    ``repro_torch.core.agent.PPOAgent`` that replay the reference
+    ``PPOAgent(PRNGKey(seed), ...)``'s key chain: both advance one shared
+    ``_next_key`` split, in call order; an action's noise is
+    ``normal(sub, (action_dim,))`` and an update's shuffle seed
+    ``randint(sub, (), 0, 2**31 - 1)``. The init params are
+    ``repro.core.agent.networks.init_net(PRNGKey(seed), ...)``."""
+    state = {"key": jax.random.PRNGKey(seed)}
+
+    def next_key():
+        state["key"], sub = jax.random.split(state["key"])
+        return sub
+
+    def noise():
+        return np.asarray(jax.random.normal(next_key(), (action_dim,)))
+
+    def shuffle_seed():
+        return int(jax.random.randint(next_key(), (), 0, 2**31 - 1))
+
+    return noise, shuffle_seed

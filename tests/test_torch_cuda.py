@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import hfl
+from repro_torch.core.agent import ppo
 from repro_torch.data.synthetic import token_batch
 from repro_torch.device import disable_tf32
 from repro_torch.kernels import _build, flash_attention, hier_agg, ops, ref
@@ -265,6 +266,67 @@ def test_cloud_round_on_card_matches_cpu(cuda_dev):
         for k in cpu_part:
             torch.testing.assert_close(gpu_part[k].cpu(), cpu_part[k],
                                        rtol=1e-4, atol=1e-5)
+
+
+def test_fedavg_round_on_card_matches_cpu(cuda_dev):
+    """One FedAvg round of the MNIST CNN (6 devices, 4 participating, two
+    local epochs) on the card against the same round on the CPU; one
+    ``segment_agg`` launch and no ``segment_broadcast``. Tolerance rtol
+    1e-4, atol 1e-5, as for the cloud round."""
+    n, n_local = 6, 64
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(n, n_local, 28, 28, 1)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, (n, n_local)).astype(np.int32))
+    perms = torch.from_numpy(rng.permuted(
+        np.broadcast_to(np.arange(n_local), (2, n, n_local)), axis=-1))
+    part = np.array([True, True, False, True, False, True])
+    loss = lambda p, b: model.cnn_loss(model.mnist_cnn_apply, p, b)
+    rnd = hfl.make_fedavg_round(loss, 0.05, 32, 2)
+    outs = []
+    for d in ("cpu", cuda_dev):
+        bank = hfl.init_bank(model.mnist_cnn_init,
+                             torch.Generator().manual_seed(3), n,
+                             device="cpu")
+        bank = {k: v.to(d) for k, v in bank.items()}
+        hier_agg.reset_launches()
+        outs.append(rnd(bank, x.to(d), y.to(d),
+                        torch.full((n,), 64.0, device=d), part, 2,
+                        perms.to(d)))
+    assert hier_agg.LAUNCHES == {"segment_agg": 1, "segment_broadcast": 0,
+                                 "flash_attention": 0, "wkv6": 0}
+    for cpu_part, gpu_part in zip(*outs):
+        for k in cpu_part:
+            torch.testing.assert_close(gpu_part[k].cpu(), cpu_part[k],
+                                       rtol=1e-4, atol=1e-5)
+
+
+def test_agent_update_on_card_matches_cpu(cuda_dev):
+    """One PPO update (a seeded 40-step rollout at the CIFAR state shape
+    (6, 9), 10 actions, the same shuffle seed) on the card against the
+    same update on the CPU: one seed gives the same init on both, and
+    the updated params agree within atol 1e-4 (TF32 off; cuDNN's conv
+    backward is not bitwise). The agent launches no kernel."""
+    rng = np.random.default_rng(3)
+    roll = [(rng.normal(size=(6, 9)).astype(np.float32),
+             rng.normal(size=10).astype(np.float32), float(rng.normal()),
+             float(rng.normal()), float(rng.normal()), t == 39)
+            for t in range(40)]
+    agents = [ppo.PPOAgent(0, (6, 9), 10, device=d,
+                           shuffle_seed_source=lambda: 1234)
+              for d in ("cpu", cuda_dev)]
+    for k, v in agents[0].params.items():
+        assert torch.equal(v, agents[1].params[k].cpu()), k
+    hier_agg.reset_launches()
+    for agent in agents:
+        for r in roll:
+            agent.remember(*r)
+        agent.update()
+    assert all(c == 0 for c in hier_agg.LAUNCHES.values())
+    for k, v in agents[0].params.items():
+        got = agents[1].params[k]
+        assert got.device == cuda_dev
+        torch.testing.assert_close(got.cpu(), v, rtol=0.0, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
