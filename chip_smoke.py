@@ -15,8 +15,9 @@ Phases, each fatal on failure (the script exits non-zero):
    have some;
 2. hold each kernel against its plain PyTorch version on the card, on the
    same tensors, at the main path's shapes (MNIST and CIFAR banks, Eq. 1
-   with 5 edges and Eq. 2 with 1) in f32 and with a bf16 bank, plus a
-   ragged case with an empty segment: ``segment_agg`` within atol = rtol
+   with 5 edges and Eq. 2 with 1, and the async flushes: one segment over
+   K = 3 CIFAR or K = 2 MNIST updates) in f32 and with a bf16 bank, plus
+   a ragged case with an empty segment: ``segment_agg`` within atol = rtol
    = 1e-5 (the kernel sums rows in order with fmaf, the plain version
    with ``index_add_``; the orders differ), ``segment_broadcast``
    bitwise, and two runs of each kernel bitwise equal;
@@ -44,6 +45,27 @@ Phases, each fatal on failure (the script exits non-zero):
    50 x 456,906 CIFAR bank with every other device participating:
    exactly one ``segment_agg`` launch, every row the global model, and
    with no local epoch the global model within 1e-5 of the plain mean;
+3d. the asynchronous runtime (``repro_torch.runtime``,
+   ``hfl.make_edge_round``, ``sim.AsyncHFLEnv``): (a) deterministic mode:
+   two CIFAR-width warmup rounds from one seed bitwise equal, walls with
+   and without the mode; (b) ``make_edge_round`` at CIFAR width in
+   deterministic mode (gamma1 [2, 1, 3, 2, 1], gamma2 [1, 2, 2, 1, 2]):
+   each edge's vector against row j of one cloud round (within
+   ``EDGE_ROW_REL`` of the update: ROADMAP fault 2) and bitwise row j
+   of a cloud round in which only edge j trains, the other rows
+   bitwise untouched, 1 + gamma2 ``segment_agg`` and gamma2
+   ``segment_broadcast`` launches each, and the zero-decay K = 5 flush
+   against the cloud round's global model; (c) ``AsyncHFLEnv`` real at
+   the paper's CIFAR width (buffer_k 3, poly decay, 30 s flush deadline)
+   with drops, transient retries, an outage and a leave + join of edge 4,
+   40 events: every applied flush within 1e-5 of the numpy oracle on its
+   buffered vectors, the joined edge's rows the global model and the
+   others bitwise, launches as the events imply (per landed upload
+   1 + gamma2 and gamma2, per applied flush one ``segment_agg``, per
+   join one ``segment_broadcast``), per-event walls; (d) at the MNIST
+   defaults with T cut to 80 s: ``async-fedavg`` (buffer_k 2, 5
+   events), then ``train_agent`` for one episode on the ``AsyncHFLEnv`` and
+   ``async-arena``, each with its launches held;
 2b. hold ``flash_attention`` and ``wkv6`` against their plain versions
    on the card, in bf16 and f32, at the serving path's shapes (qwen3-1.7b
    prefill and decode, rwkv6-1.6b prefill) plus ragged, windowed, MHA,
@@ -61,8 +83,9 @@ Phases, each fatal on failure (the script exits non-zero):
    tensor-core tile kernel, decode on split-KV), and every step's logits
    held against ``Model.logits`` over the whole sequence;
 4. kernel times at the main path's shapes (CIFAR and MNIST, Eq. 1 with
-   its resync and Eq. 2; the JSON line has CIFAR and MNIST Eq. 1 rows for
-   ``segment_agg``): device time per launch from CUDA events around
+   its resync and Eq. 2, and the flushes with ``torch.mv`` as the
+   library call; the JSON line has CIFAR and MNIST Eq. 1 rows and the
+   CIFAR flush row for ``segment_agg``): device time per launch from CUDA events around
    a CUDA-graph replay, beside the plain version's, one PyTorch library
    call's, the bound (bytes over 3.35 TB/s), and the eager wrapper's
    time per call as the round pays it (host dispatch included);
@@ -202,7 +225,9 @@ def graph_ms(torch, fn, iters: int = 50) -> float:
 
 CASES = [("mnist-eq1", 50, 21840, 5), ("mnist-eq2", 5, 21840, 1),
          ("cifar-eq1", 50, 456906, 5), ("cifar-eq2", 5, 456906, 1),
-         ("ragged-empty", 9, 997, 4)]
+         ("ragged-empty", 9, 997, 4),
+         # the async flushes of phase 3d: K = 3 (CIFAR), K = 2 (MNIST)
+         ("cifar-flush", 3, 456906, 1), ("mnist-flush", 2, 21840, 1)]
 
 
 def kernel_checks(torch, ops, ref, dev) -> dict:
@@ -604,6 +629,398 @@ def agents_and_schemes(torch, ops, ref, env_mod, sync, ppo, hfl, model,
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the asynchronous runtime
+# ---------------------------------------------------------------------------
+
+# an edge round at CIFAR width in deterministic mode against its row of
+# the cloud round, and the zero-decay K = 5 flush against the cloud
+# round's global model. Not bitwise: fault 2 (ROADMAP section 3), the
+# trainer's vmapped convolutions sum in an order that depends on how many
+# rows one call holds (10 in an edge round, 50 in the cloud round), and
+# over 31-186 SGD steps max-pool argmax flips amplify those last-bit
+# differences (the first chip run of this check: 4.2e-4 on edge 0). Each
+# difference is held within EDGE_ROW_REL of the largest entry of its
+# update (max |row - w|), which an untrained vector, another edge's
+# vector or other shuffles do not meet
+EDGE_ROW_REL = 0.1
+# a flush (the segment_agg kernel) against the numpy oracle on the same
+# buffered vectors
+FLUSH_TOL = 1e-5
+EDGE_G1, EDGE_G2 = np.array([2, 1, 3, 2, 1]), np.array([1, 2, 2, 1, 2])
+# phase 3d (c): the paper's CIFAR width in real mode; the fault windows
+# and the deadline fall inside the first 40 events (simulated 92-460 s)
+ASYNC_FAULTS = dict(drop_prob=0.1, transient_prob=0.2, seed=0)
+ASYNC_EVENTS = 40
+# phase 3d (d): T cut to 80 s (phase 3c: 160 s; paper 3000 s) and
+# async-fedavg to 5 events, so phase 3d stays within its 120 s
+MNIST_ASYNC = dict(task="mnist", mode="real", threshold_time=80.0)
+FEDAVG_EVENTS = 5
+
+
+def _rounds_walls(torch, rounds) -> list:
+    """Host walls of the (label, fn) pairs, synchronised, in order."""
+    walls = []
+    for _, fn in rounds:
+        t0 = time.perf_counter()
+        fn()
+        walls.append(sync_time(torch) - t0)
+    return walls
+
+
+def deterministic_check(torch, hfl, flatbank, env) -> None:
+    """(a) Two CIFAR-width warmup rounds (50 x 456,906, gamma (2, 2)) from
+    one seeded bank and one set of shuffles in deterministic mode: the
+    banks bitwise equal. Walls in turns: plain, deterministic,
+    deterministic, plain."""
+    c = env.cfg
+    rounds = {det: hfl.make_cloud_round(
+        env._loss_fn, c.lr, c.batch_size, c.n_edges, c.gamma_max,
+        c.gamma_max, deterministic=det) for det in (False, True)}
+    perms = env._draw_perms()
+    g = np.full(c.n_edges, 2)
+    banks = {}
+
+    def run(det, i):
+        bank = hfl.init_bank(env._init_fn, torch.Generator(
+            device=env.device).manual_seed(11), c.n_devices,
+            device=env.device)
+        out = rounds[det](bank, env.fed.x, env.fed.y, env.fed.device_sizes(),
+                          env._edge_assign_t, g, g, perms)
+        banks[(det, i)] = flatbank.bank_spec(out[0]).flatten(out[0])
+
+    order = [(False, 0), (True, 0), (True, 1), (False, 1)]
+    walls = _rounds_walls(torch, [(k, lambda k=k: run(*k)) for k in order])
+    same = torch.equal(banks[(True, 0)], banks[(True, 1)])
+    plain_same = torch.equal(banks[(False, 0)], banks[(False, 1)])
+    plain_d = float((banks[(False, 0)] - banks[(False, 1)]).abs().max())
+    check(same, "deterministic mode: two warmup rounds differ")
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "deterministic mode leaked out of the round")
+    print(f"  (a) deterministic mode, CIFAR warmup round (2, 2), "
+          f"{c.n_devices} x {banks[(True, 0)].shape[1]}: two runs bitwise "
+          f"equal {same}; without the mode bitwise equal {plain_same} "
+          f"(max|diff| {plain_d:.3e}); walls plain {walls[0]:.3f} / "
+          f"{walls[3]:.3f} s, deterministic {walls[1]:.3f} / "
+          f"{walls[2]:.3f} s")
+
+
+def edge_round_check(torch, hfl, flatbank, ops, ref, runtime, env) -> None:
+    """(b) ``make_edge_round`` at CIFAR width in deterministic mode: a
+    50 x 456,906 bank of distinct rows, gamma1 [2, 1, 3, 2, 1], gamma2
+    [1, 2, 2, 1, 2]. Each edge's round from the snapshot w against row j
+    of one cloud round started at w with the same shuffles; the other
+    rows untouched bitwise; 1 + gamma2 ``segment_agg`` and gamma2
+    ``segment_broadcast`` launches per edge round; the zero-decay K = 5
+    flush of the five against the cloud round's global model, and
+    bitwise Eq. 2 of its inputs."""
+    c = env.cfg
+    m, n = c.n_edges, c.n_devices
+    mg1, mg2 = int(EDGE_G1.max()), int(EDGE_G2.max())
+    gen = torch.Generator(device=env.device).manual_seed(12)
+    start = hfl.init_bank(env._init_fn, gen, n, device=env.device)
+    spec = flatbank.bank_spec(start)
+    mat0 = spec.flatten(start)
+    mat0.add_(0.01 * torch.randn(mat0.shape, generator=gen,
+                                 device=env.device))
+    gvec = mat0[0].clone()
+    perms = torch.rand((mg2, mg1, n, c.n_local), generator=gen,
+                       device=env.device).argsort(dim=-1)
+    sizes, ea = env.fed.device_sizes(), env._edge_assign_t
+    cloud = hfl.make_cloud_round(env._loss_fn, c.lr, c.batch_size, m, mg1,
+                                 mg2, deterministic=True)
+    t0 = time.perf_counter()
+    _, glob, em = cloud(hfl.broadcast_model(spec.unflatten_model(gvec), n),
+                        env.fed.x, env.fed.y, sizes, ea, EDGE_G1, EDGE_G2,
+                        perms)
+    t_cloud = sync_time(torch) - t0
+    em = spec.flatten(em)
+    er = hfl.make_edge_round(env._loss_fn, c.lr, c.batch_size, m, mg1, mg2,
+                             deterministic=True)
+    edge_w = ref.segment_weight_sums(sizes, ea, m)
+    buf = runtime.StalenessBuffer(m, decay="none", device=env.device)
+    diffs, walls, vecs = [], [], []
+    for j in range(m):
+        bank = spec.unflatten(mat0.clone())
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        bank, vec = er(bank, env.fed.x, env.fed.y, sizes, ea, j,
+                       EDGE_G1[j], EDGE_G2[j], gvec, perms)
+        walls.append(sync_time(torch) - t0)
+        want = {"segment_agg": 1 + int(EDGE_G2[j]),
+                "segment_broadcast": int(EDGE_G2[j]), "flash_attention": 0,
+                "wkv6": 0}
+        check(dict(ops.LAUNCHES) == want,
+              f"edge round {j}: launches {dict(ops.LAUNCHES)} != {want}")
+        after = spec.flatten(bank)
+        other = ea != j
+        check(torch.equal(after[other], mat0[other]),
+              f"edge round {j}: another edge's rows moved")
+        diffs.append((float((vec - em[j]).abs().max()),
+                      float((em[j] - gvec).abs().max())))
+        # a cloud round in which only edge j trains takes vmap(grad) over
+        # the same rows as the edge round: its row j is bitwise the same
+        alone = np.arange(m) == j
+        _, _, em_j = cloud(hfl.broadcast_model(spec.unflatten_model(gvec),
+                                               n), env.fed.x, env.fed.y,
+                           sizes, ea, np.where(alone, EDGE_G1, 0),
+                           np.where(alone, EDGE_G2, 0), perms)
+        check(torch.equal(vec, spec.flatten(em_j)[j]),
+              f"edge round {j} is not bitwise row {j} of a cloud round in "
+              f"which only edge {j} trains")
+        buf.push(j, vec, float(edge_w[j]), version=0)
+        vecs.append(vec)
+    flush, _ = buf.flush(version=0)
+    stack = torch.stack(vecs)
+    eq2 = ops.segment_agg(stack, edge_w, torch.zeros(
+        m, dtype=torch.int32, device=env.device), 1)[0]
+    check(torch.equal(flush, eq2), "K = 5 flush is not Eq. 2 of its inputs")
+    want = spec.flatten_model(glob)
+    d_glob = (float((flush - want).abs().max()),
+              float((want - gvec).abs().max()))
+    print(f"  (b) make_edge_round, CIFAR {n} x {spec.width}, gamma1 "
+          f"{EDGE_G1.tolist()}, gamma2 {EDGE_G2.tolist()}, deterministic:"
+          f" max|edge vec - cloud row| / max|cloud row - w| per edge "
+          f"{[f'{d:.3e}/{u:.3e}' for d, u in diffs]} (bitwise: "
+          f"{[d == 0.0 for d, _ in diffs]}); each bitwise row j of a "
+          f"cloud round in which only edge j trains; zero-decay K = 5 "
+          f"flush vs cloud global {d_glob[0]:.3e}/{d_glob[1]:.3e}; other "
+          f"rows bitwise untouched; walls cloud round {t_cloud:.3f} s, edge"
+          f" rounds {[round(w, 3) for w in walls]} s")
+    for j, (d, u) in enumerate(diffs + [d_glob]):
+        check(d <= EDGE_ROW_REL * u, f"edge round {j} (5: the flush) vs "
+              f"the cloud round: {d:.3e} > {EDGE_ROW_REL} x {u:.3e}")
+
+
+class AsyncLog:
+    """Wraps one ``AsyncHFLEnv``'s methods to count what launches a
+    kernel -- warmup rounds (``reset``), landed uploads with their
+    gamma2 (``_process_upload``), applied flushes (``_flush``), joins
+    that resync (``_handle_join``) -- and to time each ``step``."""
+
+    def __init__(self, torch, env):
+        self.env = env
+        self.clear()
+        reset, step = env.reset, env.step
+        process, flush, join = env._process_upload, env._flush, \
+            env._handle_join
+
+        def reset_():
+            self.warmups += 1
+            self.written = set()
+            return reset()
+
+        def step_(action):
+            t0 = time.perf_counter()
+            out = step(action)
+            self.walls.append(sync_time(torch) - t0)
+            return out
+
+        def process_():
+            ev = process()
+            if ev is not None and not env._last_upload_lost:
+                self.g2s.append(min(int(ev.payload["g2"]),
+                                    env.cfg.gamma_max))
+                self.written.add(ev.edge)
+            return ev
+
+        def flush_(degraded=False):
+            flush(degraded)
+            self.flushes += int(env._flushed)
+            self.degraded += int(env._flushed and degraded)
+
+        def join_(j):
+            resync = not env._injector.alive[j]
+            join(j)
+            self.joins += int(resync)
+            if resync:
+                self.written.add(j)
+
+        env.reset, env.step = reset_, step_
+        env._process_upload, env._flush, env._handle_join = \
+            process_, flush_, join_
+
+    def clear(self) -> None:
+        self.warmups, self.g2s, self.walls = 0, [], []
+        self.flushes = self.joins = self.degraded = 0
+        self.written = set()        # edges whose rows a round or join set
+
+    def expected(self) -> dict:
+        """Per warmup the cloud round's launches at (2, 2); per landed
+        upload 1 + gamma2 ``segment_agg`` and gamma2
+        ``segment_broadcast``; per applied flush one ``segment_agg``;
+        per join one ``segment_broadcast``."""
+        gmax = self.env.cfg.gamma_max
+        warm = np.full(self.env.cfg.n_edges, 2)
+        want = expected_launches([(warm, warm)] * self.warmups, gmax)
+        want["segment_agg"] += sum(1 + g for g in self.g2s) + self.flushes
+        want["segment_broadcast"] += sum(self.g2s) + self.joins
+        return want
+
+
+def async_drive(torch, ops, env, log, label: str, fn):
+    """Run ``fn()`` with the launch counts set to 0 just before and read
+    just after; hold them to what the events imply, check the history
+    and the bank (finite on the card; every edge whose rows a landed
+    round or a join set since the last reset has them equal to its edge
+    model), and print the walls."""
+    ops.reset_launches()
+    log.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = sync_time(torch) - t0
+    counts, want = dict(ops.LAUNCHES), log.expected()
+    check(counts == want, f"{label}: launch counts {counts} != {want}")
+    check(counts["segment_agg"] > 0 and counts["segment_broadcast"] > 0,
+          f"{label}: a kernel was not launched")
+    acc = np.asarray(env.acc_hist)
+    check(len(acc) > 0 and np.isfinite(acc).all() and (acc >= 0).all()
+          and (acc <= 1).all() and np.isfinite(env.energy_hist).all(),
+          f"{label}: bad history {env.acc_hist}")
+    mat = env._spec.flatten(env.bank)
+    check(mat.device == env.device and bool(torch.isfinite(mat).all())
+          and bool(torch.isfinite(env._global_vec).all()),
+          f"{label}: the bank or the global model is not finite")
+    check(log.written, f"{label}: no edge round landed")
+    for j in log.written:
+        rows = mat[env._edge_assign_t == j]
+        check(torch.equal(rows, env._edge_mat[j].to(mat.dtype).expand_as(
+            rows)), f"{label}: edge {j}'s rows are not its edge model")
+    w = np.asarray(log.walls) if log.walls else np.zeros(1)
+    print(f"    {label:13s} {len(log.walls):3d} events, {log.warmups} "
+          f"warmup(s), {len(log.g2s)} landed, {log.flushes} flushes "
+          f"({log.degraded} degraded), {log.joins} joins, version "
+          f"{env.version}, final acc {env.acc:.4f}, wall {wall:.2f} s; "
+          f"per event min/median/max {w.min():.3f}/{np.median(w):.3f}/"
+          f"{w.max():.3f} s; launches {counts}")
+    return out
+
+
+def faulty_cifar_run(torch, ops, ref, runtime, env_mod, cfg) -> dict:
+    """(c) ``AsyncHFLEnv`` real at the paper's CIFAR width (buffer_k 3,
+    poly decay, a 30 s flush deadline) with faults: drop 0.1, transient
+    0.2, an outage of edge 1 over [150, 230) s, edge 4 leaving at 200 s
+    and rejoining at 320 s. 40 events at action (2, 2). Every applied
+    flush within FLUSH_TOL of the numpy oracle on its buffered vectors;
+    at the join, edge 4's rows become the global model and every other
+    row stays bitwise; launches as the events imply."""
+    spec = runtime.FaultSpec(
+        outages=(runtime.Outage(1, 150.0, 80.0),),
+        churn=(runtime.ChurnEvent(200.0, 4, "leave"),
+               runtime.ChurnEvent(320.0, 4, "join")), **ASYNC_FAULTS)
+    t0 = time.perf_counter()
+    env = env_mod.AsyncHFLEnv(
+        cfg, runtime.AsyncConfig(buffer_k=3, decay="poly",
+                                 flush_deadline=30.0), faults=spec)
+    c = env.cfg
+    print(f"  (c) AsyncHFLEnv, CIFAR: {c.n_devices} devices, {c.n_edges} "
+          f"edges, n_local {c.n_local}, buffer_k 3, poly decay, deadline "
+          f"30 s, faults {ASYNC_FAULTS}, outage edge 1 [150, 230) s, edge 4"
+          f" leaves 200 s, joins 320 s; setup "
+          f"{sync_time(torch) - t0:.2f} s")
+    flush_errs, joins = [], []
+    flush = runtime.StalenessBuffer.flush
+
+    def checked_flush(buf, version, max_staleness=0, anchor=None,
+                      anchor_weight=0.0):
+        slots = sorted(buf._slots, key=lambda s: (s.edge, s.arrival))
+        glob, info = flush(buf, version, max_staleness, anchor,
+                           anchor_weight)
+        if glob is not None:
+            u = np.stack([s.vec.cpu().numpy() for s in slots])
+            w = np.float32([s.weight for s in slots])
+            tau = [version - s.version for s in slots]
+            want = (ref.coverage_aggregate_ref(
+                u, w, tau, anchor.cpu().numpy(), anchor_weight)
+                if anchor is not None and anchor_weight > 0 else
+                ref.staleness_aggregate_ref(u, w, tau))
+            err = float(np.abs(glob.cpu().numpy() - want).max())
+            check(np.allclose(glob.cpu().numpy(), want, atol=FLUSH_TOL,
+                              rtol=FLUSH_TOL), f"flush vs oracle {err}")
+            flush_errs.append(err)
+        return glob, info
+
+    log = AsyncLog(torch, env)
+    join = env._handle_join
+
+    def checked_join(j):
+        alive = env._injector.alive[j]
+        before = env._spec.flatten(env.bank).clone()
+        join(j)
+        if alive:
+            return
+        after = env._spec.flatten(env.bank)
+        rows = env._edge_assign_t == j
+        check(torch.equal(after[~rows], before[~rows]),
+              "join: another edge's rows moved")
+        check(torch.equal(after[rows], env._global_vec.expand_as(
+            after[rows])), "join: the joining rows are not the global model")
+        joins.append(j)
+
+    env._handle_join = checked_join
+
+    def run():
+        env.reset()
+        for _ in range(ASYNC_EVENTS):
+            if env.step(np.array([2.0, 2.0]))[2]:
+                break
+
+    runtime.StalenessBuffer.flush = checked_flush
+    try:
+        async_drive(torch, ops, env, log, "cifar faults", run)
+    finally:
+        runtime.StalenessBuffer.flush = flush
+    fi = env._injector
+    check(log.degraded > 0, "no degraded flush happened")
+    check(joins == [4], f"edge 4 did not rejoin: {joins}")
+    check(fi.n_dropped.sum() > 0 and fi.n_retries.sum() > 0,
+          "no upload was dropped or retried")
+    print(f"      flushes vs oracle max|err| {max(flush_errs):.3e} over "
+          f"{len(flush_errs)} (tolerance {FLUSH_TOL}); dropped "
+          f"{fi.n_dropped.tolist()}, retries {fi.n_retries.tolist()}; "
+          f"per-event walls {[round(w, 3) for w in log.walls]}")
+    return {"counts": dict(ops.LAUNCHES)}
+
+
+def async_runtime(torch, ops, ref, env_mod, sync, hfl, flatbank,
+                  runtime) -> dict:
+    """Phase 3d: (a) deterministic mode; (b) the edge round against the
+    cloud round at CIFAR width; (c) the faulty CIFAR run; (d) the async
+    schemes at the MNIST defaults."""
+    cifar = env_mod.EnvConfig(task="cifar", mode="real")
+    t0 = time.perf_counter()
+    env = env_mod.HFLEnv(cifar)
+    c = env.cfg
+    check((c.n_devices, c.n_edges, c.n_local, c.batch_size, c.lr)
+          == (50, 5, 1000, 32, 0.01) and env.device.type == "cuda",
+          f"not the paper's CIFAR on the card: {c}")
+    print(f"  CIFAR env set up in {sync_time(torch) - t0:.2f} s")
+    deterministic_check(torch, hfl, flatbank, env)
+    edge_round_check(torch, hfl, flatbank, ops, ref, runtime, env)
+    del env
+    run = faulty_cifar_run(torch, ops, ref, runtime, env_mod, cifar)
+
+    t0 = time.perf_counter()
+    env = env_mod.AsyncHFLEnv(env_mod.EnvConfig(**MNIST_ASYNC),
+                              runtime.AsyncConfig(buffer_k=2))
+    c = env.cfg
+    print(f"  (d) the async schemes, MNIST: {c.n_devices} devices, "
+          f"{c.n_edges} edges, n_local {c.n_local}, buffer_k 2, T "
+          f"{c.threshold_time} s; setup {sync_time(torch) - t0:.2f} s")
+    log = AsyncLog(torch, env)
+    async_drive(torch, ops, env, log, "async-fedavg",
+                lambda: sync.run_scheme("async-fedavg", env,
+                                        max_events=FEDAVG_EVENTS))
+    agent, tlog = async_drive(torch, ops, env, log, "train_agent",
+                              lambda: sync.train_agent(env, episodes=1))
+    check(len(tlog.episode_acc) == 1
+          and np.isfinite(tlog.episode_rewards).all(),
+          f"train_agent on AsyncHFLEnv: bad log {tlog}")
+    async_drive(torch, ops, env, log, "async-arena",
+                lambda: sync.run_scheme("async-arena", env, agent=agent))
+    return run
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -612,13 +1029,18 @@ def agents_and_schemes(torch, ops, ref, env_mod, sync, ppo, hfl, model,
 # (both kernels) and MNIST Eq. 1 (segment_agg)
 TIMED = [("cifar-eq1", 50, 456906, 5), ("cifar-eq2", 5, 456906, 1),
          ("mnist-eq1", 50, 21840, 5), ("mnist-eq2", 5, 21840, 1)]
+# the async flushes of phase 3d (one segment over K buffered updates),
+# with torch.mv as the library yardstick
+TIMED_FLUSH = [("cifar-flush", 3, 456906), ("mnist-flush", 2, 21840)]
 
 
 def time_shape(torch, hier_agg, ops, ref, dev, n: int, p: int,
-               e: int) -> dict:
+               e: int, mv: bool = False) -> dict:
     """Times of each kernel at one shape: kernel, plain version and one
     PyTorch library call computing the same function, plus the bound.
-    The resync runs only where devices sync from edges (E > 1)."""
+    The resync runs only where devices sync from edges (E > 1). With
+    ``mv`` (a flush, E = 1) the library call is ``torch.mv(stack.T, w)``,
+    which leaves out the normalisation."""
     gen = torch.Generator(device=dev).manual_seed(1)
     bank = torch.randn((n, p), generator=gen, device=dev)
     w = torch.full((n,), 1000.0, device=dev)
@@ -639,10 +1061,14 @@ def time_shape(torch, hier_agg, ops, ref, dev, n: int, p: int,
 
     check(torch.allclose(torch.mm(a_mat, bank), agg_kernel(), atol=AGG_TOL,
                          rtol=AGG_TOL), "library yardstick disagrees")
+    lib = ((lambda: torch.mv(bank.t(), w)) if mv
+           else (lambda: torch.mm(a_mat, bank)))
+    if mv:
+        check(torch.allclose(lib() * inv[0], agg_kernel()[0], atol=AGG_TOL,
+                             rtol=AGG_TOL), "torch.mv yardstick disagrees")
     cases = [("segment_agg", agg_kernel,
               lambda: ops.segment_agg(bank, w, seg, e),
-              lambda: ref.segment_agg_ref(bank, w, seg, e),
-              lambda: torch.mm(a_mat, bank),
+              lambda: ref.segment_agg_ref(bank, w, seg, e), lib,
               4 * (n * p + e * p + 2 * n), 2 * n * p)]
     if e > 1:
         bcast = lambda: ops.segment_broadcast(models, seg, out=out)
@@ -680,19 +1106,24 @@ def time_shape(torch, hier_agg, ops, ref, dev, n: int, p: int,
 def timings(torch, hier_agg, ops, ref, dev, runs: dict, err: dict):
     """Time every main-path shape; returns the JSON rows: CIFAR Eq. 1 for
     both kernels, MNIST Eq. 1 for segment_agg, each with the launches of
-    its task's main-path run."""
+    its task's main-path run, and the CIFAR flush (K = 3) for
+    segment_agg with the launches of phase 3d's CIFAR run."""
     per_shape = {name: time_shape(torch, hier_agg, ops, ref, dev, n, p, e)
                  for name, n, p, e in TIMED}
+    per_shape.update({name: time_shape(torch, hier_agg, ops, ref, dev, k,
+                                       p, 1, mv=True)
+                      for name, k, p in TIMED_FLUSH})
     rows = []
-    for k, shape in (("segment_agg", "cifar-eq1"),
-                     ("segment_agg", "mnist-eq1"),
-                     ("segment_broadcast", "cifar-eq1")):
+    for k, shape, run in (("segment_agg", "cifar-eq1", "cifar"),
+                          ("segment_agg", "mnist-eq1", "mnist"),
+                          ("segment_broadcast", "cifar-eq1", "cifar"),
+                          ("segment_agg", "cifar-flush", "cifar-async")):
         t = dict(per_shape[shape][k])
         t.pop("call_ms")
         max_err = err[k][shape] if k == "segment_agg" else err[k]
         rows.append(dict(name=k, route="cuda", source=KERNEL_SRC[k],
                          replaces=REPLACES[k],
-                         launches=runs[shape.split("-")[0]]["counts"][k],
+                         launches=runs[run]["counts"][k],
                          max_abs_err=max_err, shape=shape, **t))
     return rows
 
@@ -1166,8 +1597,8 @@ def main() -> int:
     if args.serve_only:
         return serve_only(torch, root)
     sys.path.insert(0, SRC)
-    from repro_torch import configs
-    from repro_torch.core import hfl, sync
+    from repro_torch import configs, runtime
+    from repro_torch.core import flatbank, hfl, sync
     from repro_torch.core.agent import ppo
     from repro_torch.device import disable_tf32
     from repro_torch.kernels import _build, flash_attention, hier_agg, ops
@@ -1212,6 +1643,12 @@ def main() -> int:
     t0 = time.perf_counter()
     agents_and_schemes(torch, ops, ref, env_mod, sync, ppo, hfl, model, dev)
     print(f"  phase 3c took {time.perf_counter() - t0:.1f} s")
+
+    print(f"phase 3d: the asynchronous runtime ({smi})")
+    t0 = time.perf_counter()
+    runs["cifar-async"] = async_runtime(torch, ops, ref, env_mod, sync, hfl,
+                                        flatbank, runtime)
+    print(f"  phase 3d took {time.perf_counter() - t0:.1f} s")
 
     print("phase 3b: the LLM serving path")
     disable_tf32()

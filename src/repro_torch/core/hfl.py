@@ -11,7 +11,10 @@ leaves as views into it (``flatbank.BankSpec``), so
 * the edge->device resync writes the matrix in place with one
   ``segment_broadcast`` launch;
 * the FedAvg round (``make_fedavg_round``, the Vanilla-FL baseline)
-  aggregates the participating devices with one ``segment_agg`` launch.
+  aggregates the participating devices with one ``segment_agg`` launch;
+* the edge round (``make_edge_round``, the async runtime's unit of work)
+  is the cloud round restricted to one edge: masked weights in each
+  ``segment_agg`` launch and a resync of that edge's rows only.
 
 The reference donates the bank buffer to its jit'd round; here the
 round reuses the bank's storage in place. Per-edge frequencies (gamma1_j,
@@ -25,17 +28,26 @@ chain inside the round. The port takes them as an input instead: a
 (t2, epoch) so a skipped step never shifts them (``(max_g1, N,
 n_local)`` for the FedAvg round). ``repro_torch.sim.env`` draws them from its
 ``torch.Generator``; the parity tests inject the reference's.
+
+Every factory takes ``deterministic`` (default False): with it, each
+call of the round runs inside ``repro_torch.device.
+deterministic_algorithms``, so the same inputs give the same bank bits
+on every run on the card too (cuDNN and the gathers otherwise sum in
+run-dependent orders).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import flatbank
-from repro_torch.device import disable_tf32
+from repro_torch.device import (deterministic_algorithms, disable_tf32,
+                                 set_cublas_workspace)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import segment_weight_sums
 
@@ -209,13 +221,31 @@ def _check_one_dtype(spec, where: str) -> None:
                         f"got {spec.dtypes}")
 
 
+def _round_mode(round_fn: Callable, deterministic: bool) -> Callable:
+    """``round_fn`` without gradients, TF32 off, and inside
+    ``deterministic_algorithms`` on each call when ``deterministic``."""
+    disable_tf32()
+    if deterministic:
+        set_cublas_workspace()        # before the process's first cuBLAS call
+
+    @functools.wraps(round_fn)
+    def run(*args):
+        mode = (deterministic_algorithms() if deterministic
+                else contextlib.nullcontext())
+        with mode, torch.no_grad():
+            return round_fn(*args)
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # one cloud round (Eq. 5 composition)
 # ---------------------------------------------------------------------------
 
 def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
                      n_edges: int, max_g1: int, max_g2: int,
-                     ctx: Optional[AggContext] = None):
+                     ctx: Optional[AggContext] = None,
+                     deterministic: bool = False):
     """Builds ``cloud_round``:
 
     cloud_round(bank, x, y, sizes, edge_assign, g1 (M,), g2 (M,), perms)
@@ -233,10 +263,8 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
     bank. Turns TF32 off (``repro_torch.device.disable_tf32``).
     """
     _resolve_ctx(ctx, "make_cloud_round")
-    disable_tf32()
     local_train = make_local_trainer(loss_fn, lr, batch_size)
 
-    @torch.no_grad()
     def cloud_round(bank, x, y, sizes, edge_assign, g1, g2, perms):
         spec = flatbank.bank_spec(bank)
         _check_one_dtype(spec, "cloud_round")
@@ -269,7 +297,71 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
         mat.copy_(glob.expand_as(mat))       # every device resumes from w
         return bank, spec.unflatten_model(glob), spec.unflatten(edge_mat)
 
-    return cloud_round
+    return _round_mode(cloud_round, deterministic)
+
+
+# ---------------------------------------------------------------------------
+# one edge-local round -- the async runtime's unit of work
+# ---------------------------------------------------------------------------
+
+def make_edge_round(loss_fn: Callable, lr: float, batch_size: int,
+                    n_edges: int, max_g1: int, max_g2: int,
+                    ctx: Optional[AggContext] = None,
+                    deterministic: bool = False):
+    """Builds ``edge_round``:
+
+    edge_round(bank, x, y, sizes, edge_assign, edge_id, g1, g2,
+               global_vec (P,), perms) -> (bank, edge_vec (P,) f32)
+
+    The async runtime's unit of work (``repro_torch.runtime``): edge
+    ``edge_id``'s devices start from the flat global snapshot
+    ``global_vec`` (the version the edge downloaded), run gamma2 edge
+    syncs of gamma1 local epochs, and return their edge aggregate for the
+    cloud's staleness buffer. ``g1``/``g2`` are this edge's host ints;
+    ``perms`` is ``(max_g2, max_g1, N, n_local)`` as in
+    ``make_cloud_round``.
+
+    It is the cloud round restricted to one edge: one ``segment_agg``
+    launch for the starting edge models, then per t2 < gamma2 local
+    epochs on the edge's rows only, one ``segment_agg`` (E = n_edges,
+    weights ``sizes * (edge_assign == edge_id)``) and one
+    ``masked_resync`` of the edge's rows (one ``segment_broadcast`` and a
+    ``where``). Rows of other edges come back bitwise untouched: the bank
+    is the scratch buffer of every in-flight edge round. Given the
+    shuffles the cloud round got, the returned vector is row
+    ``edge_id`` of its edge matrix. ``bank`` must have one dtype; its
+    storage is reused. Turns TF32 off.
+    """
+    _resolve_ctx(ctx, "make_edge_round")
+    local_train = make_local_trainer(loss_fn, lr, batch_size)
+
+    def edge_round(bank, x, y, sizes, edge_assign, edge_id, g1, g2,
+                   global_vec, perms):
+        spec = flatbank.bank_spec(bank)
+        _check_one_dtype(spec, "edge_round")
+        mat = spec.flatten(bank)
+        bank = spec.unflatten(mat)           # views: updates land in mat
+        dev = mat.device
+        ea = _host_ints(edge_assign)
+        j, g1, g2 = int(edge_id), int(g1), int(g2)
+        row_active = ea == j
+        rows = torch.as_tensor(row_active, device=dev)
+        w = torch.as_tensor(sizes, dtype=torch.float32, device=dev) * rows
+        seg = torch.as_tensor(ea.astype(np.int32), device=dev)
+        alive = np.arange(n_edges) == j
+
+        # the edge's devices resume from the snapshot it downloaded
+        mat.copy_(torch.where(rows[:, None], global_vec.to(mat.dtype), mat))
+        edge_mat = ops.segment_agg(mat, w, seg, n_edges)
+        g1_dev = np.where(row_active, g1, 0)
+        for t2 in range(min(int(max_g2), g2)):
+            local_train(bank, x, y, g1_dev, max_g1, perms[t2])
+            edge_mat = ops.segment_agg(mat, w, seg, n_edges)
+            # resync only this edge's rows
+            mat.copy_(masked_resync(edge_mat, mat, seg, alive))
+        return bank, edge_mat[j].clone()
+
+    return _round_mode(edge_round, deterministic)
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +369,8 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
 # ---------------------------------------------------------------------------
 
 def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
-                      max_g1: int, ctx: Optional[AggContext] = None):
+                      max_g1: int, ctx: Optional[AggContext] = None,
+                      deterministic: bool = False):
     """FedAvg with random participation: selected devices run gamma1
     local epochs, the cloud aggregates them directly (gamma2 = 1).
 
@@ -288,13 +381,12 @@ def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
     in ``make_cloud_round``. One ``segment_agg`` launch (E = 1, weights
     ``sizes * participate``) and no ``segment_broadcast``: like the
     reference's ``broadcast_model``, the global model is copied to every
-    row, here into the bank's own storage. Turns TF32 off.
+    row, here into the bank's own storage. ``g1`` is a scalar or one
+    value per device. Turns TF32 off.
     """
     _resolve_ctx(ctx, "make_fedavg_round")
-    disable_tf32()
     local_train = make_local_trainer(loss_fn, lr, batch_size)
 
-    @torch.no_grad()
     def fedavg_round(bank, x, y, sizes, participate, g1, perms):
         spec = flatbank.bank_spec(bank)
         _check_one_dtype(spec, "fedavg_round")
@@ -302,7 +394,7 @@ def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
         bank = spec.unflatten(mat)           # views: updates land in mat
         dev = mat.device
         part = _host_ints(participate).astype(bool)
-        g1_dev = np.where(part, int(_host_ints(g1)[0]), 0)
+        g1_dev = np.where(part, _host_ints(g1), 0)   # scalar or (N,)
         local_train(bank, x, y, g1_dev, max_g1, perms)
         w = torch.as_tensor(sizes, dtype=torch.float32, device=dev) \
             * torch.as_tensor(part, device=dev)
@@ -311,4 +403,4 @@ def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
         mat.copy_(glob.to(mat.dtype).expand_as(mat))
         return bank, spec.unflatten_model(glob)
 
-    return fedavg_round
+    return _round_mode(fedavg_round, deterministic)

@@ -22,9 +22,8 @@ Asynchronous runtime schemes (one env call = one edge upload event):
   async-arena  : the PPO agent picks (gamma1, gamma2) per edge at its
                  upload event
 
-They stay in :data:`SCHEMES` under the reference's names and defaults,
-but the port has no ``AsyncHFLEnv`` yet (ROADMAP item 8), so on the
-port's ``HFLEnv`` they raise the reference's ``TypeError``.
+They drive the port's ``repro_torch.sim.AsyncHFLEnv``; on a
+synchronous ``HFLEnv`` they raise the reference's ``TypeError``.
 
 **Unified runner surface**: every scheme is a :class:`SchemeSpec` in
 the :data:`SCHEMES` registry -- one callable shape

@@ -4,8 +4,15 @@ Entry points take ``device="cuda"`` by default and resolve it here. A
 request for CUDA on a host without a usable card raises; nothing falls
 back to the CPU behind the caller's back. The CPU runs only when the
 caller asks for it with ``device="cpu"``.
+
+``deterministic_algorithms`` is the opt-in deterministic mode the round
+factories enter around each round when built with
+``deterministic=True`` (``EnvConfig.deterministic``).
 """
 from __future__ import annotations
+
+import contextlib
+import os
 
 import torch
 
@@ -41,3 +48,39 @@ def disable_tf32() -> None:
     its local SGD computes what the reference computes."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# cuBLAS's deterministic workspace setting; PyTorch checks for it when a
+# cuBLAS call runs under torch.use_deterministic_algorithms(True)
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+def set_cublas_workspace() -> None:
+    """Set ``CUBLAS_WORKSPACE_CONFIG`` if it is unset. cuBLAS reads it
+    when the process makes its first cuBLAS call, so the round factories
+    call this when they are built with ``deterministic=True``."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Run the body with PyTorch's deterministic algorithms: the same
+    inputs give the same bits on every run.
+
+    Sets ``CUBLAS_WORKSPACE_CONFIG`` if unset, calls
+    ``torch.use_deterministic_algorithms(True)`` (an op with no
+    deterministic implementation then raises) and turns cuDNN's
+    deterministic flag on and its benchmark off; the previous settings
+    come back on exit, so code outside the body is unaffected."""
+    set_cublas_workspace()
+    cudnn = torch.backends.cudnn
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        cudnn.deterministic, cudnn.benchmark = prev[2], prev[3]

@@ -6,6 +6,9 @@ tensors that lie on the CPU, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. They mirror the oracles of
 ``repro.kernels.ref`` (``segment_agg_ref``, ``segment_broadcast_ref``,
 ``hier_agg_ref``, ``flash_attention_ref``, ``wkv6_ref``);
+the async flush's numpy oracles ``staleness_scale_ref``,
+``staleness_aggregate_ref`` and ``coverage_aggregate_ref`` are copies
+of the reference's;
 ``flash_attention_split_ref`` states the decode path's split-KV
 algorithm for the same function, and ``wkv6_step_ref`` the ``wkv6``
 kernel's algorithm (16-token steps, running products of the decay).
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -78,6 +82,57 @@ def hier_agg_ref(bank, weights):
     w = weights.to(torch.float32)
     wsum = w.sum().clamp_min(1e-9)
     return (w[:, None] * bank.to(torch.float32)).sum(0) / wsum
+
+
+def staleness_scale_ref(tau, decay: str = "poly", a: float = 0.5):
+    """Numpy staleness decay s(tau): ``none`` -> 1, ``poly`` ->
+    (1+tau)^-a (FedBuff), ``exp`` -> a^tau. The oracle twin of
+    ``repro_torch.runtime.buffer.staleness_scale`` (a copy of
+    ``repro.kernels.ref.staleness_scale_ref``)."""
+    tau = np.asarray(tau, np.float32)
+    if decay == "none":
+        return np.ones_like(tau)
+    if decay == "poly":
+        return (1.0 + tau) ** (-a)
+    if decay == "exp":
+        return np.power(np.float32(a), tau)
+    raise ValueError(f"unknown staleness decay {decay!r}")
+
+
+def staleness_aggregate_ref(updates, weights, tau, decay: str = "poly",
+                            a: float = 0.5):
+    """Numpy oracle for the async cloud flush: ``(K, P)`` buffered
+    updates x ``(K,)`` base weights x ``(K,)`` integer staleness ->
+    ``(P,)``
+
+        out = sum_j w_j s(tau_j) u_j / max(sum_j w_j s(tau_j), 1e-9)
+
+    The decay folds into the weight vector of the ordinary weighted
+    mean, which is why one ``segment_agg`` launch serves the flush
+    (``repro_torch.runtime.buffer.StalenessBuffer``)."""
+    u = np.asarray(updates, np.float32)
+    w = np.asarray(weights, np.float32) * staleness_scale_ref(tau, decay, a)
+    return (w[:, None] * u).sum(0) / max(float(w.sum()), 1e-9)
+
+
+def coverage_aggregate_ref(updates, weights, tau, anchor,
+                           anchor_weight: float, decay: str = "poly",
+                           a: float = 0.5):
+    """Numpy oracle for the *degraded* (coverage-corrected) flush:
+    ``(K', P)`` surviving updates x ``(K',)`` base weights x ``(K',)``
+    staleness, plus the current global vector ``anchor`` standing in for
+    the missing data mass ``anchor_weight``:
+
+        v_j = w_j s(tau_j),  m = anchor_weight
+        out = (sum_j v_j u_j + m g) / max(sum_j v_j + m, 1e-9)
+
+    With ``anchor_weight == 0`` this is ``staleness_aggregate_ref``."""
+    u = np.asarray(updates, np.float32)
+    g = np.asarray(anchor, np.float32)
+    v = np.asarray(weights, np.float32) * staleness_scale_ref(tau, decay, a)
+    m = np.float32(anchor_weight)
+    num = (v[:, None] * u).sum(0) + m * g
+    return num / max(float(v.sum() + m), 1e-9)
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):

@@ -1,3 +1,4 @@
-"""The synchronous HFL environment and its hardware simulator."""
-from repro_torch.sim.env import EnvConfig, HFLEnv  # noqa: F401
+"""The HFL environments (synchronous and event-driven asynchronous) and
+their hardware simulator."""
+from repro_torch.sim.env import AsyncHFLEnv, EnvConfig, HFLEnv  # noqa: F401
 from repro_torch.sim.hardware import CommModel, DeviceProfiles  # noqa: F401

@@ -20,8 +20,19 @@ Two test hooks replace them: ``init_params`` (the ``w(0)`` model) and
 ``perm_source`` (a callable returning one round's
 ``(gamma_max, gamma_max, N, n_local)`` permutations per call).
 
+``AsyncHFLEnv`` (below) removes the barrier: edges run on their own
+clocks through the event-driven runtime (``repro_torch.runtime``), the
+cloud aggregates a staleness-decayed update buffer, and one env step is
+one edge upload event (2-dim per-edge action). It takes a third hook,
+``edge_perm_source(version)``, for the shuffles of edge rounds trained
+from global ``version``.
+
+``EnvConfig.deterministic`` builds the rounds in PyTorch's deterministic
+mode (``repro_torch.device.deterministic_algorithms``): the same seed
+gives the same bank bits on every run on the card too.
+
 Not ported yet, and refused when set: ``EnvConfig.agg`` with a mesh,
-``mesh``, ``telemetry`` and ``health``; ``AsyncHFLEnv``.
+``mesh``, ``telemetry`` and ``health``.
 """
 from __future__ import annotations
 
@@ -31,12 +42,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import hfl, pca, profiling
+from repro_torch.core import flatbank, hfl, pca, profiling
 from repro_torch.core import reward as reward_mod
 from repro_torch.core import state as state_mod
 from repro_torch.data import federated, synthetic
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ref
 from repro_torch.models import model as model_mod
+from repro_torch.runtime import (AsyncConfig, EventQueue, FaultInjector,
+                                 StalenessBuffer, edge_round_cost)
 from repro_torch.sim import hardware
 
 
@@ -73,8 +87,10 @@ class EnvConfig:
     drift_coef: float = 0.25         # non-IID drift per unbalanced epoch
     stale_coef: float = 0.015        # large-gamma2 staleness penalty
     noise: float = 0.004
-    cov_pow: float = 0.5             # async coverage exponent (unused here)
+    cov_pow: float = 0.5             # async: partial-buffer coverage
+                                     # exponent
     device: str = "cuda"             # where the env's tensors live
+    deterministic: bool = False      # rounds in deterministic mode
 
     def fixup(self) -> "EnvConfig":
         if self.task == "cifar" and self.threshold_time == 3000.0:
@@ -86,7 +102,7 @@ class EnvConfig:
         return self
 
 
-def _refuse_unported(cfg: EnvConfig, health) -> None:
+def _refuse_unported(cfg: EnvConfig, health, telemetry=None) -> None:
     if cfg.agg is not None and not isinstance(cfg.agg, hfl.AggContext):
         raise NotImplementedError(
             "EnvConfig.agg: only repro_torch.core.hfl.AggContext."
@@ -94,9 +110,9 @@ def _refuse_unported(cfg: EnvConfig, health) -> None:
     if cfg.mesh is not None:
         raise NotImplementedError("EnvConfig.mesh: the multi-GPU bank is "
                                   "not ported yet (ROADMAP item 10)")
-    if cfg.telemetry:
-        raise NotImplementedError("EnvConfig.telemetry: telemetry is not "
-                                  "ported yet (ROADMAP item 9)")
+    if cfg.telemetry or telemetry is not None:
+        raise NotImplementedError("telemetry is not ported yet (ROADMAP "
+                                  "item 9)")
     if cfg.health or health is not None:
         raise NotImplementedError("health monitors are not ported yet "
                                   "(ROADMAP item 9)")
@@ -150,7 +166,8 @@ class HFLEnv:
             self._loss_fn = lambda p, b: model_mod.cnn_loss(apply_fn, p, b)
             self._cloud_round = hfl.make_cloud_round(
                 self._loss_fn, cfg.lr, cfg.batch_size, cfg.n_edges,
-                cfg.gamma_max, cfg.gamma_max, ctx=self.agg_ctx)
+                cfg.gamma_max, cfg.gamma_max, ctx=self.agg_ctx,
+                deterministic=cfg.deterministic)
             self._perm_gen = torch.Generator(device=self.device)
             self._perm_gen.manual_seed(cfg.seed)
             self._perm_source = perm_source or self._draw_perms
@@ -163,13 +180,22 @@ class HFLEnv:
         self.episode = 0
 
     # ------------------------------------------------------------------
-    def _draw_perms(self) -> torch.Tensor:
-        """One round's shuffles, (gamma_max, gamma_max, N, n_local)."""
+    def _draw_perms(self, gen: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """One round's shuffles, (gamma_max, gamma_max, N, n_local), from
+        ``gen`` (default: the env's round generator)."""
         g = self.cfg.gamma_max
         shape = (g, g, self.cfg.n_devices, self.fed.n_local)
-        keys = torch.rand(shape, generator=self._perm_gen,
+        keys = torch.rand(shape, generator=gen or self._perm_gen,
                           device=self.device)
         return keys.argsort(dim=-1, stable=True)
+
+    @torch.no_grad()
+    def _test_accuracy(self) -> float:
+        """The global model's accuracy on the held-out test set."""
+        return float(model_mod.cnn_accuracy(
+            self._apply_fn, self.global_model,
+            {"x": self.fed.test_x, "y": self.fed.test_y}))
 
     def _w0(self) -> dict:
         """w(0): the injected model, or a draw from ``seed + 1000``."""
@@ -258,10 +284,7 @@ class HFLEnv:
                     self.bank, self.fed.x, self.fed.y, sizes,
                     self._edge_assign_t, np.minimum(g1, cfg.gamma_max),
                     np.minimum(g2, cfg.gamma_max), self._perm_source())
-            with torch.no_grad():
-                acc = float(model_mod.cnn_accuracy(
-                    self._apply_fn, self.global_model,
-                    {"x": self.fed.test_x, "y": self.fed.test_y}))
+            acc = self._test_accuracy()
         else:
             acc = self._analytic_update(g1, g2, participate)
         self.acc = acc
@@ -366,3 +389,429 @@ class HFLEnv:
     @property
     def action_dim(self):
         return 2 * self.cfg.n_edges
+
+
+# ---------------------------------------------------------------------------
+# event-driven asynchronous mode (repro_torch.runtime)
+# ---------------------------------------------------------------------------
+
+class AsyncHFLEnv(HFLEnv):
+    """Event-driven asynchronous HFL: edges report on their own clocks.
+
+    The port of ``repro.sim.env.AsyncHFLEnv``. Each edge trains
+    continuously: it downloads the current global model, runs its
+    (gamma1, gamma2) round, and posts an *upload event* after its
+    simulated per-edge duration (``repro_torch.runtime.clock``). The
+    cloud holds uploads in a FedBuff-style buffer
+    (``repro_torch.runtime.buffer``) and advances the global model --
+    with staleness-decayed weights ``w_j s(tau_j)`` -- once ``buffer_k``
+    updates are in.
+
+    One env **step = one upload event**: the action ``(gamma1, gamma2)``
+    programs the *next* round of the edge whose upload was just
+    processed (``action_dim`` 2). The observation appends six columns to
+    the synchronous state: per-edge staleness, in-flight status, a
+    deciding-edge one-hot (row 0 carries the buffer fill fraction), and
+    the fault columns: dropped-upload counts, pending-retry attempts,
+    and an outage/departed flag.
+
+    **Faults** (``repro_torch.runtime.faults``): a :class:`FaultSpec`
+    injects per-edge upload dropout, transient failures with capped
+    exponential-backoff retries, edge-outage windows and join/leave
+    churn, all as events on the same queue. ``AsyncConfig.
+    flush_deadline`` adds graceful degradation: a buffer that cannot
+    reach K in time flushes the survivors with coverage-corrected
+    weights (the current global vector anchors the missing mass). A
+    null or omitted spec gives the fault-free runtime.
+
+    **Kernels** (real mode): every landed upload realises one
+    ``hfl.make_edge_round`` (1 + gamma2 ``segment_agg`` and gamma2
+    ``segment_broadcast`` launches); every applied flush is one
+    ``segment_agg`` launch; every join resyncs the joining edge's rows
+    with one ``segment_broadcast`` (``hfl.masked_resync``).
+
+    **Draws.** The numpy generator makes the reference's draws in the
+    reference's order. The reference keys the edge round trained from
+    version v with ``fold_in(abase, v)``, ``abase`` split from its key
+    chain right after the warmup round; here ``edge_perm_source(v)``
+    returns that round's ``(gamma_max, gamma_max, N, n_local)`` shuffles.
+    Its default draws one base seed per episode from the round generator
+    after the warmup round and seeds a generator with ``base + v``: two
+    uploads trained from one version get the same shuffles, which is
+    what makes a zero-decay, ``buffer_k == n_edges`` first flush the
+    synchronous round.
+
+    The snapshot an upload trains from is the ``_global_vec`` tensor of
+    its launch; a flush assigns a new tensor and nothing writes one in
+    place, so the snapshot keeps its version.
+
+    ``telemetry`` and ``health`` are not ported yet (ROADMAP item 9):
+    anything but ``None`` raises ``NotImplementedError``.
+    """
+
+    def __init__(self, cfg: EnvConfig, async_cfg=None, faults=None,
+                 telemetry=None, health=None, *,
+                 init_params: Optional[dict] = None,
+                 perm_source: Optional[Callable] = None,
+                 edge_perm_source: Optional[Callable] = None):
+        _refuse_unported(cfg, health, telemetry)
+        super().__init__(cfg, health=health, init_params=init_params,
+                         perm_source=perm_source)
+        cfg = self.cfg
+        self.acfg = async_cfg or AsyncConfig()
+        self.buffer_k = self.acfg.buffer_k or cfg.n_edges
+        self.faults = faults
+        if cfg.mode == "real":
+            self._edge_round = hfl.make_edge_round(
+                self._loss_fn, cfg.lr, cfg.batch_size, cfg.n_edges,
+                cfg.gamma_max, cfg.gamma_max, ctx=self.agg_ctx,
+                deterministic=cfg.deterministic)
+            self._edge_perm_source = edge_perm_source or self._edge_perms
+
+    def _edge_perms(self, version: int) -> torch.Tensor:
+        """Shuffles of an edge round trained from ``version``."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self._edge_perm_base + int(version))
+        return self._draw_perms(gen)
+
+    # ------------------------------------------------------------------
+    def reset(self) -> np.ndarray:
+        cfg = self.cfg
+        m = cfg.n_edges
+        # placeholders: the superclass warmup round builds a state
+        # before the async structures exist
+        self.buffer = None
+        self._deciding = None
+        self._in_flight = np.zeros(m, bool)
+        self._staleness = np.zeros(m, np.float32)
+        # per-episode fault state: its generator folds the episode index
+        # in, so PPO episodes see varied fault traces
+        self._injector = FaultInjector(self.faults, m,
+                                       seed_offset=self.episode)
+        self._incarnation = np.zeros(m, np.int64)
+        self._last_action = [(2, 2)] * m
+        super().reset()                 # sync warmup round + PCA fit
+        self.version = 0
+        if cfg.mode == "real":
+            self._edge_perm_base = int(torch.randint(
+                0, 2**62, (), generator=self._perm_gen, device=self.device))
+            self._spec = flatbank.bank_spec(self.bank)
+            self._global_vec = self._spec.flatten_model(self.global_model)
+            self._edge_mat = self._spec.flatten(self.edge_models)
+            self._dev_sizes = self.fed.device_sizes()
+            self._edge_w = ref.segment_weight_sums(
+                self._dev_sizes, self._edge_assign_t, m).cpu().numpy()
+        else:
+            self._edge_w = self._edge_sizes.copy()
+        self.queue = EventQueue()
+        self.queue.now = cfg.threshold_time - self.t_re  # after warmup
+        self.buffer = StalenessBuffer(
+            self.buffer_k, decay=self.acfg.decay,
+            decay_a=self.acfg.decay_a, ctx=self.agg_ctx, device=self.device)
+        self.n_flushes = 0
+        self._edge_version = np.zeros(m, np.int64)
+        self._last_time = self.queue.now
+        self._last_flush_time = self.queue.now
+        self._last_upload_lost = False
+        self._flush_info = None
+        # declared faults (outage windows, churn) become events on the
+        # same queue; a null spec schedules nothing
+        self._injector.schedule_initial(self.queue)
+        for j in range(m):
+            self._launch_round(j, 2, 2)  # warmup frequencies (Alg. 1 l.3)
+        ev = self._process_upload()     # first upload picks first decider
+        if ev is not None:
+            self._deciding = ev.edge
+        return self._state()
+
+    # ------------------------------------------------------------------
+    def _launch_round(self, edge: int, g1: int, g2: int) -> None:
+        """Edge downloads the current global model and starts a
+        (gamma1, gamma2) round now; its upload lands after the simulated
+        per-edge duration. Departed edges stay dormant until a join
+        event relaunches them."""
+        if not self._injector.alive[edge]:
+            return
+        self._last_action[edge] = (int(g1), int(g2))
+        cost = edge_round_cost(self.profiles, self.comm, self.edge_assign,
+                               edge, g1, g2, self.rng)
+        snapshot = self._global_vec if self.cfg.mode == "real" else None
+        self.queue.schedule(cost.time, edge, kind="upload",
+                            g1=g1, g2=g2, cost=cost, version=self.version,
+                            snapshot=snapshot,
+                            incarnation=int(self._incarnation[edge]))
+        self._edge_version[edge] = self.version
+        self._in_flight[edge] = True
+
+    # ------------------------------------------------------------------
+    # fault-event handlers (repro_torch.runtime.faults)
+    # ------------------------------------------------------------------
+    def _handle_leave(self, j: int) -> None:
+        """Mobility churn: edge ``j`` departs. Its in-flight round is
+        voided (the incarnation bump makes the pending upload a ghost);
+        its bank rows stay bit-identical until it rejoins."""
+        fi = self._injector
+        if not fi.alive[j]:
+            return
+        fi.alive[j] = False
+        fi.retry_pending[j] = 0
+        self._incarnation[j] += 1
+        self._in_flight[j] = False
+
+    def _handle_join(self, j: int) -> None:
+        """Mobility churn: edge ``j`` (re)joins. Real mode resyncs only
+        the joining edge's bank rows to the current global model
+        (``hfl.masked_resync``, one ``segment_broadcast``; every other
+        row comes back bit-identical), then the edge relaunches with its
+        last programmed frequencies."""
+        fi = self._injector
+        if fi.alive[j]:
+            return
+        fi.alive[j] = True
+        self._incarnation[j] += 1
+        if self.cfg.mode == "real":
+            self._edge_mat[j] = self._global_vec.to(self._edge_mat.dtype)
+            mat = hfl.masked_resync(self._edge_mat,
+                                    self._spec.flatten(self.bank),
+                                    self._edge_assign_t,
+                                    np.arange(self.cfg.n_edges) == j,
+                                    ctx=self.agg_ctx)
+            self.bank = self._spec.unflatten(mat)
+            self.edge_models = self._spec.unflatten(self._edge_mat)
+        self._edge_version[j] = self.version
+        g1, g2 = self._last_action[j]
+        self._launch_round(j, g1, g2)
+
+    def _maybe_deadline_flush(self) -> None:
+        """Graceful degradation: if K has not been met within the flush
+        deadline, proceed with the survivors (coverage-corrected)."""
+        dl = self.acfg.flush_deadline
+        if dl > 0 and len(self.buffer) > 0 and not self.buffer.ready \
+                and self.queue.now - self._last_flush_time >= dl:
+            self._flush(degraded=True)
+
+    def _process_upload(self):
+        """Pop events until one upload lands (or is permanently
+        dropped): fault events (outage boundaries, churn, retries) are
+        handled in between. Realises the landed upload's training,
+        buffers the update, and flushes the cloud when the buffer fills
+        (or the flush deadline lapses). Returns ``None`` iff the queue
+        drained (every edge departed)."""
+        cfg = self.cfg
+        fi = self._injector
+        while True:
+            if not len(self.queue):
+                return None
+            ev = self.queue.pop()
+            kind = ev.kind
+            if kind == "outage_start":
+                fi.in_outage[ev.edge] = True
+            elif kind == "outage_end":
+                fi.in_outage[ev.edge] = False
+            elif kind == "leave":
+                self._handle_leave(ev.edge)
+            elif kind == "join":
+                self._handle_join(ev.edge)
+            else:                                   # an upload attempt
+                pay = ev.payload
+                if pay.get("incarnation", 0) \
+                        != int(self._incarnation[ev.edge]):
+                    continue    # ghost: the edge departed mid-round
+                attempt = pay.get("attempt", 0)
+                first = pay.get("first_try", ev.time)
+                fate = fi.upload_fate(ev.edge, attempt, ev.time, first)
+                if fate == "retry":
+                    fi.retry_pending[ev.edge] = attempt + 1
+                    # capped exponential backoff + a fresh comm-model
+                    # upload draw prices the retry
+                    delay = fi.retry_delay(self.comm, ev.edge, attempt)
+                    self.queue.schedule(
+                        delay, ev.edge, kind="upload",
+                        **{**pay, "attempt": attempt + 1,
+                           "first_try": first})
+                    self._maybe_deadline_flush()
+                    continue
+                fi.retry_pending[ev.edge] = 0
+                break
+            self._maybe_deadline_flush()
+        j, pay, cost = ev.edge, ev.payload, ev.payload["cost"]
+        lost = fate == "drop"
+        self._in_flight[j] = False
+        if lost:
+            # the round's compute (and energy) is spent, but the update
+            # never reaches the cloud: nothing is buffered, and in real
+            # mode the edge round is not realised (its bank rows keep
+            # their previous values)
+            pass
+        elif cfg.mode == "real":
+            self.bank, edge_vec = self._edge_round(
+                self.bank, self.fed.x, self.fed.y, self._dev_sizes,
+                self._edge_assign_t, j, pay["g1"], pay["g2"],
+                pay["snapshot"], self._edge_perm_source(pay["version"]))
+            self._edge_mat[j] = edge_vec.to(self._edge_mat.dtype)
+            self.edge_models = self._spec.unflatten(self._edge_mat)
+            self.buffer.push(j, edge_vec, float(self._edge_w[j]),
+                             pay["version"])
+        else:
+            self.buffer.push(j, None, float(self._edge_w[j]),
+                             pay["version"],
+                             epochs=pay["g1"] * pay["g2"], g2=pay["g2"])
+        self.total_energy += cost.energy
+        self._h_edges[j] = np.float32(
+            [cost.t_sgd * pay["g1"] * pay["g2"], cost.ec, cost.energy])
+        self._flushed = False
+        if self.buffer.ready:
+            self._flush()
+        else:
+            self._maybe_deadline_flush()
+        self._staleness = np.float32(self.version - self._edge_version)
+        dt = self.queue.now - self._last_time
+        self._last_time = self.queue.now
+        self.t_re = cfg.threshold_time - self.queue.now
+        self.energy_hist.append(cost.energy)
+        self.acc_hist.append(self.acc)
+        self.time_hist.append(dt)
+        self._last_upload_lost = lost
+        return ev
+
+    def _flush(self, degraded: bool = False) -> None:
+        """Cloud aggregation of the buffered updates (staleness-decayed
+        weights); bumps the model version and re-measures accuracy.
+
+        ``degraded=True`` is the deadline path: K was not met, so the
+        survivors aggregate with coverage-corrected weights -- in real
+        mode the current global vector anchors the missing data mass
+        (``ref.coverage_aggregate_ref``); the analytic model's coverage
+        factor already damps partial flushes."""
+        cfg = self.cfg
+        anchor, m_w = None, 0.0
+        if degraded and cfg.mode == "real":
+            missing = max(self.buffer_k - len(self.buffer), 0)
+            anchor = self._global_vec
+            m_w = float(missing * np.mean(self._edge_w))
+        glob, info = self.buffer.flush(self.version,
+                                       self.acfg.max_staleness,
+                                       anchor=anchor, anchor_weight=m_w)
+        info["degraded"] = degraded
+        self._flush_info = info
+        applied = False
+        if cfg.mode == "real":
+            if glob is not None:
+                self._global_vec = glob
+                self.global_model = self._spec.unflatten_model(glob)
+                self.acc = self._test_accuracy()
+                applied = True
+        elif info["edges"]:
+            self.acc = self._analytic_flush(info)
+            applied = True
+        if applied:
+            self.version += 1
+            self.n_flushes += 1
+            self.k += 1
+        self._flushed = applied
+        # reset the deadline clock even for a vacuous flush (every slot
+        # staleness-dropped) -- otherwise it would re-trigger every event
+        self._last_flush_time = self.queue.now
+
+    def _analytic_flush(self, info) -> float:
+        """Analytic-mode accuracy update per flush -- the synchronous
+        saturating-progress model transplanted to buffered aggregation:
+
+        * each buffered update contributes its per-epoch progress with
+          the buffer-normalised staleness weight q_j = w_j s(tau_j) /
+          sum w s (a stale update loses influence, it does not shrink
+          the step);
+        * a partial buffer only represents sum_b w_j / W of the data, so
+          progress scales by coverage^cov_pow (K = M fresh reduces
+          exactly to the synchronous update);
+        * staleness adds to the gamma2 penalty via the mean buffer tau.
+        """
+        cfg = self.cfg
+        slots = info["meta"]
+        epochs = np.float64([s["epochs"] for s in slots])
+        p = 1.0 - np.exp(-cfg.a_rate * epochs)
+        q = np.float64(info["weights"])
+        q = q / max(q.sum(), 1e-12)                  # within-buffer norm
+        coverage = float(sum(self._edge_sizes[j]
+                             for j in set(info["edges"]))
+                         / self._edge_sizes.sum())
+        info["coverage"] = coverage
+        progress = float(np.sum(q * p)) * coverage ** cfg.cov_pow
+        drift = cfg.drift_coef * float(np.std(epochs)) / max(
+            float(np.mean(epochs)), 1.0) * cfg.a_rate
+        g2s = np.float64([s["g2"] for s in slots])
+        stale = cfg.stale_coef * cfg.a_rate * (
+            float(np.mean(np.maximum(g2s - 4, 0)))
+            + float(np.mean(info["staleness"])))
+        gap = cfg.a_max - self.acc
+        noise = self.rng.normal(0, cfg.noise)
+        new = self.acc + gap * max(progress - drift - stale, 0.0) + noise
+        return float(np.clip(new, 0.05, cfg.a_max))
+
+    # ------------------------------------------------------------------
+    def step(self, action: np.ndarray):
+        """action: (2,) raw continuous (gamma1, gamma2) for the deciding
+        edge's next round (the synchronous env's projection). Advances
+        the simulation by exactly one upload event."""
+        cfg = self.cfg
+        a = np.clip(np.round(np.asarray(action).reshape(-1)[:2]), 1,
+                    cfg.gamma_max).astype(np.int64)
+        acc_old = self.acc
+        if self._deciding is not None:
+            self._launch_round(self._deciding, int(a[0]), int(a[1]))
+        ev = self._process_upload()
+        if ev is None:
+            # the queue drained: every edge departed (mobility churn)
+            # and nothing can ever arrive again -- terminal state
+            self._deciding = None
+            info = {"acc": self.acc, "energy": 0.0, "t_use": 0.0,
+                    "t_re": self.t_re, "edge": -1, "g1": 0, "g2": 0,
+                    "flushed": False, "version": self.version,
+                    "staleness": self._staleness.copy(),
+                    "fleet_down": True, "dropped": False}
+            return self._state(), 0.0, True, info
+        self._deciding = ev.edge
+        cost = ev.payload["cost"]
+        r = reward_mod.reward(self.acc, acc_old, cost.energy, cfg.epsilon)
+        done = self.t_re < 0
+        info = {"acc": self.acc, "energy": cost.energy,
+                "t_use": self.time_hist[-1], "t_re": self.t_re,
+                "edge": ev.edge, "g1": ev.payload["g1"],
+                "g2": ev.payload["g2"], "flushed": self._flushed,
+                "version": self.version,
+                "staleness": self._staleness.copy(),
+                "dropped": self._last_upload_lost,
+                "retries": int(ev.payload.get("attempt", 0))}
+        return self._state(), float(r), bool(done), info
+
+    # ------------------------------------------------------------------
+    def _state(self) -> np.ndarray:
+        base = super()._state()                      # (M+1, n_pca+3)
+        m = self.cfg.n_edges
+        extra = np.zeros((m + 1, 6), np.float32)
+        if self.buffer is not None:
+            extra[0, 0] = len(self.buffer) / max(self.buffer_k, 1)
+        extra[1:, 0] = self._staleness / 10.0
+        extra[1:, 1] = self._in_flight.astype(np.float32)
+        if self._deciding is not None:
+            extra[1 + self._deciding, 2] = 1.0
+        fi = self._injector
+        # fault columns: cumulative dropped uploads, pending retry
+        # attempt, and outage/departed status (0.5 = outage, 1 =
+        # departed); row 0 carries fleet totals
+        extra[1:, 3] = fi.n_dropped / 10.0
+        extra[1:, 4] = np.minimum(fi.retry_pending, 10) / 10.0
+        extra[1:, 5] = np.where(~fi.alive, 1.0,
+                                np.where(fi.in_outage, 0.5, 0.0))
+        extra[0, 3] = float(fi.n_dropped.sum()) / 10.0
+        extra[0, 4] = float(fi.n_retries.sum()) / 10.0
+        extra[0, 5] = float((~fi.alive).sum()) / max(m, 1)
+        return np.concatenate([base, extra], axis=1)
+
+    @property
+    def state_shape(self):
+        return (self.cfg.n_edges + 1, self.cfg.n_pca + 9)
+
+    @property
+    def action_dim(self):
+        return 2

@@ -118,3 +118,43 @@ def jax_agent_draws(seed: int, action_dim: int):
         return int(jax.random.randint(next_key(), (), 0, 2**31 - 1))
 
     return noise, shuffle_seed
+
+
+def jax_async_perm_sources(seed: int, max_g2: int, max_g1: int, n: int,
+                           n_local: int):
+    """``(perm_source, edge_perm_source)`` for
+    ``repro_torch.sim.AsyncHFLEnv`` that replay the reference
+    ``AsyncHFLEnv``'s key chain: ``PRNGKey(seed)``; per episode one
+    ``_next_key`` split for the warmup round (``perm_source``), then
+    ``abase`` = the next split; the edge round trained from version v
+    draws from ``fold_in(abase, v)`` (``edge_perm_source(v)``,
+    :func:`jax_round_perms`). ``abase`` is split at the first
+    ``edge_perm_source`` call of an episode, or skipped at the next
+    warmup if the episode made none, so the chain stays the reference's
+    either way."""
+    state = {"key": jax.random.PRNGKey(seed), "abase": None,
+             "pending": False, "cache": {}}
+
+    def next_key():
+        state["key"], sub = jax.random.split(state["key"])
+        return sub
+
+    def perm_source():
+        if state["pending"]:            # the last episode's abase, unused
+            next_key()
+        out = jax_round_perms(next_key(), max_g2, max_g1, n, n_local)
+        state["pending"] = True
+        return torch.from_numpy(out)
+
+    def edge_perm_source(version):
+        if state["pending"]:
+            state["abase"], state["pending"] = next_key(), False
+            state["cache"] = {}
+        v = int(version)
+        if v not in state["cache"]:
+            state["cache"][v] = torch.from_numpy(jax_round_perms(
+                jax.random.fold_in(state["abase"], v), max_g2, max_g1, n,
+                n_local))
+        return state["cache"][v]
+
+    return perm_source, edge_perm_source

@@ -301,6 +301,94 @@ def test_fedavg_round_on_card_matches_cpu(cuda_dev):
                                        rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("k,p", [(3, 456906), (2, 21840)],
+                         ids=["cifar-flush", "mnist-flush"])
+def test_segment_agg_flush_shapes_match_plain(cuda_dev, k, p):
+    """The async flush's launch: one segment over K buffered updates
+    (CIFAR K = 3, MNIST K = 2), and the degraded flush's K + 1 rows."""
+    for rows in (k, k + 1):
+        bank, w, _ = _inputs(cuda_dev, rows, p, 1, torch.float32, seed=rows)
+        _check_agg(bank, w, torch.zeros(rows, dtype=torch.int32,
+                                        device=cuda_dev), 1)
+
+
+def _edge_inputs(dev, n=6, n_local=64, seed=2):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(n, n_local, 28, 28, 1)).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 10, (n, n_local)).astype(
+        np.int32)).to(dev)
+    perms = torch.from_numpy(rng.permuted(
+        np.broadcast_to(np.arange(n_local), (2, 3, n, n_local)),
+        axis=-1)).to(dev)
+    bank = hfl.init_bank(model.mnist_cnn_init,
+                         torch.Generator().manual_seed(4), n, device="cpu")
+    mat = hfl.flatbank.bank_spec(bank).flatten(bank)
+    mat.add_(0.01 * torch.from_numpy(rng.normal(size=mat.shape).astype(
+        np.float32)))
+    ea = torch.tensor([0, 1, 2, 0, 1, 2], dtype=torch.int32, device=dev)
+    sizes = torch.tensor([64.0, 32.0, 64.0, 48.0, 64.0, 16.0], device=dev)
+    return {k: v.to(dev) for k, v in bank.items()}, x, y, perms, ea, sizes
+
+
+def test_edge_round_on_card_matches_cpu(cuda_dev):
+    """One edge round of the MNIST CNN (6 devices, 3 edges, gamma (3, 2))
+    on the card against the same round on the CPU: rtol 1e-4, atol 1e-5
+    as for the cloud round; 1 + gamma2 ``segment_agg`` and gamma2
+    ``segment_broadcast`` launches; the other edges' rows bitwise
+    untouched on the card."""
+    loss = lambda p, b: model.cnn_loss(model.mnist_cnn_apply, p, b)
+    rnd = hfl.make_edge_round(loss, 0.05, 32, 3, 3, 2)
+    outs = []
+    for d in ("cpu", cuda_dev):
+        bank, x, y, perms, ea, sizes = _edge_inputs(d)
+        spec = hfl.flatbank.bank_spec(bank)
+        before = spec.flatten(bank).clone()
+        gvec = before[1].clone()
+        hier_agg.reset_launches()
+        bank, vec = rnd(bank, x, y, sizes, ea, 1, 3, 2, gvec, perms)
+        after = spec.flatten(bank)
+        assert torch.equal(after[ea != 1], before[ea != 1])
+        outs.append((after.cpu(), vec.cpu()))
+    assert hier_agg.LAUNCHES == {"segment_agg": 3, "segment_broadcast": 2,
+                                 "flash_attention": 0, "wkv6": 0}
+    for cpu_t, gpu_t in zip(*outs):
+        torch.testing.assert_close(gpu_t, cpu_t, rtol=1e-4, atol=1e-5)
+
+
+# the edge round against its cloud-round row on the card in
+# deterministic mode; the subset fault of the CPU (ROADMAP section 3,
+# fault 2) shows on the card too when cuDNN's grouped-conv algorithm
+# depends on the group count
+CARD_EDGE_ROW_TOL = 1e-5
+
+
+def test_edge_round_is_its_cloud_round_row_on_card_deterministic(cuda_dev):
+    """Deterministic mode on the card, MNIST CNN, gamma1 [2, 1, 3],
+    gamma2 [1, 2, 2]: two runs of each edge round bitwise equal, and its
+    vector within CARD_EDGE_ROW_TOL of row j of one cloud round started
+    at the snapshot with the same shuffles."""
+    loss = lambda p, b: model.cnn_loss(model.mnist_cnn_apply, p, b)
+    g1, g2 = np.array([2, 1, 3]), np.array([1, 2, 2])
+    bank, x, y, perms, ea, sizes = _edge_inputs(cuda_dev)
+    spec = hfl.flatbank.bank_spec(bank)
+    mat0 = spec.flatten(bank).clone()
+    gvec = mat0[1].clone()
+    cloud = hfl.make_cloud_round(loss, 0.05, 32, 3, 3, 2,
+                                 deterministic=True)
+    _, _, em = cloud(hfl.broadcast_model(spec.unflatten_model(gvec), 6),
+                     x, y, sizes, ea, g1, g2, perms)
+    em = spec.flatten(em)
+    er = hfl.make_edge_round(loss, 0.05, 32, 3, 3, 2, deterministic=True)
+    for j in range(3):
+        vecs = [er(spec.unflatten(mat0.clone()), x, y, sizes, ea, j, g1[j],
+                   g2[j], gvec, perms)[1] for _ in range(2)]
+        assert torch.equal(vecs[0], vecs[1])
+        torch.testing.assert_close(vecs[0], em[j], rtol=0,
+                                   atol=CARD_EDGE_ROW_TOL)
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
 def test_agent_update_on_card_matches_cpu(cuda_dev):
     """One PPO update (a seeded 40-step rollout at the CIFAR state shape
     (6, 9), 10 actions, the same shuffle seed) on the card against the

@@ -171,12 +171,24 @@ def test_fedavg_round_matches_reference_mnist_4dev():
     samples each, batch 32, lr 0.05, with the reference's shuffles
     injected; atol 1e-5 on the bank and the global model (observed
     3.0e-8, f32 summation order)."""
+    _fedavg_round_parity(np.array([True, False, True, True]), 2)
+
+
+@pytest.mark.parametrize("g1", [[1, 2, 2, 2], [2, 1, 2, 1]])
+def test_fedavg_round_per_device_gamma1_matches_reference_mnist_4dev(g1):
+    """The same round with all 4 devices participating and one gamma1 per
+    device (an int32 vector, as the reference takes it); atol 1e-5. Before
+    the port broadcast the vector, it ran every device for gamma1[0]
+    epochs: 3.3e-3 and 2.4e-3 off."""
+    _fedavg_round_parity(np.ones(4, bool), np.array(g1, np.int32))
+
+
+def _fedavg_round_parity(part, g1):
     n, n_local, max_g1 = 4, 64, 2
     rng = np.random.default_rng(0)
     x = rng.normal(size=(n, n_local, 28, 28, 1)).astype(np.float32)
     y = rng.integers(0, 10, size=(n, n_local)).astype(np.int32)
     sizes = np.array([64, 32, 64, 48], np.float32)
-    part = np.array([True, False, True, True])
     key = jax.random.PRNGKey(11)
     jbank = jhfl.init_bank(jmodel.mnist_cnn_init, jax.random.PRNGKey(5), n)
     bank = weights.bank_from_numpy(_np(jbank), "cpu")
@@ -185,13 +197,13 @@ def test_fedavg_round_matches_reference_mnist_4dev():
     jround = jhfl.make_fedavg_round(jloss, 0.05, 32, max_g1)
     jb, jg = jround(jbank, jnp.asarray(x), jnp.asarray(y),
                     jnp.asarray(sizes), jnp.asarray(part),
-                    jnp.asarray(2, jnp.int32), key)
+                    jnp.asarray(g1, jnp.int32), key)
 
     loss = lambda p, b: model.cnn_loss(model.mnist_cnn_apply, p, b)
     rnd = hfl.make_fedavg_round(loss, 0.05, 32, max_g1)
     perms = torch.from_numpy(jax_fedavg_perms(key, max_g1, n, n_local))
     before = dict(ops.LAUNCHES)
-    b, g = rnd(bank, to_torch(x), to_torch(y), to_torch(sizes), part, 2,
+    b, g = rnd(bank, to_torch(x), to_torch(y), to_torch(sizes), part, g1,
                perms)
     assert ops.LAUNCHES == before             # CPU: plain versions only
     assert_tree_close(b, _np(jb), atol=1e-5)
