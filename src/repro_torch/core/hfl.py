@@ -33,7 +33,9 @@ Every factory takes ``deterministic`` (default False): with it, each
 call of the round runs inside ``repro_torch.device.
 deterministic_algorithms``, so the same inputs give the same bank bits
 on every run on the card too (cuDNN and the gathers otherwise sum in
-run-dependent orders).
+run-dependent orders), and every epoch trains all N rows as the
+reference does (``make_local_trainer(all_rows=True)``), so an edge
+round is bitwise its row of the cloud round.
 """
 from __future__ import annotations
 
@@ -166,7 +168,8 @@ def _host_ints(v) -> np.ndarray:
     return np.asarray(v, dtype=np.int64).reshape(-1)
 
 
-def make_local_trainer(loss_fn: Callable, lr: float, batch_size: int):
+def make_local_trainer(loss_fn: Callable, lr: float, batch_size: int,
+                       all_rows: bool = False):
     """Returns ``local_train(bank, x, y, gamma1_dev, max_g1, perms)``.
 
     ``loss_fn(params, batch) -> scalar`` for one device. One epoch is one
@@ -179,6 +182,16 @@ def make_local_trainer(loss_fn: Callable, lr: float, batch_size: int):
     device, with per-device gradients from ``torch.func.vmap`` of
     ``torch.func.grad``. The bank's leaves are updated in place and the
     bank is returned.
+
+    An epoch in which only some devices are active takes ``vmap(grad)``
+    over those rows only, unless ``all_rows``: then, as the reference
+    does, every epoch trains all N rows and writes back only the active
+    ones (the inactive rows come back bit-identical). The vmapped
+    convolutions pick their algorithm by the number of rows in the call,
+    so only with ``all_rows`` does a row's result depend on nothing but
+    its own parameters and batch, and an edge round equal its row of the
+    cloud round bit for bit. The round factories set it when built with
+    ``deterministic=True``.
     """
     grad_fn = torch.func.vmap(torch.func.grad(loss_fn))
 
@@ -201,6 +214,15 @@ def make_local_trainer(loss_fn: Callable, lr: float, batch_size: int):
             if active.all():
                 rows = torch.arange(x.shape[0], device=x.device)
                 run_epoch(bank, x, y, rows, perm)
+                continue
+            if all_rows:
+                rows = torch.arange(x.shape[0], device=x.device)
+                idle = torch.as_tensor(np.flatnonzero(~active),
+                                       device=x.device)
+                old = {k: v[idle] for k, v in bank.items()}
+                run_epoch(bank, x, y, rows, perm)
+                for k, v in bank.items():
+                    v[idle] = old[k]
                 continue
             rows = torch.as_tensor(np.flatnonzero(active), device=x.device)
             params = {k: v[rows] for k, v in bank.items()}
@@ -263,7 +285,8 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
     bank. Turns TF32 off (``repro_torch.device.disable_tf32``).
     """
     _resolve_ctx(ctx, "make_cloud_round")
-    local_train = make_local_trainer(loss_fn, lr, batch_size)
+    local_train = make_local_trainer(loss_fn, lr, batch_size,
+                                     all_rows=deterministic)
 
     def cloud_round(bank, x, y, sizes, edge_assign, g1, g2, perms):
         spec = flatbank.bank_spec(bank)
@@ -323,17 +346,21 @@ def make_edge_round(loss_fn: Callable, lr: float, batch_size: int,
 
     It is the cloud round restricted to one edge: one ``segment_agg``
     launch for the starting edge models, then per t2 < gamma2 local
-    epochs on the edge's rows only, one ``segment_agg`` (E = n_edges,
-    weights ``sizes * (edge_assign == edge_id)``) and one
+    epochs updating the edge's rows only, one ``segment_agg`` (E =
+    n_edges, weights ``sizes * (edge_assign == edge_id)``) and one
     ``masked_resync`` of the edge's rows (one ``segment_broadcast`` and a
     ``where``). Rows of other edges come back bitwise untouched: the bank
     is the scratch buffer of every in-flight edge round. Given the
     shuffles the cloud round got, the returned vector is row
-    ``edge_id`` of its edge matrix. ``bank`` must have one dtype; its
-    storage is reused. Turns TF32 off.
+    ``edge_id`` of its edge matrix: bitwise with ``deterministic`` (each
+    epoch then trains all N rows and keeps the edge's), within the
+    grouped convolutions' last bits without it (they train the edge's
+    rows alone). ``bank`` must have one dtype; its storage is reused.
+    Turns TF32 off.
     """
     _resolve_ctx(ctx, "make_edge_round")
-    local_train = make_local_trainer(loss_fn, lr, batch_size)
+    local_train = make_local_trainer(loss_fn, lr, batch_size,
+                                     all_rows=deterministic)
 
     def edge_round(bank, x, y, sizes, edge_assign, edge_id, g1, g2,
                    global_vec, perms):
@@ -385,7 +412,8 @@ def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
     value per device. Turns TF32 off.
     """
     _resolve_ctx(ctx, "make_fedavg_round")
-    local_train = make_local_trainer(loss_fn, lr, batch_size)
+    local_train = make_local_trainer(loss_fn, lr, batch_size,
+                                     all_rows=deterministic)
 
     def fedavg_round(bank, x, y, sizes, participate, g1, perms):
         spec = flatbank.bank_spec(bank)

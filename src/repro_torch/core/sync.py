@@ -33,8 +33,9 @@ function signatures. :func:`run_scheme` is the one dispatch point; the
 historical ``run_*`` functions are thin wrappers that forward into the
 registry (so their defaults cannot drift from it).
 
-The agent runs on the env's device (``env.device``). The run ledger is
-not ported yet (ROADMAP item 9): ``run_scheme`` records nothing.
+The agent runs on the env's device (``env.device``). ``run_scheme``
+records each run in the run ledger (``repro_torch.telemetry.ledger``)
+when one is given or installed as the process default.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.agent import PPOAgent, PPOConfig
+from repro_torch.telemetry import ledger as ledger_mod
 
 
 # ---------------------------------------------------------------------------
@@ -101,20 +103,26 @@ def run_scheme(name: str, env, *, agent=None, ledger=None, **overrides):
     """The one dispatch point: look the scheme up in :data:`SCHEMES` and
     run it with ``overrides`` merged over the registry defaults.
 
-    ``ledger``: ``None`` and ``False`` record nothing, as the reference
-    does by default (no process ledger installed). Recording a run needs
-    the run ledger, which is not ported yet: any other value raises
-    ``NotImplementedError``."""
+    ``ledger``: where to record the run (``repro_torch.telemetry.
+    ledger``). ``None`` falls through to the process default (installed
+    by ``ledger.enable()``; none by default), ``False`` forces recording
+    off, ``True``/a path/a :class:`RunLedger` records there. Recording
+    happens *after* the episode from host-side history, so ledger-on vs
+    ledger-off trajectories are bitwise identical. The recorded run id
+    is returned in the history dict as ``"ledger_run_id"``."""
     try:
         spec = SCHEMES[name]
     except KeyError:
         raise KeyError(f"unknown scheme {name!r}; available: "
                        f"{sorted(SCHEMES)}") from None
-    if ledger is not None and ledger is not False:
-        raise NotImplementedError(
-            "run_scheme(ledger=...): the run ledger is not ported yet "
-            "(ROADMAP.md, modules still to port, item 9)")
-    return spec(env, agent=agent, **overrides)
+    lg = ledger_mod.resolve(ledger)
+    h = spec(env, agent=agent, **overrides)
+    if lg is not None:
+        params = spec.params
+        params.update(overrides)
+        h["ledger_run_id"] = lg.record_run(
+            scheme=name, env=env, history=h, params=params)
+    return h
 
 
 def _given(**kw) -> dict:
@@ -340,11 +348,17 @@ def _learned(env, agent):
 # ---------------------------------------------------------------------------
 
 def _history(env):
-    return {"acc": list(env.acc_hist), "energy": list(env.energy_hist),
-            "time": list(env.time_hist), "final_acc": env.acc,
-            "total_energy": float(np.sum(env.energy_hist)),
-            "avg_energy": float(np.mean(env.energy_hist)),
-            "rounds": len(env.acc_hist)}
+    out = {"acc": list(env.acc_hist), "energy": list(env.energy_hist),
+           "time": list(env.time_hist), "final_acc": env.acc,
+           "total_energy": float(np.sum(env.energy_hist)),
+           "avg_energy": float(np.mean(env.energy_hist)),
+           "rounds": len(env.acc_hist)}
+    # async envs built with telemetry carry the episode's metric snapshot
+    # (staleness/coverage/retry statistics) into the scheme result
+    tm = getattr(env, "telemetry", None)
+    if tm is not None and tm.enabled:
+        out["telemetry"] = tm.metrics.snapshot()
+    return out
 
 
 SCHEMES: dict[str, SchemeSpec] = {s.name: s for s in [

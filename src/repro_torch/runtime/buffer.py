@@ -84,9 +84,11 @@ class StalenessBuffer:
     on ``device`` and empties the buffer.
 
     Only the single-device ``hfl.AggContext`` is ported (the replicated
-    sharded flush is ROADMAP item 10); ``telemetry`` and ``clock`` (the
-    reference's residency spans) wait for item 9 and accept only
-    ``None``. ``device`` defaults to the card and raises without one.
+    sharded flush is ROADMAP item 10). ``telemetry`` (a
+    ``repro_torch.telemetry.Telemetry``) and ``clock`` (the event queue,
+    which supplies timestamps) are pure observers: the buffer reports
+    each push and flush as residency spans, bitwise no-perturbation.
+    ``device`` defaults to the card and raises without one.
     """
 
     def __init__(self, capacity: int, decay: str = "poly",
@@ -95,10 +97,6 @@ class StalenessBuffer:
         from repro_torch.core import hfl           # local: avoid cycle
         if capacity < 1:
             raise ValueError(f"buffer capacity must be >= 1, got {capacity}")
-        if telemetry is not None or clock is not None:
-            raise NotImplementedError(
-                "StalenessBuffer(telemetry=..., clock=...): telemetry is "
-                "not ported yet (ROADMAP item 9)")
         self.capacity = int(capacity)
         self.decay = decay
         self.decay_a = float(decay_a)
@@ -106,6 +104,12 @@ class StalenessBuffer:
         self.device = resolve_device(device)
         self._slots: list[_Slot] = []
         self._arrivals = 0
+        self.telemetry = telemetry
+        self.clock = clock
+
+    @property
+    def _now(self) -> float:
+        return float(self.clock.now) if self.clock is not None else 0.0
 
     def __len__(self) -> int:
         return len(self._slots)
@@ -123,6 +127,10 @@ class StalenessBuffer:
                                  weight=float(weight), version=int(version),
                                  arrival=self._arrivals, meta=meta))
         self._arrivals += 1
+        if self.telemetry is not None:
+            self.telemetry.buffer_push(int(edge), self._now, int(version),
+                                       self._arrivals - 1,
+                                       len(self._slots), self.capacity)
 
     def flush(self, version: int, max_staleness: int = 0, anchor=None,
               anchor_weight: float = 0.0):
@@ -152,10 +160,18 @@ class StalenessBuffer:
         if max_staleness > 0:
             keep = tau <= max_staleness
             dropped = [s.edge for s, k in zip(slots, keep) if not k]
+            stale = [(s.arrival, s.edge, int(t))
+                     for s, t, k in zip(slots, tau, keep) if not k]
             slots = [s for s, k in zip(slots, keep) if k]
             tau = tau[keep]
         else:
             dropped = []
+            stale = []
+        if self.telemetry is not None:
+            self.telemetry.buffer_flushed(
+                self._now,
+                [(s.arrival, s.edge, int(t)) for s, t in zip(slots, tau)],
+                stale)
         info = {"edges": [s.edge for s in slots],
                 "staleness": tau.tolist(), "dropped": dropped,
                 "meta": [s.meta for s in slots]}

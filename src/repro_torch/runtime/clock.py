@@ -45,8 +45,9 @@ class EventQueue:
 
     ``observer`` (optional, default None) is notified *after* each
     schedule/pop with the event and the new queue depth. Observers are
-    pure sinks. The port's env leaves it ``None``: the telemetry that
-    observes the queue is not ported yet (ROADMAP item 9).
+    pure sinks (``repro_torch.telemetry.Telemetry``); ``AsyncHFLEnv``
+    sets one only when its telemetry is enabled, so the telemetry-off
+    path stays untouched.
     """
 
     def __init__(self):
@@ -92,8 +93,7 @@ class EventQueue:
         return ev
 
     # ------------------------------------------------------------------
-    # crash-recovery support (the reference's
-    # repro.checkpoint.store.save_runtime; not ported yet, item 9)
+    # crash-recovery support (repro_torch.checkpoint.store.save_runtime)
     # ------------------------------------------------------------------
     def events(self) -> list:
         """Pending events in deterministic (time, seq) order — a copy;

@@ -144,11 +144,12 @@ class FaultInjector:
     All decisions are made in the deterministic event-pop order of the
     clock, so a fixed ``spec`` fixes the whole fault trace. A null spec
     makes no draws at all (``upload_fate`` short-circuits to ``ok``).
-    The reference's ``telemetry`` fate counter comes with ROADMAP item 9.
+    ``telemetry`` (a ``repro_torch.telemetry.Telemetry``, or None) is a
+    pure observer: it counts each fate decision and is never drawn from.
     """
 
     def __init__(self, spec: Optional[FaultSpec], n_edges: int,
-                 seed_offset: int = 0):
+                 seed_offset: int = 0, telemetry=None):
         self.spec = spec or FaultSpec()
         self.n_edges = int(n_edges)
         # seed_offset folds the episode index in, so PPO training sees a
@@ -160,6 +161,7 @@ class FaultInjector:
         self.n_dropped = np.zeros(n_edges, np.int64)
         self.n_retries = np.zeros(n_edges, np.int64)
         self.retry_pending = np.zeros(n_edges, np.int64)
+        self.telemetry = telemetry
 
     # ------------------------------------------------------------------
     def schedule_initial(self, queue) -> None:
@@ -192,6 +194,14 @@ class FaultInjector:
         spec = self.spec
         if not spec.enabled:
             return OK
+        fate = self._decide(edge, attempt, now, first_try)
+        if self.telemetry is not None:
+            self.telemetry.fault_fate(edge, fate)
+        return fate
+
+    def _decide(self, edge: int, attempt: int, now: float,
+                first_try: float) -> str:
+        spec = self.spec
         if self.in_outage[edge]:
             return self._retry_or_drop(edge, attempt, now, first_try)
         if attempt == 0 and self._drop_p[edge] > 0 \
@@ -226,8 +236,7 @@ class FaultInjector:
         return backoff + comm.ec_time_edge(self.rng, edge)
 
     # ------------------------------------------------------------------
-    # the state a runtime checkpoint saves (the reference's
-    # repro.checkpoint.store.save_runtime; not ported yet, item 9)
+    # crash-recovery support (repro_torch.checkpoint.store.save_runtime)
     # ------------------------------------------------------------------
     def state(self) -> dict:
         return {"rng": self.rng.bit_generator.state,

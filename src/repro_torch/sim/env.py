@@ -31,8 +31,15 @@ from global ``version``.
 mode (``repro_torch.device.deterministic_algorithms``): the same seed
 gives the same bank bits on every run on the card too.
 
-Not ported yet, and refused when set: ``EnvConfig.agg`` with a mesh,
-``mesh``, ``telemetry`` and ``health``.
+Observation (``repro_torch.telemetry``): ``EnvConfig.health`` or
+``HFLEnv(health=)`` attaches a :class:`HealthMonitor` whose new events
+ride ``info["health"]``; ``EnvConfig.telemetry`` or
+``AsyncHFLEnv(telemetry=)`` records the async runtime's trace and
+metrics (``info["telemetry"]``). Both only read: on or off, the
+trajectory is bitwise the same.
+
+Not ported yet, and refused when set: ``EnvConfig.agg`` with a mesh
+and ``mesh`` (the multi-GPU bank, ROADMAP item 10).
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ from repro_torch.models import model as model_mod
 from repro_torch.runtime import (AsyncConfig, EventQueue, FaultInjector,
                                  StalenessBuffer, edge_round_cost)
 from repro_torch.sim import hardware
+from repro_torch.telemetry import HealthConfig, HealthMonitor, Telemetry
 
 
 @dataclasses.dataclass
@@ -75,11 +83,16 @@ class EnvConfig:
     # device mobility (paper 2.3)
     churn_prob: float = 0.0
     recluster_every: int = 0
-    # not ported yet: multi-GPU aggregation context, the deprecated mesh
-    # spelling, telemetry and health monitors
+    # not ported yet: multi-GPU aggregation context and the deprecated
+    # mesh spelling (ROADMAP item 10)
     agg: Optional[object] = None
     mesh: Optional[object] = None
+    # observability (repro_torch.telemetry): True builds the async env
+    # with an enabled Telemetry facade; on vs off is bitwise-identical
     telemetry: bool = False
+    # per-run health monitors (repro_torch.telemetry.health): True
+    # attaches a HealthMonitor with the default HealthConfig; its events
+    # ride info["health"]. Observation only: bitwise-identical on vs off
     health: bool = False
     # analytic-mode calibration
     a_max: float = 0.80
@@ -102,7 +115,7 @@ class EnvConfig:
         return self
 
 
-def _refuse_unported(cfg: EnvConfig, health, telemetry=None) -> None:
+def _refuse_unported(cfg: EnvConfig) -> None:
     if cfg.agg is not None and not isinstance(cfg.agg, hfl.AggContext):
         raise NotImplementedError(
             "EnvConfig.agg: only repro_torch.core.hfl.AggContext."
@@ -110,12 +123,6 @@ def _refuse_unported(cfg: EnvConfig, health, telemetry=None) -> None:
     if cfg.mesh is not None:
         raise NotImplementedError("EnvConfig.mesh: the multi-GPU bank is "
                                   "not ported yet (ROADMAP item 10)")
-    if cfg.telemetry or telemetry is not None:
-        raise NotImplementedError("telemetry is not ported yet (ROADMAP "
-                                  "item 9)")
-    if cfg.health or health is not None:
-        raise NotImplementedError("health monitors are not ported yet "
-                                  "(ROADMAP item 9)")
 
 
 class HFLEnv:
@@ -125,8 +132,16 @@ class HFLEnv:
                  init_params: Optional[dict] = None,
                  perm_source: Optional[Callable] = None):
         cfg = cfg.fixup()
-        _refuse_unported(cfg, health)
+        _refuse_unported(cfg)
         self.cfg = cfg
+        # per-run health monitors: an explicit HealthMonitor (or a bare
+        # HealthConfig) wins; else cfg.health toggles the defaults on.
+        # None = disabled, and the health-off path is unchanged
+        if health is None and cfg.health:
+            health = HealthMonitor()
+        elif isinstance(health, HealthConfig):
+            health = HealthMonitor(health)
+        self.health = health
         self.device = resolve_device(cfg.device)
         self.agg_ctx = cfg.agg or hfl.AggContext.single_chip()
         self.rng = np.random.default_rng(cfg.seed)
@@ -216,6 +231,8 @@ class HFLEnv:
         self.acc_hist = []
         self.time_hist = []
         self.episode += 1
+        if self.health is not None:
+            self.health.reset()
         p0 = self._w0()
         if cfg.mode == "real":
             self.bank = hfl.broadcast_model(p0, cfg.n_devices)
@@ -347,7 +364,30 @@ class HFLEnv:
         self.time_hist.append(t_use)
         info = {"acc": self.acc, "energy": e_tot, "t_use": t_use,
                 "t_re": self.t_re, "g1": g1, "g2": g2}
+        self._observe_health(info)
         return self._state(), float(r), bool(done), info
+
+    def _observe_health(self, info: dict, *, flushed: bool = True) -> None:
+        """Feed the (optional) health monitor and surface its new events
+        in ``info["health"]``. Reads only -- no state change, no draw --
+        so health-on vs health-off trajectories are bitwise the same. The
+        bank check reads the global model on its device with one host
+        read. May raise :class:`HealthAbort` when the opt-in abort policy
+        is armed and a critical event fires."""
+        if self.health is None:
+            return
+        bank_finite = None
+        if (flushed and self.cfg.mode == "real"
+                and self.health.cfg.check_bank):
+            vec = getattr(self, "_global_vec", None)
+            leaves = ([vec] if vec is not None    # async: flat global
+                      else list(self.global_model.values()))
+            bank_finite = bool(torch.stack(
+                [torch.isfinite(t).all() for t in leaves]).all())
+        info["health"] = [e.to_dict() for e in self.health.observe(
+            step=self.k,
+            sim_time=self.cfg.threshold_time - self.t_re,
+            acc=self.acc, flushed=flushed, bank_finite=bank_finite)]
 
     # hooks for baselines --------------------------------------------------
     def set_topology(self, edge_assign: np.ndarray) -> None:
@@ -380,6 +420,7 @@ class HFLEnv:
         self.time_hist.append(t_use)
         info = {"acc": self.acc, "energy": e_tot, "t_use": t_use,
                 "t_re": self.t_re}
+        self._observe_health(info)
         return self._state(), float(r), bool(self.t_re < 0), info
 
     @property
@@ -445,8 +486,12 @@ class AsyncHFLEnv(HFLEnv):
     its launch; a flush assigns a new tensor and nothing writes one in
     place, so the snapshot keeps its version.
 
-    ``telemetry`` and ``health`` are not ported yet (ROADMAP item 9):
-    anything but ``None`` raises ``NotImplementedError``.
+    **Observation.** ``telemetry`` (a :class:`Telemetry`; default: an
+    enabled one iff ``EnvConfig.telemetry``) receives the queue's
+    schedule/pop events and every round, upload, retry, fault, buffer
+    and flush hook; ``health`` as in :class:`HFLEnv`. Neither draws or
+    writes runtime state. Crash recovery:
+    ``repro_torch.checkpoint.store.save_runtime`` / ``load_runtime``.
     """
 
     def __init__(self, cfg: EnvConfig, async_cfg=None, faults=None,
@@ -454,13 +499,23 @@ class AsyncHFLEnv(HFLEnv):
                  init_params: Optional[dict] = None,
                  perm_source: Optional[Callable] = None,
                  edge_perm_source: Optional[Callable] = None):
-        _refuse_unported(cfg, health, telemetry)
         super().__init__(cfg, health=health, init_params=init_params,
                          perm_source=perm_source)
         cfg = self.cfg
         self.acfg = async_cfg or AsyncConfig()
         self.buffer_k = self.acfg.buffer_k or cfg.n_edges
         self.faults = faults
+        # an explicit facade wins; else EnvConfig.telemetry toggles one
+        # on. A disabled facade keeps every hook a no-op and the queue
+        # observer None, so the telemetry-off path is unchanged
+        if telemetry is None:
+            telemetry = (Telemetry() if cfg.telemetry
+                         else Telemetry.disabled())
+        self.telemetry = telemetry
+        # the checkpoint store keeps the state of the env's own draws,
+        # not of injected sources
+        self._injected_perms = (perm_source is not None
+                                or edge_perm_source is not None)
         if cfg.mode == "real":
             self._edge_round = hfl.make_edge_round(
                 self._loss_fn, cfg.lr, cfg.batch_size, cfg.n_edges,
@@ -486,8 +541,10 @@ class AsyncHFLEnv(HFLEnv):
         self._staleness = np.zeros(m, np.float32)
         # per-episode fault state: its generator folds the episode index
         # in, so PPO episodes see varied fault traces
+        tm = self.telemetry if self.telemetry.enabled else None
         self._injector = FaultInjector(self.faults, m,
-                                       seed_offset=self.episode)
+                                       seed_offset=self.episode,
+                                       telemetry=tm)
         self._incarnation = np.zeros(m, np.int64)
         self._last_action = [(2, 2)] * m
         super().reset()                 # sync warmup round + PCA fit
@@ -505,9 +562,14 @@ class AsyncHFLEnv(HFLEnv):
             self._edge_w = self._edge_sizes.copy()
         self.queue = EventQueue()
         self.queue.now = cfg.threshold_time - self.t_re  # after warmup
+        # fresh trace per episode; the observer is None when telemetry is
+        # disabled, so pop/schedule stay untouched
+        self.telemetry.begin_episode(self.episode, self.queue.now, m)
+        self.queue.observer = tm
         self.buffer = StalenessBuffer(
             self.buffer_k, decay=self.acfg.decay,
-            decay_a=self.acfg.decay_a, ctx=self.agg_ctx, device=self.device)
+            decay_a=self.acfg.decay_a, ctx=self.agg_ctx, telemetry=tm,
+            clock=self.queue, device=self.device)
         self.n_flushes = 0
         self._edge_version = np.zeros(m, np.int64)
         self._last_time = self.queue.now
@@ -542,6 +604,8 @@ class AsyncHFLEnv(HFLEnv):
                             incarnation=int(self._incarnation[edge]))
         self._edge_version[edge] = self.version
         self._in_flight[edge] = True
+        self.telemetry.round_launched(edge, self.queue.now, cost,
+                                      g1, g2, self.version)
 
     # ------------------------------------------------------------------
     # fault-event handlers (repro_torch.runtime.faults)
@@ -557,6 +621,7 @@ class AsyncHFLEnv(HFLEnv):
         fi.retry_pending[j] = 0
         self._incarnation[j] += 1
         self._in_flight[j] = False
+        self.telemetry.churn(j, self.queue.now, "leave")
 
     def _handle_join(self, j: int) -> None:
         """Mobility churn: edge ``j`` (re)joins. Real mode resyncs only
@@ -569,6 +634,7 @@ class AsyncHFLEnv(HFLEnv):
             return
         fi.alive[j] = True
         self._incarnation[j] += 1
+        self.telemetry.churn(j, self.queue.now, "join")
         if self.cfg.mode == "real":
             self._edge_mat[j] = self._global_vec.to(self._edge_mat.dtype)
             mat = hfl.masked_resync(self._edge_mat,
@@ -606,8 +672,10 @@ class AsyncHFLEnv(HFLEnv):
             kind = ev.kind
             if kind == "outage_start":
                 fi.in_outage[ev.edge] = True
+                self.telemetry.outage(ev.edge, ev.time, started=True)
             elif kind == "outage_end":
                 fi.in_outage[ev.edge] = False
+                self.telemetry.outage(ev.edge, ev.time, started=False)
             elif kind == "leave":
                 self._handle_leave(ev.edge)
             elif kind == "join":
@@ -616,6 +684,7 @@ class AsyncHFLEnv(HFLEnv):
                 pay = ev.payload
                 if pay.get("incarnation", 0) \
                         != int(self._incarnation[ev.edge]):
+                    self.telemetry.ghost_upload(ev.edge, ev.time)
                     continue    # ghost: the edge departed mid-round
                 attempt = pay.get("attempt", 0)
                 first = pay.get("first_try", ev.time)
@@ -625,6 +694,8 @@ class AsyncHFLEnv(HFLEnv):
                     # capped exponential backoff + a fresh comm-model
                     # upload draw prices the retry
                     delay = fi.retry_delay(self.comm, ev.edge, attempt)
+                    self.telemetry.retry_scheduled(ev.edge, ev.time,
+                                                   attempt, delay)
                     self.queue.schedule(
                         delay, ev.edge, kind="upload",
                         **{**pay, "attempt": attempt + 1,
@@ -637,6 +708,12 @@ class AsyncHFLEnv(HFLEnv):
         j, pay, cost = ev.edge, ev.payload, ev.payload["cost"]
         lost = fate == "drop"
         self._in_flight[j] = False
+        if lost:
+            self.telemetry.upload_dropped(j, ev.time, attempt)
+        else:
+            self.telemetry.upload_landed(
+                j, ev.time, pay["version"],
+                self.version - pay["version"], attempt)
         if lost:
             # the round's compute (and energy) is spent, but the update
             # never reaches the cloud: nothing is buffered, and in real
@@ -689,6 +766,7 @@ class AsyncHFLEnv(HFLEnv):
             missing = max(self.buffer_k - len(self.buffer), 0)
             anchor = self._global_vec
             m_w = float(missing * np.mean(self._edge_w))
+        flush_version = self.version
         glob, info = self.buffer.flush(self.version,
                                        self.acfg.max_staleness,
                                        anchor=anchor, anchor_weight=m_w)
@@ -712,6 +790,8 @@ class AsyncHFLEnv(HFLEnv):
         # reset the deadline clock even for a vacuous flush (every slot
         # staleness-dropped) -- otherwise it would re-trigger every event
         self._last_flush_time = self.queue.now
+        self.telemetry.flush_event(self.queue.now, flush_version, info,
+                                   applied, degraded)
 
     def _analytic_flush(self, info) -> float:
         """Analytic-mode accuracy update per flush -- the synchronous
@@ -764,11 +844,15 @@ class AsyncHFLEnv(HFLEnv):
             # the queue drained: every edge departed (mobility churn)
             # and nothing can ever arrive again -- terminal state
             self._deciding = None
+            self.telemetry.fleet_down(self.queue.now)
             info = {"acc": self.acc, "energy": 0.0, "t_use": 0.0,
                     "t_re": self.t_re, "edge": -1, "g1": 0, "g2": 0,
                     "flushed": False, "version": self.version,
                     "staleness": self._staleness.copy(),
                     "fleet_down": True, "dropped": False}
+            self._observe_health(info, flushed=False)
+            if self.telemetry.enabled:
+                info["telemetry"] = self.telemetry.metrics.brief()
             return self._state(), 0.0, True, info
         self._deciding = ev.edge
         cost = ev.payload["cost"]
@@ -782,6 +866,9 @@ class AsyncHFLEnv(HFLEnv):
                 "staleness": self._staleness.copy(),
                 "dropped": self._last_upload_lost,
                 "retries": int(ev.payload.get("attempt", 0))}
+        self._observe_health(info, flushed=self._flushed)
+        if self.telemetry.enabled:
+            info["telemetry"] = self.telemetry.metrics.brief()
         return self._state(), float(r), bool(done), info
 
     # ------------------------------------------------------------------

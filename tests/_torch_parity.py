@@ -121,7 +121,7 @@ def jax_agent_draws(seed: int, action_dim: int):
 
 
 def jax_async_perm_sources(seed: int, max_g2: int, max_g1: int, n: int,
-                           n_local: int):
+                           n_local: int, *, key=None, abase=None):
     """``(perm_source, edge_perm_source)`` for
     ``repro_torch.sim.AsyncHFLEnv`` that replay the reference
     ``AsyncHFLEnv``'s key chain: ``PRNGKey(seed)``; per episode one
@@ -131,15 +131,29 @@ def jax_async_perm_sources(seed: int, max_g2: int, max_g1: int, n: int,
     :func:`jax_round_perms`). ``abase`` is split at the first
     ``edge_perm_source`` call of an episode, or skipped at the next
     warmup if the episode made none, so the chain stays the reference's
-    either way."""
-    state = {"key": jax.random.PRNGKey(seed), "abase": None,
-             "pending": False, "cache": {}}
+    either way.
+
+    With ``key`` and ``abase`` (the chain a reference runtime snapshot
+    saved, for ``repro_torch.checkpoint.store.load_runtime``) the sources
+    continue that chain instead: the first ``perm_source`` call, the
+    warmup round of the load's ``reset`` (which the load overwrites),
+    draws from a throwaway key; after it edge rounds draw from
+    ``fold_in(abase, v)`` and the next episode's warmup splits ``key``."""
+    resumed = key is not None
+    state = {"key": jax.random.PRNGKey(seed) if not resumed
+             else jax.numpy.asarray(key),
+             "abase": None if not resumed else jax.numpy.asarray(abase),
+             "pending": False, "cache": {}, "throwaway": resumed}
 
     def next_key():
         state["key"], sub = jax.random.split(state["key"])
         return sub
 
     def perm_source():
+        if state["throwaway"]:
+            state["throwaway"] = False
+            return torch.from_numpy(jax_round_perms(
+                jax.random.PRNGKey(0), max_g2, max_g1, n, n_local))
         if state["pending"]:            # the last episode's abase, unused
             next_key()
         out = jax_round_perms(next_key(), max_g2, max_g1, n, n_local)

@@ -32,18 +32,21 @@ from repro_torch.models import model
 from repro_torch.runtime import (AsyncConfig, ChurnEvent, FaultSpec,
                                  Outage, StalenessBuffer)
 from repro_torch.sim import AsyncHFLEnv, EnvConfig, env
+from repro_torch.telemetry import HealthMonitor, Telemetry
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 G1, G2 = np.array([2, 1, 3]), np.array([1, 2, 2])
 MAX_G1, MAX_G2 = 3, 2
-# The MNIST CNN's edge round against its row of the cloud round: the
-# trainer takes vmap(grad) over the active rows only, and the conv weight
-# gradients of a grouped (vmapped) convolution depend on how many rows
-# one call holds (oneDNN picks its algorithm by group count). An edge
-# round holds one edge's rows, the cloud round all of them in an epoch
-# every device runs. Measured on these inputs (CPU): 5.96e-8 on the edge
-# vectors and 2.98e-8 on the flush; the bound is the measurement rounded
-# up (ROADMAP section 3, fault 2).
+# The MNIST CNN's edge round against its row of the cloud round in plain
+# mode (deterministic=False) only: there the trainer takes vmap(grad) over
+# the active rows only, and the conv weight gradients of a grouped
+# (vmapped) convolution depend on how many rows one call holds (oneDNN
+# picks its algorithm by group count). An edge round holds one edge's
+# rows, the cloud round all of them in an epoch every device runs.
+# Measured on these inputs (CPU): 5.96e-8 on the edge vectors and 2.98e-8
+# on the flush; the bound is the measurement rounded up (ROADMAP section
+# 3, fault 2). Rounds built with deterministic=True train all N rows in
+# every epoch, as the reference does, and are held bitwise.
 SUBSET_BOUND = 1e-7
 ANALYTIC = dict(task="mnist", mode="analytic", n_devices=20, n_edges=4,
                 threshold_time=400.0, seed=0)
@@ -124,17 +127,22 @@ def test_edge_round_matches_reference(kind):
                      jflatbank.bank_spec(jb).flatten(jb), atol=1e-5)
 
 
-@pytest.mark.parametrize("kind", ["quad", "mnist"])
+@pytest.mark.parametrize("kind", ["quad", "mnist", "quad-deterministic",
+                                  "mnist-deterministic"])
 def test_edge_rounds_are_rows_of_the_cloud_round(kind):
     """Port-internal contract, gamma1 [2, 1, 3], gamma2 [1, 2, 2], one set
     of shuffles: each edge round from a bank of distinct rows and the
     snapshot w returns row j of the cloud round's edge matrix (the cloud
     round starts every row at w), leaves the other edges' rows bitwise
     untouched, and a zero-decay K = 3 flush of the three returns the
-    cloud round's global model. Bitwise for the quadratic fixture; within
-    SUBSET_BOUND for the MNIST CNN (fault 2). Against a cloud round in
-    which only edge j trains, and the flush against Eq. 2 of its inputs,
-    bitwise for both."""
+    cloud round's global model. Bitwise for the quadratic fixture and, in
+    deterministic mode (every epoch trains all N rows), for the MNIST CNN;
+    within SUBSET_BOUND for the MNIST CNN in plain mode (fault 2). Against
+    a cloud round in which only edge j trains, and the flush against Eq. 2
+    of its inputs, bitwise for all."""
+    kind, _, mode = kind.partition("-")
+    det = mode == "deterministic"
+    bitwise = kind == "quad" or det
     bank, x, y, sizes, seg, _, loss, lr, bs = _round_inputs(kind)
     n, n_local = x.shape[:2]
     x, y, sizes, seg = map(torch.from_numpy, (x, y, sizes, seg))
@@ -145,11 +153,13 @@ def test_edge_rounds_are_rows_of_the_cloud_round(kind):
     start = weights.bank_from_numpy(bank, "cpu")
     spec = flatbank.bank_spec(start)
     gvec = spec.flatten(start)[1].clone()
-    cloud = hfl.make_cloud_round(loss, lr, bs, 3, MAX_G1, MAX_G2)
+    cloud = hfl.make_cloud_round(loss, lr, bs, 3, MAX_G1, MAX_G2,
+                                 deterministic=det)
     _, glob, em = cloud(hfl.broadcast_model(spec.unflatten_model(gvec), n),
                         x, y, sizes, seg, G1, G2, perms)
     em = spec.flatten(em)
-    er = hfl.make_edge_round(loss, lr, bs, 3, MAX_G1, MAX_G2)
+    er = hfl.make_edge_round(loss, lr, bs, 3, MAX_G1, MAX_G2,
+                             deterministic=det)
     edge_w = ref.segment_weight_sums(sizes, seg, 3)
     buf = StalenessBuffer(3, decay="none", device="cpu")
     vecs = []
@@ -161,12 +171,12 @@ def test_edge_rounds_are_rows_of_the_cloud_round(kind):
         other = seg != j
         assert torch.equal(after[other], before[other])
         assert not torch.equal(after[~other], before[~other])
-        if kind == "quad":
+        if bitwise:
             assert torch.equal(vec, em[j])
         else:
             assert_close(vec, em[j], atol=SUBSET_BOUND)
         # a cloud round in which only edge j trains takes vmap(grad) over
-        # the same rows as the edge round: row j bitwise for both models
+        # the same rows as the edge round: row j bitwise in both modes
         alone = np.arange(3) == j
         _, _, em_j = cloud(hfl.broadcast_model(spec.unflatten_model(gvec),
                                                n), x, y, sizes, seg,
@@ -182,7 +192,7 @@ def test_edge_rounds_are_rows_of_the_cloud_round(kind):
                           1)[0]
     assert torch.equal(flush, eq2)
     want = spec.flatten_model(glob)
-    if kind == "quad":
+    if bitwise:
         assert torch.equal(flush, want)
     else:
         assert_close(flush, want, atol=SUBSET_BOUND)
@@ -502,12 +512,15 @@ def test_async_arena_trains_and_runs_as_reference():
 
 
 def test_async_env_refuses_unported_options_and_defaults_to_the_card():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu"), telemetry=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu"), health=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu", telemetry=True))
+    tm, hm = Telemetry(), HealthMonitor()
+    pe = AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu"), telemetry=tm,
+                     health=hm)
+    assert pe.telemetry is tm and pe.health is hm
+    pe = AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu", telemetry=True,
+                               health=True))
+    assert pe.telemetry.enabled and isinstance(pe.health, HealthMonitor)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu", mesh=object()))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             AsyncHFLEnv(EnvConfig(**ANALYTIC))
@@ -516,4 +529,6 @@ def test_async_env_refuses_unported_options_and_defaults_to_the_card():
     pe = AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu"))
     assert pe.buffer_k == 4 and pe.action_dim == 2
     assert pe.reset().shape == pe.state_shape == (5, 15)
+    assert not pe.telemetry.enabled and pe.health is None
+    assert pe.queue.observer is None
     assert env.AsyncHFLEnv is AsyncHFLEnv

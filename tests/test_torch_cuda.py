@@ -7,12 +7,14 @@ the CPU. Marked ``cuda``: each test skips (from inside the
 
 Imports no JAX, so it runs on a host without it.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.core import hfl
 from repro_torch.core.agent import ppo
@@ -21,6 +23,9 @@ from repro_torch.device import disable_tf32
 from repro_torch.kernels import _build, flash_attention, hier_agg, ops, ref
 from repro_torch.models import model
 from repro_torch.models.rwkv import wkv_scan
+from repro_torch.runtime import AsyncConfig, FaultSpec
+from repro_torch.sim import AsyncHFLEnv, EnvConfig
+from repro_torch.telemetry import MetricsRegistry, ktime
 
 pytestmark = pytest.mark.cuda
 
@@ -356,18 +361,12 @@ def test_edge_round_on_card_matches_cpu(cuda_dev):
         torch.testing.assert_close(gpu_t, cpu_t, rtol=1e-4, atol=1e-5)
 
 
-# the edge round against its cloud-round row on the card in
-# deterministic mode; the subset fault of the CPU (ROADMAP section 3,
-# fault 2) shows on the card too when cuDNN's grouped-conv algorithm
-# depends on the group count
-CARD_EDGE_ROW_TOL = 1e-5
-
-
 def test_edge_round_is_its_cloud_round_row_on_card_deterministic(cuda_dev):
     """Deterministic mode on the card, MNIST CNN, gamma1 [2, 1, 3],
     gamma2 [1, 2, 2]: two runs of each edge round bitwise equal, and its
-    vector within CARD_EDGE_ROW_TOL of row j of one cloud round started
-    at the snapshot with the same shuffles."""
+    vector bitwise row j of one cloud round started at the snapshot with
+    the same shuffles (every epoch trains all N rows, so a row's result
+    depends on nothing but its own parameters and batch)."""
     loss = lambda p, b: model.cnn_loss(model.mnist_cnn_apply, p, b)
     g1, g2 = np.array([2, 1, 3]), np.array([1, 2, 2])
     bank, x, y, perms, ea, sizes = _edge_inputs(cuda_dev)
@@ -384,9 +383,119 @@ def test_edge_round_is_its_cloud_round_row_on_card_deterministic(cuda_dev):
         vecs = [er(spec.unflatten(mat0.clone()), x, y, sizes, ea, j, g1[j],
                    g2[j], gvec, perms)[1] for _ in range(2)]
         assert torch.equal(vecs[0], vecs[1])
-        torch.testing.assert_close(vecs[0], em[j], rtol=0,
-                                   atol=CARD_EDGE_ROW_TOL)
+        assert torch.equal(vecs[0], em[j]), float(
+            (vecs[0] - em[j]).abs().max())
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_ktime_times_card_calls_and_leaves_outputs_bitwise(cuda_dev):
+    """``ktime`` on CUDA tensors: inside ``kernel_timing`` each
+    ``ops.segment_agg`` / ``ops.segment_broadcast`` call is counted once
+    with a positive device time (CUDA events), the outputs are bitwise
+    the untimed ones, the launch counts are unchanged, and calls made
+    while a CUDA graph is captured are dispatched untimed."""
+    bank, w, seg = _inputs(cuda_dev, 50, 456906, 5, torch.float32)
+    base_agg = ops.segment_agg(bank, w, seg, 5)
+    base_bc = ops.segment_broadcast(base_agg, seg)
+    reg = MetricsRegistry()
+    hier_agg.reset_launches()
+    with ktime.kernel_timing(reg):
+        agg = ops.segment_agg(bank, w, seg, 5)
+        bc = ops.segment_broadcast(agg, seg)
+        assert ktime.active_registry() is reg
+    assert ktime.active_registry() is None
+    assert torch.equal(agg, base_agg) and torch.equal(bc, base_bc)
+    assert hier_agg.LAUNCHES["segment_agg"] == 1
+    assert hier_agg.LAUNCHES["segment_broadcast"] == 1
+    for k in ("segment_agg", "segment_broadcast"):
+        assert reg.counters[f"kernel/{k}_calls"] == 1
+        (us,) = reg.hists[f"kernel/{k}_us"]
+        assert 0.0 < us < 1e5, (k, us)
+    out = torch.empty_like(base_bc)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.segment_broadcast(base_agg, seg, out=out)      # warm up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with ktime.kernel_timing(reg), torch.cuda.graph(graph):
+        ops.segment_broadcast(base_agg, seg, out=out)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, base_bc)
+    assert reg.counters["kernel/segment_broadcast_calls"] == 1
+
+
+# the async env at the paper's MNIST width on the card, deterministic
+# mode, with faults: telemetry on vs off and a save/load resume
+CARD_ASYNC = dict(task="mnist", mode="real", threshold_time=400.0,
+                  deterministic=True)
+CARD_FAULTS = dict(drop_prob=0.15, transient_prob=0.2, seed=9)
+
+
+def _card_async_env(**kw):
+    return AsyncHFLEnv(EnvConfig(**CARD_ASYNC, **kw),
+                       AsyncConfig(buffer_k=2, flush_deadline=40.0),
+                       faults=FaultSpec(**CARD_FAULTS))
+
+
+def _card_steps(env, n):
+    out = []
+    for _ in range(n):
+        _, r, _, info = env.step(np.array([2.0, 2.0]))
+        out.append((float(r), float(info["acc"]), info["edge"],
+                    info["flushed"]))
+    return out
+
+
+def test_async_telemetry_on_card_is_bitwise_off_deterministic(cuda_dev):
+    """MNIST defaults (50 devices, 5 edges), deterministic mode, faults:
+    8 events with telemetry, health and ``ktime`` on against the same
+    with all off -- events, global vector and bank bitwise equal, and
+    ``ktime``'s call counts equal to the launch counts."""
+    runs = {}
+    for on in (False, True):
+        env = _card_async_env(telemetry=on, health=on)
+        reg = MetricsRegistry()
+        hier_agg.reset_launches()
+        with (ktime.kernel_timing(reg) if on else contextlib.nullcontext()):
+            env.reset()
+            traj = _card_steps(env, 8)
+        runs[on] = (traj, env, dict(hier_agg.LAUNCHES), reg)
+    (t_off, e_off, _, _), (t_on, e_on, launches, reg) = runs[False], \
+        runs[True]
+    assert e_on.device == cuda_dev and len(e_on.telemetry.recorder) > 0
+    assert t_on == t_off
+    assert torch.equal(e_on._global_vec, e_off._global_vec)
+    assert torch.equal(e_on._spec.flatten(e_on.bank),
+                       e_off._spec.flatten(e_off.bank))
+    for k in ("segment_agg", "segment_broadcast"):
+        assert reg.counters[f"kernel/{k}_calls"] == launches[k] > 0
+
+
+def test_async_save_load_resumes_on_card_bitwise_deterministic(cuda_dev,
+                                                               tmp_path):
+    """MNIST defaults, deterministic mode, faults, telemetry and health on:
+    ``save_runtime`` after 5 events, ``load_runtime`` into a fresh env on
+    the card, 5 more events bitwise the uninterrupted run's (events,
+    global vector, bank, trace), every restored tensor on the card."""
+    env = _card_async_env(telemetry=True, health=True)
+    env.reset()
+    _card_steps(env, 5)
+    path = str(tmp_path / "rt")
+    store.save_runtime(env, path)
+    tail = _card_steps(env, 5)
+    env2 = _card_async_env(telemetry=True, health=True)
+    store.load_runtime(env2, path)
+    assert env2._global_vec.device == cuda_dev
+    assert env2._spec.flatten(env2.bank).device == cuda_dev
+    assert all(s.vec is None or s.vec.device == cuda_dev
+               for s in env2.buffer._slots)
+    assert _card_steps(env2, 5) == tail
+    assert torch.equal(env2._global_vec, env._global_vec)
+    assert torch.equal(env2._spec.flatten(env2.bank),
+                       env._spec.flatten(env.bank))
+    assert env2.telemetry.recorder.events == env.telemetry.recorder.events
 
 
 def test_agent_update_on_card_matches_cpu(cuda_dev):

@@ -20,6 +20,7 @@ from repro_torch.runtime import (AsyncConfig, ChurnEvent, EventQueue,
                                  StalenessBuffer, buffer, clock, faults,
                                  edge_round_cost, staleness_scale)
 from repro_torch.sim import hardware
+from repro_torch.telemetry import Telemetry
 
 # the flush (plain segment_agg: f32 sums times the reciprocal weight sum)
 # against the numpy oracles (f32 sums divided by the weight sum)
@@ -293,10 +294,26 @@ def test_buffer_flush_is_one_segment_agg_of_the_stack():
 
 
 def test_buffer_refuses_unported_options_and_defaults_to_the_card():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        StalenessBuffer(2, telemetry=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        StalenessBuffer(2, clock=EventQueue(), device="cpu")
+    # telemetry and clock are ported observers: a push and a flush report
+    # residency spans at the clock's time, and the flush is unchanged
+    tm, clock = Telemetry(), EventQueue()
+    tm.begin_episode(1, 0.0, 2)
+    buf = StalenessBuffer(2, decay="none", telemetry=tm, clock=clock,
+                          device="cpu")
+    vecs, _ = _vecs(2, 2, 7)
+    clock.now = 3.0
+    for j in range(2):
+        buf.push(j, vecs[j], 1.0, version=0)
+    clock.now = 5.0
+    glob, _ = buf.flush(version=1)
+    plain = _cpu_buffer(2, decay="none")
+    for j in range(2):
+        plain.push(j, vecs[j], 1.0, version=0)
+    assert torch.equal(glob, plain.flush(version=1)[0])
+    spans = [e for e in tm.recorder.events if e["name"] == "buffer"]
+    assert [(e["ts"], e["dur"], e["args"]["staleness"]) for e in spans] \
+        == [(3.0e6, 2.0e6, 1)] * 2
+    assert tm.metrics.hists["staleness_at_flush"] == [1.0, 1.0]
     with pytest.raises(TypeError):
         StalenessBuffer(2, ctx=object(), device="cpu")
     assert StalenessBuffer(2, ctx=hfl.AggContext.single_chip(),

@@ -123,15 +123,15 @@ def test_registry_matches_reference_and_rejects_bad_calls():
         sync.run_scheme("async-fedavg", pe)
     with pytest.raises(KeyError, match="unknown scheme"):
         sync.run_scheme("fedprox", pe)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sync.run_scheme("vanilla-hfl", pe, ledger=True)
+    with pytest.raises(KeyError, match="unknown scheme"):
+        sync.run_scheme("fedprox", pe, ledger=True)   # before recording
     h = sync.run_vanilla_hfl(pe, g1=2)          # wrapper: g2 from registry
     jh = jsync.run_vanilla_hfl(jenv.HFLEnv(jenv.EnvConfig(**ANALYTIC)),
                                g1=2)
     assert h["acc"] == jh["acc"]
     pe = env.HFLEnv(env.EnvConfig(**ANALYTIC, device="cpu"))
     h = sync.run_scheme("vanilla-hfl", pe, ledger=False, g1=2)
-    assert h["acc"] == jh["acc"]
+    assert h["acc"] == jh["acc"] and "ledger_run_id" not in h
 
 
 def test_fedavg_round_syncs_to_participating_mean():
