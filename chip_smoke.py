@@ -81,6 +81,28 @@ Phases, each fatal on failure (the script exits non-zero):
    deterministic: ``run_scheme("async-fedavg", g1=1, g2=1,
    ledger=RunLedger(tmpdir))`` for 5 events, its rows read back with
    ``load_run``, ``final_acc`` bitwise the same run's without a ledger;
+3f. the row-sharded bank over ``torch.distributed``
+   (``repro_torch.launch.mesh``, ``hfl.AggContext.for_mesh``,
+   ``ops.segment_agg_sharded``), on a 90 s budget: (a) NCCL, one rank in
+   this process: the paper's CIFAR ``HFLEnv`` (5 edges of 10 contiguous
+   devices) in deterministic mode, its warmup cloud round at (2, 2)
+   under ``make_bank_context(1)`` bitwise the one-device round, launches
+   as the round implies; (b) gloo, 5 and then 2 ranks spawned on the one
+   card (NCCL refuses two ranks on one device): CIFAR Eq. 1 (50 x
+   456,906) through ``segment_agg_sharded`` on each rank's rows bitwise
+   the single launch on the whole bank at 5 ranks (one edge per rank);
+   at 2 ranks edge 2 spans the ranks and is held within 1e-5, the others
+   bitwise; every rank within 1e-5 of the plain version
+   (``ref.segment_agg_sharded_ref``) with one launch; the shard-local
+   ``masked_resync`` of one alive edge bitwise the one-device resync
+   and the plain gather (``ref.segment_broadcast_ref``) at 10 and 25
+   rows; at 5 ranks the
+   deterministic CIFAR warmup round against (a)'s one-device round:
+   bitwise, or its gap printed and held within 5e-3; each rank holding
+   10 bank rows. It prints the per-rank graph-timed
+   ``segment_sum_partial`` at 10 and 25 rows beside its bound and the
+   gloo ``all_reduce`` time: ranks sharing one card, which says nothing
+   of multi-GPU scaling;
 2b. hold ``flash_attention`` and ``wkv6`` against their plain versions
    on the card, in bf16 and f32, at the serving path's shapes (qwen3-1.7b
    prefill and decode, rwkv6-1.6b prefill) plus ragged, windowed, MHA,
@@ -100,7 +122,8 @@ Phases, each fatal on failure (the script exits non-zero):
 4. kernel times at the main path's shapes (CIFAR and MNIST, Eq. 1 with
    its resync and Eq. 2, and the flushes with ``torch.mv`` as the
    library call; the JSON line has CIFAR and MNIST Eq. 1 rows and the
-   CIFAR flush row for ``segment_agg``): device time per launch from CUDA events around
+   CIFAR flush row for ``segment_agg``, and phase 3f's sharded Eq. 1
+   row): device time per launch from CUDA events around
    a CUDA-graph replay, beside the plain version's, one PyTorch library
    call's, the bound (bytes over 3.35 TB/s), and the eager wrapper's
    time per call as the round pays it (host dispatch included);
@@ -1202,6 +1225,247 @@ def observability(torch, ops, env_mod, runtime, sync, telemetry, store,
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: the sharded bank
+# ---------------------------------------------------------------------------
+
+# an edge whose rows span ranks splits its chain of sums at the
+# all_reduce: f32 summation order
+SHARD_SPAN_TOL = 1e-5
+# a deterministic CIFAR round at 5 ranks against one process, if not
+# bitwise: each rank's vmapped convolutions hold 10 rows where the one
+# process's hold 50, and cuDNN may pick its algorithm by group count;
+# the subset trainer showed up to 2.0e-3 from that cause on the H100
+# (ROADMAP section 3, fault 2)
+SHARD_ROUND_TOL = 5e-3
+SHARD_EDGES = 5                 # the CIFAR default: 5 edges of 10 devices
+SHARD_WORLDS = (5, 2)           # one edge per rank; edge 2 spans ranks
+SHARD_BUDGET_S = 90.0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _cifar_shard_env(env_mod, ctx):
+    """The paper's CIFAR ``HFLEnv`` in deterministic mode under ``ctx``
+    (None: one device), its 50 devices on 5 edges of 10 contiguous rows:
+    one edge per rank at 5 ranks."""
+    env = env_mod.HFLEnv(env_mod.EnvConfig(task="cifar", mode="real",
+                                           deterministic=True, agg=ctx))
+    n = env.cfg.n_devices
+    env.set_topology(np.repeat(np.arange(SHARD_EDGES), n // SHARD_EDGES))
+    return env
+
+
+def _shard_reset(torch, ops, flatbank, env) -> dict:
+    """``env.reset()`` (its warmup cloud round at (2, 2)) with the launch
+    counts set to 0 just before and read just after, held to what the
+    round implies; returns the global vector, this rank's bank rows and
+    the wall."""
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    env.reset()
+    wall = sync_time(torch) - t0
+    counts = dict(ops.LAUNCHES)
+    g = np.full(SHARD_EDGES, 2)
+    want = expected_launches([(g, g)], env.cfg.gamma_max)
+    check(counts == want, f"phase 3f: launch counts {counts} != {want}")
+    spec = flatbank.model_spec(env.global_model)
+    return {"gvec": spec.flatten_model(env.global_model).clone(),
+            "bank": flatbank.bank_spec(env.bank).flatten(env.bank).clone(),
+            "acc": env.acc, "wall": wall, "counts": counts,
+            "rows": sorted({int(v.shape[0]) for v in env.bank.values()})}
+
+
+def _shard_aggregation(torch, dist, hfl, hier_agg, ops, ref, ctx,
+                       world: int) -> dict:
+    """On every rank of a gloo group sharing the card: CIFAR Eq. 1 (50 x
+    456,906, 5 contiguous edges, random weights) through
+    ``segment_agg_sharded`` on this rank's rows against the single launch
+    on the whole bank (bitwise at 5 ranks; at 2, edge 2 within
+    SHARD_SPAN_TOL and the others bitwise) and against the plain version,
+    one launch per call; the shard-local ``masked_resync`` with one alive
+    edge bitwise the one-device resync and the plain gather
+    (``ref.segment_broadcast_ref``) at this rank's rows; rank 0 graph-times the partial
+    launch at this rank's shape while the others wait; every rank times
+    the (5, P) ``all_reduce``."""
+    dev, rank = ctx.mesh.device, ctx.mesh.rank
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, p, e = 50, 456906, SHARD_EDGES
+    bank = torch.randn((n, p), generator=gen, device=dev)
+    w = torch.rand((n,), generator=gen, device=dev) * 2 + 0.5
+    seg = torch.repeat_interleave(torch.arange(e, device=dev),
+                                  n // e).to(torch.int32)
+    single = hier_agg._launch_segment_agg(bank, w, seg, e, normalize=True)[0]
+    lb, lw, ls = ctx.place_rows(bank), ctx.place_rows(w), ctx.place_rows(seg)
+    ops.reset_launches()
+    got = ops.segment_agg_sharded(lb, lw, ls, e, ctx.mesh.group)
+    launches = ops.LAUNCHES["segment_agg"]
+    check(launches == 1, f"phase 3f: segment_agg_sharded made {launches} "
+          f"launches")
+    plain = ref.segment_agg_sharded_ref(lb, lw, ls, e, ctx.mesh.group)
+    err = float((got - plain).abs().max())
+    check(torch.allclose(got, plain, atol=AGG_TOL, rtol=AGG_TOL),
+          f"phase 3f: {world} ranks, kernel vs plain max|err| {err:.3e}")
+    gap = float((got - single).abs().max())
+    if world == e:
+        check(torch.equal(got, single), f"phase 3f: {world} ranks, sharded "
+              f"Eq. 1 is not bitwise the single launch ({gap:.3e})")
+    else:
+        span = 2                    # rows 20-29 on ranks 0 and 1 of 2
+        keep = [j for j in range(e) if j != span]
+        check(torch.equal(got[keep], single[keep]), "phase 3f: an edge on "
+              "one rank is not bitwise the single launch")
+        check(torch.allclose(got[span], single[span], atol=SHARD_SPAN_TOL,
+                             rtol=SHARD_SPAN_TOL), f"phase 3f: the spanning "
+              f"edge is {gap:.3e} off the single launch")
+    edge_mat = torch.randn((e, p), generator=gen, device=dev)
+    alive = np.arange(e) == 2
+    want = hfl.masked_resync(edge_mat, bank, seg, alive)[
+        ctx.check_rows(n) * rank:ctx.check_rows(n) * (rank + 1)]
+    resync = hfl.masked_resync(edge_mat, lb, ls, alive, ctx=ctx)
+    check(torch.equal(resync, want), "phase 3f: the shard-local resync "
+          "differs from the one-device resync")
+    keep = torch.as_tensor(alive, device=dev)[ls.long()]
+    check(torch.equal(resync, torch.where(
+        keep[:, None], ref.segment_broadcast_ref(edge_mat, ls, lb.dtype),
+        lb)), f"phase 3f: the shard-local resync ({lb.shape[0]} rows) "
+          f"differs from the plain gather")
+    del bank, single
+    out = {"err": err, "gap": gap, "rows": int(lb.shape[0])}
+    dist.barrier()
+    if rank == 0:
+        ones = torch.ones((e,), device=dev)
+        onehot = (ls[None, :].long() == torch.arange(e, device=dev)[:, None])
+        a_mat = onehot.float() * lw[None, :]
+        out["ms"] = min(graph_ms(torch, lambda: hier_agg._launch_segment_agg(
+            lb, lw, ls, e, normalize=False, with_wsum=True)) for _ in range(2))
+        out["plain_ms"] = graph_ms(torch, lambda: (
+            ref.segment_weight_sums(lw, ls, e),
+            ref.segment_scaled_sum_ref(lb, lw, ls, ones, e)))
+        out["library_ms"] = graph_ms(torch, lambda: torch.mm(a_mat, lb))
+        nbytes = 4 * (lb.numel() + 2 * lb.shape[0] + e * p + e)
+        out["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        out["mb"] = nbytes / 1e6
+    dist.barrier()
+    buf = torch.zeros((e, p), device=dev)
+    walls = []
+    for _ in range(6):
+        t0 = sync_time(torch)
+        dist.all_reduce(buf, group=ctx.mesh.group)
+        walls.append(sync_time(torch) - t0)
+    out["allreduce_ms"] = float(np.median(walls[1:]) * 1e3)
+    return out
+
+
+def _shard_rank(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of phase 3f (b), a ``torch.multiprocessing.spawn``
+    target: a gloo group of ``world`` ranks on the one card; writes its
+    results to ``outdir/rank<r>.pt``."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import flatbank, hfl
+    from repro_torch.kernels import hier_agg, ops, ref
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sim import env as env_mod
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        ctx = mesh_lib.make_bank_context(world)
+        res = _shard_aggregation(torch, dist, hfl, hier_agg, ops, ref, ctx,
+                                 world)
+        if world == SHARD_EDGES:
+            res["env"] = _shard_reset(torch, ops, flatbank,
+                                      _cifar_shard_env(env_mod, ctx))
+        torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_bank(torch, ops, env_mod, flatbank, mesh_lib) -> dict:
+    """Phase 3f: (a) NCCL, one rank, in this process; (b) gloo, 5 and 2
+    ranks spawned on the one card. Returns the JSON row's numbers."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        single = _shard_reset(torch, ops, flatbank,
+                              _cifar_shard_env(env_mod, None))
+        nccl = _shard_reset(torch, ops, flatbank, _cifar_shard_env(
+            env_mod, mesh_lib.make_bank_context(1)))
+    finally:
+        dist.destroy_process_group()
+    same = (torch.equal(nccl["gvec"], single["gvec"])
+            and torch.equal(nccl["bank"], single["bank"])
+            and nccl["acc"] == single["acc"])
+    check(same, "phase 3f (a): the NCCL one-rank round is not bitwise the "
+          "one-device round")
+    print(f"  (a) NCCL, one rank: CIFAR deterministic warmup round (2, 2), "
+          f"50 x 456,906, bitwise the one-device round (acc "
+          f"{single['acc']:.4f}); walls one device {single['wall']:.3f} s, "
+          f"one rank {nccl['wall']:.3f} s; launches {nccl['counts']}")
+    ranks = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        for world in SHARD_WORLDS:
+            t0 = time.perf_counter()
+            mp.spawn(_shard_rank, args=(world, _free_port(), d),
+                     nprocs=world, join=True)
+            ranks[world] = [torch.load(os.path.join(d, f"rank{r}.pt"))
+                            for r in range(world)]
+            print(f"  (b) gloo, {world} ranks sharing the card: spawned and "
+                  f"ran in {time.perf_counter() - t0:.1f} s")
+    for world, res in ranks.items():
+        r0 = res[0]
+        held = "bitwise" if world == SHARD_EDGES else \
+            f"edge 2 within {SHARD_SPAN_TOL}, the others bitwise"
+        print(f"    {world} ranks: Eq. 1 sharded vs single launch max|diff| "
+              f"{max(r['gap'] for r in res):.3e} ({held}), vs plain "
+              f"{max(r['err'] for r in res):.3e}; per-rank "
+              f"segment_sum_partial ({r0['rows']} x 456,906 -> 5): "
+              f"{r0['ms']:.4f} ms graph-timed, bound "
+              f"{r0['bound_ms'] * 1e3:.2f} us ({r0['mb']:.1f} MB, "
+              f"{r0['bound_ms'] / r0['ms'] * 100:.1f}% of bound), plain "
+              f"{r0['plain_ms']:.4f} ms, torch.mm "
+              f"{r0['library_ms']:.4f} ms; all_reduce of (5, 456,906) f32 "
+              f"over gloo median {r0['allreduce_ms']:.3f} ms")
+    envs = [r["env"] for r in ranks[SHARD_EDGES]]
+    check(all(e["rows"] == [10] for e in envs),
+          "phase 3f (b): a rank holds more than N/5 bank rows")
+    gvecs = [e["gvec"] for e in envs]
+    check(all(torch.equal(g, gvecs[0]) for g in gvecs),
+          "phase 3f (b): the ranks' global models differ")
+    bank = torch.cat([e["bank"] for e in envs]).to(single["bank"].device)
+    gvec = gvecs[0].to(single["gvec"].device)
+    bitwise = torch.equal(gvec, single["gvec"]) and torch.equal(
+        bank, single["bank"])
+    gap = max(float((gvec - single["gvec"]).abs().max()),
+              float((bank - single["bank"]).abs().max()))
+    print(f"    5 ranks: CIFAR deterministic warmup round (2, 2) vs one "
+          f"process: bitwise {bitwise} (max|diff| {gap:.3e}; acc "
+          f"{envs[0]['acc']:.4f} vs {single['acc']:.4f}); wall per rank "
+          f"{np.median([e['wall'] for e in envs]):.3f} s (median), "
+          f"launches per rank {envs[0]['counts']}")
+    check(bitwise or gap <= SHARD_ROUND_TOL, f"phase 3f (b): the 5-rank "
+          f"round is {gap:.3e} off the one-process round (> "
+          f"{SHARD_ROUND_TOL})")
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 3f took {wall:.1f} s (budget {SHARD_BUDGET_S:.0f} s); "
+          f"ranks sharing one card say nothing of multi-GPU scaling")
+    r0 = ranks[SHARD_EDGES][0]
+    return {"launches": sum(e["counts"]["segment_agg"] for e in envs),
+            "max_abs_err": max(r["err"] for r in ranks[SHARD_EDGES]),
+            "ms": r0["ms"], "plain_ms": r0["plain_ms"],
+            "bound_ms": r0["bound_ms"], "bound_by": "bytes",
+            "library_ms": r0["library_ms"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -1837,6 +2101,10 @@ def main() -> int:
                              store, env_mod.EnvConfig(task="cifar",
                                                       mode="real"))
 
+    print(f"phase 3f: the sharded bank over torch.distributed ({smi})")
+    from repro_torch.launch import mesh as mesh_lib
+    sharded = sharded_bank(torch, ops, env_mod, flatbank, mesh_lib)
+
     print("phase 3b: the LLM serving path")
     disable_tf32()
     small_serve_check(torch, configs, model, dev)
@@ -1848,6 +2116,12 @@ def main() -> int:
           "replay of 50 calls (kernel and plain each twice, in turns); "
           "the eager wrapper call is 50 back-to-back calls")
     rows = timings(torch, hier_agg, ops, ref, dev, runs, err)
+    # the sharded Eq. 1: one rank's partial launch (10 of 50 rows) in
+    # phase 3f (b), its launches those of the 5 ranks' warmup rounds
+    rows.append(dict(name="segment_agg", route="cuda",
+                     source=KERNEL_SRC["segment_agg"],
+                     replaces=REPLACES["segment_agg"],
+                     shape="cifar-eq1-sharded-k5", **sharded))
     cifar_eq1 = {r["name"]: r["ms"] for r in rows
                  if r["shape"] == "cifar-eq1"}
     print(f"  phase 3e's in-program ktime medians (CUDA events around each "

@@ -158,6 +158,14 @@ def _dec_map(d: dict, data, device: torch.device) -> dict:
     return {k: _dec_val(v, data, device) for k, v in d.items()}
 
 
+def _refuse_sharded(env, where: str) -> None:
+    if env.agg_ctx.sharded:
+        raise NotImplementedError(
+            f"{where}: a sharded env holds only this rank's rows of the "
+            f"bank; gathering them into one snapshot and placing them back "
+            f"is ROADMAP item 10 (b)")
+
+
 def save_runtime(env, path: str) -> None:
     """Snapshot the complete state of a running ``AsyncHFLEnv`` so a
     killed process can resume mid-stream (``load_runtime``) and reach
@@ -170,7 +178,12 @@ def save_runtime(env, path: str) -> None:
     env's numpy generator, the round generator's state and edge-shuffle
     base (real mode), the fault injector's full state, and telemetry,
     health and the ledger run id.
+
+    A sharded env (``EnvConfig.agg`` with a mesh) raises
+    ``NotImplementedError``: each rank holds only its rows of the bank
+    (ROADMAP item 10 (b)).
     """
+    _refuse_sharded(env, "save_runtime")
     cfg = env.cfg
     arrays: dict = {}
     meta: dict = {
@@ -258,7 +271,9 @@ def load_runtime(env, path: str) -> None:
     Raises ``ValueError`` on a config mismatch, and for a real-mode
     reference snapshot (a ``jax.random`` key chain in place of the
     port's generator state) unless the env was built with injected
-    ``perm_source`` / ``edge_perm_source``."""
+    ``perm_source`` / ``edge_perm_source``; ``NotImplementedError`` for
+    a sharded env, as ``save_runtime`` does."""
+    _refuse_sharded(env, "load_runtime")
     with open(path + ".json") as f:
         meta = json.load(f)
     data = np.load(path + ".npz")

@@ -19,8 +19,17 @@ one kernel launch each (``repro_torch.kernels.ops``).
   copy, so local SGD that updates the leaves in place updates the
   matrix, and the resync kernel can write the bank in place.
 
-``ShardedBankSpec`` (the row-sharded multi-GPU layout) is not ported
-yet.
+The row-sharded layout over a bank mesh
+(``repro_torch.launch.mesh.BankMesh``; ``local_rows``, ``row_slice``,
+``place_bank``, ``place_rows``, ``place_replicated``): rows shard over
+all the mesh's axes, ``edge``-major, so rank ``r`` of ``k`` holds rows
+``[r N/k, (r + 1) N/k)``, and columns are never split. A rank's part of
+a bank (``place_bank``) is its rows as a new contiguous ``(N/k, P)``
+matrix on its device, with the leaves as views into it, so no rank
+holds the full bank. Edge and global
+models are replicated: every rank holds them whole. The reference's
+PartitionSpec helpers (``pspec``, ``tree_pspecs``) have no counterpart:
+a torch rank holds its rows as a plain tensor.
 """
 from __future__ import annotations
 
@@ -112,6 +121,51 @@ class BankSpec:
                 for k, o, s, shp, dt in zip(self.keys, self.offsets,
                                             self.sizes, self.shapes,
                                             self.dtypes)}
+
+
+def local_rows(n: int, mesh) -> int:
+    """Rows per shard for ``n`` bank rows on ``mesh``: the one statement
+    of the rows-divide-shards contract (the placement helpers here and
+    the sharded rounds of ``repro_torch.core.hfl`` use it)."""
+    k = int(mesh.size)
+    if n % k:
+        raise ValueError(
+            f"bank rows N={n} must be divisible by the {k}-shard mesh "
+            f"{mesh.shape}")
+    return n // k
+
+
+def row_slice(n: int, mesh) -> slice:
+    """This rank's rows of an ``n``-row bank on ``mesh``."""
+    per = local_rows(n, mesh)
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def place_rows(arr, mesh):
+    """This rank's rows of one row-aligned array ((N,), (N, P),
+    (N, ...)), copied onto the mesh's device."""
+    arr = torch.as_tensor(arr)
+    return arr[row_slice(arr.shape[0], mesh)].to(mesh.device, copy=True)
+
+
+def place_replicated(tree, mesh):
+    """A tensor, or a dict/list/tuple of them, whole on the mesh's
+    device."""
+    if isinstance(tree, dict):
+        return {k: place_replicated(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_replicated(v, mesh) for v in tree)
+    return torch.as_tensor(tree).to(mesh.device)
+
+
+def place_bank(bank: dict, mesh) -> dict:
+    """This rank's rows of a full ``(N, ...)``-leaf bank, copied into one
+    new contiguous ``(N/k, P)`` matrix on the mesh's device; the returned
+    leaves are views into it where their dtype is the matrix's."""
+    spec = bank_spec(bank)
+    rows = row_slice(bank[spec.keys[0]].shape[0], mesh)
+    mine = spec.flatten({k: v[rows] for k, v in bank.items()})
+    return spec.unflatten(mine.to(mesh.device, copy=True).contiguous())
 
 
 _SPEC_CACHE: dict = {}

@@ -1,6 +1,6 @@
 """Hierarchical FL aggregation and the cloud round (paper 2.1, Eqs. 1, 2, 5).
 
-The single-device port of ``repro.core.hfl``. The *model bank* holds
+The port of ``repro.core.hfl``. The *model bank* holds
 every device's parameters as a dict of tensors with a leading
 ``N_devices`` axis. It lives as one contiguous ``(N, P)`` matrix with the
 leaves as views into it (``flatbank.BankSpec``), so
@@ -17,7 +17,8 @@ leaves as views into it (``flatbank.BankSpec``), so
   ``segment_agg`` launch and a resync of that edge's rows only.
 
 The reference donates the bank buffer to its jit'd round; here the
-round reuses the bank's storage in place. Per-edge frequencies (gamma1_j,
+round reuses the bank's storage in place (a caller that wants its bank
+kept passes a clone). Per-edge frequencies (gamma1_j,
 gamma2_j) are host integers: an epoch in which no device is active and
 a t2 step past ``max(gamma2)`` are skipped, where the reference computes
 them under masks and throws the results away, so no number changes.
@@ -36,6 +37,29 @@ on every run on the card too (cuDNN and the gathers otherwise sum in
 run-dependent orders), and every epoch trains all N rows as the
 reference does (``make_local_trainer(all_rows=True)``), so an edge
 round is bitwise its row of the cloud round.
+
+Multi-GPU banks -- the **AggContext contract**: every aggregation entry
+point and round factory takes an optional ``ctx: AggContext``, which
+carries the bank mesh (``repro_torch.launch.mesh.BankMesh``, the ranks
+of a ``torch.distributed`` group) and with it the row layout
+(``flatbank.place_bank``); the reference's per-call ``mesh=`` kwargs
+have no counterpart. Under a mesh each rank holds and
+passes its ``N/k`` rows of the bank and of every row-aligned input;
+the round body is the one-device body on those rows: local SGD trains
+them, Eq. 1 is one ``segment_agg`` launch on them whose partial sums
+meet in ``all_reduce`` (``ops.segment_agg_sharded``), the resync is a
+``segment_broadcast`` onto them, and Eq. 2 and the flushes run the
+plain launch on the replicated (E, P) matrices on every rank
+(``AggContext.segment_agg_small``). No rank holds the full bank.
+
+Bitwise contract of the sharded paths: the kernel splits no row across
+threads or blocks and zero partials add nothing, so when every edge's
+rows lie on one rank (the ``flatbank.place_bank`` layout with
+edge-aligned shards) the aggregations reproduce the one-device accumulation exactly,
+as the reference's do. An edge spanning ranks splits its chain at the
+``all_reduce`` and differs in the last bits. Local SGD is bitwise only
+where the model's per-row gradients do not depend on how many rows one
+``vmap(grad)`` call holds (ROADMAP section 3).
 """
 from __future__ import annotations
 
@@ -52,6 +76,7 @@ from repro_torch.device import (deterministic_algorithms, disable_tf32,
                                  set_cublas_workspace)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import segment_weight_sums
+from repro_torch.launch.mesh import BankMesh
 
 
 # ---------------------------------------------------------------------------
@@ -78,23 +103,137 @@ def bank_select(bank: dict, i: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# AggContext -- the aggregation contract (single device in this port)
+# AggContext -- the one aggregation/placement contract
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class AggContext:
-    """The aggregation contract every entry point runs under. Only the
-    single-device context exists so far."""
+    """The aggregation contract every ``hfl`` entry point runs under.
 
+    It carries the bank mesh (``repro_torch.launch.mesh.BankMesh``, or
+    ``None`` for one device) and with it the row layout
+    (``flatbank.place_bank``). Build it once
+    -- :meth:`for_mesh` / :meth:`single_chip` -- and pass it to
+    ``weighted_aggregate`` / ``cloud_aggregate`` / ``masked_resync`` /
+    the round factories, to ``runtime.buffer.StalenessBuffer(ctx=)`` and
+    to ``sim.EnvConfig(agg=)``.
+
+    Under a mesh every row-aligned input of an entry point (the bank,
+    data shards, sizes, edge assignment, participation) is this rank's
+    rows (``place_rows``/``place_bank``), while small (E, P) inputs
+    (edge and global models, flush stacks) are replicated: every rank
+    holds them whole and passes the same values."""
+    mesh: Optional[BankMesh] = None
+
+    # -- constructors -------------------------------------------------
     @classmethod
     def single_chip(cls) -> "AggContext":
-        return cls()
+        """No mesh: every entry point takes the one-device path and the
+        placement helpers are identities."""
+        return cls(mesh=None)
 
     @classmethod
     def for_mesh(cls, mesh) -> "AggContext":
-        raise NotImplementedError(
-            "AggContext.for_mesh: the multi-GPU bank is not ported yet "
-            "(ROADMAP.md, modules still to port, item 10)")
+        """Sharded context over ``mesh`` (``launch.mesh.make_bank_mesh``):
+        bank rows shard over all its axes."""
+        if mesh is None:
+            raise ValueError("AggContext.for_mesh needs a mesh; use "
+                             "AggContext.single_chip() for one device")
+        if not isinstance(mesh, BankMesh):
+            raise TypeError(f"AggContext.for_mesh expects a repro_torch."
+                            f"launch.mesh.BankMesh, got "
+                            f"{type(mesh).__name__}")
+        return cls(mesh=mesh)
+
+    # -- introspection ------------------------------------------------
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def axes(self) -> tuple:
+        """Mesh axis names the bank rows shard over (() on one device)."""
+        return () if self.mesh is None else tuple(self.mesh.axis_names)
+
+    @property
+    def n_shards(self) -> int:
+        return 1 if self.mesh is None else int(self.mesh.size)
+
+    def check_rows(self, n: int) -> int:
+        """Raise ValueError unless ``n`` rows divide over the shards;
+        returns the rows per shard (``n`` itself on one device)."""
+        if self.mesh is None:
+            return int(n)
+        return flatbank.local_rows(n, self.mesh)
+
+    # -- placement (flatbank's row layout) ----------------------------
+    def place_rows(self, arr):
+        """This rank's rows of an array with a leading device-row axis
+        (identity on one device)."""
+        if self.mesh is None:
+            return arr
+        return flatbank.place_rows(arr, self.mesh)
+
+    def place_replicated(self, tree):
+        """A tensor or a dict/list/tuple of them on this rank's device
+        (identity on one device)."""
+        if self.mesh is None:
+            return tree
+        return flatbank.place_replicated(tree, self.mesh)
+
+    def place_bank(self, bank: dict) -> dict:
+        """This rank's rows of a full bank as a new contiguous matrix
+        (identity on one device); validates the layout contract."""
+        if self.mesh is None:
+            return bank
+        return flatbank.place_bank(bank, self.mesh)
+
+    def local_perms(self, perms, rows: int):
+        """This rank's rows of a round's shuffles (rows on axis -2) for a
+        bank part of ``rows`` rows: ``perms[..., r0:r1, :]``, so every
+        row trains on the shuffles of the one-device round."""
+        if self.mesh is None:
+            return perms
+        n = perms.shape[-2]
+        if self.check_rows(n) != rows:
+            raise ValueError(
+                f"the round got {rows} bank rows and shuffles for {n}: "
+                f"under a {self.n_shards}-shard mesh a rank passes its "
+                f"N/{self.n_shards} rows (AggContext.place_bank) and the "
+                f"shuffles of all N")
+        return perms[..., flatbank.row_slice(n, self.mesh), :]
+
+    # -- kernel routing -----------------------------------------------
+    def segment_agg_rows(self, mat, weights, segment_ids,
+                         num_segments: int):
+        """Aggregate the bank's rows (Eq. 1, FedAvg): one ``segment_agg``
+        launch on one device; under a mesh one launch on this rank's
+        rows plus ``all_reduce`` (``ops.segment_agg_sharded``)."""
+        if self.mesh is None:
+            return ops.segment_agg(mat, weights, segment_ids, num_segments)
+        return ops.segment_agg_sharded(mat, weights, segment_ids,
+                                       num_segments, self.mesh.group)
+
+    def segment_agg_small(self, mat, weights, segment_ids,
+                          num_segments: int):
+        """Aggregate a *small* replicated (K, P) stack (edge matrices,
+        staleness flushes): the plain single launch, computed on every
+        rank from the same inputs, so bitwise the one-device launch for
+        any K (no collective, no divisibility condition)."""
+        return ops.segment_agg(mat, weights, segment_ids, num_segments)
+
+    def segment_weight_sums(self, weights, segment_ids, num_segments: int):
+        """Per-segment sums of the rows' weights, over every rank's rows
+        under a mesh: added in f64 (``ref.segment_weight_sums``), where
+        they are exact, summed over the ranks with ``all_reduce`` and
+        rounded once to f32, so any row layout gives the one-device
+        bits."""
+        out = segment_weight_sums(weights, segment_ids, num_segments,
+                                  dtype=torch.float64)
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.all_reduce(out, group=self.mesh.group)
+        return out.to(torch.float32)
 
 
 def _resolve_ctx(ctx, where: str) -> AggContext:
@@ -117,11 +256,14 @@ def weighted_aggregate(bank: dict, weights, segment_ids, num_segments: int,
         out_j = sum_{i in j} w_i x_i / sum_{i in j} w_i          (Eq. 1)
 
     One ``segment_agg`` launch over the ``(N, P)`` bank; returns a dict
-    with leading ``num_segments`` axis, leaf dtypes restored."""
-    _resolve_ctx(ctx, "weighted_aggregate")
+    with leading ``num_segments`` axis, leaf dtypes restored. Under a
+    sharded ``ctx`` the bank, weights and ids are this rank's rows, the
+    launch runs on them and the partial sums meet in ``all_reduce``; the
+    result is the same on every rank."""
+    ctx = _resolve_ctx(ctx, "weighted_aggregate")
     spec = flatbank.bank_spec(bank)
-    out = ops.segment_agg(spec.flatten(bank), weights, segment_ids,
-                          num_segments)
+    out = ctx.segment_agg_rows(spec.flatten(bank), weights, segment_ids,
+                               num_segments)
     return spec.unflatten(out)
 
 
@@ -134,12 +276,16 @@ def edge_aggregate(bank: dict, device_sizes, edge_assign, n_edges: int,
 
 def cloud_aggregate(edge_models: dict, edge_sizes, *,
                     ctx: Optional[AggContext] = None) -> dict:
-    """Eq. 2: w = sum_j |D_j| w_j^e / sum_j |D_j| (one segment)."""
-    _resolve_ctx(ctx, "cloud_aggregate")
+    """Eq. 2: w = sum_j |D_j| w_j^e / sum_j |D_j| (one segment). The edge
+    matrix is small and replicated, so under a mesh every rank computes
+    the plain launch (``AggContext.segment_agg_small``): bitwise the
+    one-device result for any number of edges."""
+    ctx = _resolve_ctx(ctx, "cloud_aggregate")
     spec = flatbank.bank_spec(edge_models)
     seg = torch.zeros((edge_sizes.shape[0],), dtype=torch.int32,
                       device=edge_sizes.device)
-    out = ops.segment_agg(spec.flatten(edge_models), edge_sizes, seg, 1)
+    out = ctx.segment_agg_small(spec.flatten(edge_models), edge_sizes, seg,
+                                1)
     return spec.unflatten_model(out[0])
 
 
@@ -149,8 +295,14 @@ def masked_resync(edge_mat, bank_mat, edge_assign, alive, *,
     ``(E, P)`` edge matrix is broadcast to ``(N, P)`` through
     ``segment_broadcast``, and rows of edges with ``alive[j]`` false come
     back bit-identical. With ``alive`` all true this is the plain
-    resync."""
+    resync. Under a sharded ``ctx`` ``bank_mat`` and ``edge_assign`` are
+    this rank's rows and the broadcast writes those only: a gather copies
+    one edge row per device row, so the result is bitwise the one-device
+    one and no rank touches another's rows."""
     _resolve_ctx(ctx, "masked_resync")
+    if edge_assign.shape[0] != bank_mat.shape[0]:
+        raise ValueError(f"masked_resync: {bank_mat.shape[0]} bank rows "
+                         f"and {edge_assign.shape[0]} edge ids")
     out = ops.segment_broadcast(edge_mat, edge_assign,
                                 out_dtype=bank_mat.dtype)
     alive = torch.as_tensor(alive, dtype=torch.bool, device=bank_mat.device)
@@ -282,9 +434,23 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
     one ``segment_agg`` and one ``segment_broadcast`` per executed t2
     step, and one ``segment_agg`` for Eq. 2. ``bank`` must have one
     dtype (f32 or bf16); its storage is reused, so use the returned
-    bank. Turns TF32 off (``repro_torch.device.disable_tf32``).
+    bank. Turns TF32 off
+    (``repro_torch.device.disable_tf32``).
+
+    Under a sharded ``ctx`` each rank passes its rows of ``bank``,
+    ``x``, ``y``, ``sizes`` and ``edge_assign`` (``AggContext.
+    place_bank`` / ``place_rows``) and the shuffles of all N rows; it
+    trains its rows on their shuffles (``perms[..., r0:r1, :]``, so each
+    row sees the one-device round's), Eq. 1 is one launch on its rows
+    plus ``all_reduce`` (``ops.segment_agg_sharded``), the resync writes
+    its rows only and Eq. 2 runs replicated on the (E, P) edge matrix. It
+    returns its rows of the bank and the global and edge models, the
+    same on every rank. No rank holds the full bank. When every edge's
+    rows lie on one rank the aggregations are bitwise the one-device
+    round's (zero partials add nothing); an edge spanning ranks differs
+    in the last bits.
     """
-    _resolve_ctx(ctx, "make_cloud_round")
+    ctx = _resolve_ctx(ctx, "make_cloud_round")
     local_train = make_local_trainer(loss_fn, lr, batch_size,
                                      all_rows=deterministic)
 
@@ -293,6 +459,7 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
         _check_one_dtype(spec, "cloud_round")
         mat = spec.flatten(bank)
         bank = spec.unflatten(mat)           # views: updates land in mat
+        perms = ctx.local_perms(perms, mat.shape[0])
         dev = mat.device
         sizes = torch.as_tensor(sizes, dtype=torch.float32, device=dev)
         ea = _host_ints(edge_assign)
@@ -300,11 +467,11 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
         g1_dev, g2_dev = g1h[ea], g2h[ea]
         seg = torch.as_tensor(ea.astype(np.int32), device=dev)
 
-        edge_mat = ops.segment_agg(mat, sizes, seg, n_edges)
+        edge_mat = ctx.segment_agg_rows(mat, sizes, seg, n_edges)
         for t2 in range(min(int(max_g2), int(g2h.max(initial=0)))):
             g1_eff = np.where(t2 < g2_dev, g1_dev, 0)
             local_train(bank, x, y, g1_eff, max_g1, perms[t2])
-            a = ops.segment_agg(mat, sizes, seg, n_edges)
+            a = ctx.segment_agg_rows(mat, sizes, seg, n_edges)
             active_edge = t2 < g2h
             if active_edge.all():
                 edge_mat = a
@@ -314,9 +481,9 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
             # devices resume from their edge's current model
             ops.segment_broadcast(edge_mat, seg, out=mat)
 
-        edge_sizes = segment_weight_sums(sizes, seg, n_edges)
+        edge_sizes = ctx.segment_weight_sums(sizes, seg, n_edges)
         zeros = torch.zeros((n_edges,), dtype=torch.int32, device=dev)
-        glob = ops.segment_agg(edge_mat, edge_sizes, zeros, 1)[0]
+        glob = ctx.segment_agg_small(edge_mat, edge_sizes, zeros, 1)[0]
         mat.copy_(glob.expand_as(mat))       # every device resumes from w
         return bank, spec.unflatten_model(glob), spec.unflatten(edge_mat)
 
@@ -357,8 +524,14 @@ def make_edge_round(loss_fn: Callable, lr: float, batch_size: int,
     grouped convolutions' last bits without it (they train the edge's
     rows alone). ``bank`` must have one dtype; its storage is reused.
     Turns TF32 off.
+
+    Under a sharded ``ctx`` it takes and returns this rank's rows as
+    ``make_cloud_round`` does; the masked Eq. 1 is one launch on them
+    plus ``all_reduce``, the resync touches this rank's rows of the edge
+    only, and ``edge_vec`` is the same on every rank. When the edge's
+    rows lie on one rank the round is bitwise the one-device round.
     """
-    _resolve_ctx(ctx, "make_edge_round")
+    ctx = _resolve_ctx(ctx, "make_edge_round")
     local_train = make_local_trainer(loss_fn, lr, batch_size,
                                      all_rows=deterministic)
 
@@ -368,6 +541,7 @@ def make_edge_round(loss_fn: Callable, lr: float, batch_size: int,
         _check_one_dtype(spec, "edge_round")
         mat = spec.flatten(bank)
         bank = spec.unflatten(mat)           # views: updates land in mat
+        perms = ctx.local_perms(perms, mat.shape[0])
         dev = mat.device
         ea = _host_ints(edge_assign)
         j, g1, g2 = int(edge_id), int(g1), int(g2)
@@ -379,13 +553,13 @@ def make_edge_round(loss_fn: Callable, lr: float, batch_size: int,
 
         # the edge's devices resume from the snapshot it downloaded
         mat.copy_(torch.where(rows[:, None], global_vec.to(mat.dtype), mat))
-        edge_mat = ops.segment_agg(mat, w, seg, n_edges)
+        edge_mat = ctx.segment_agg_rows(mat, w, seg, n_edges)
         g1_dev = np.where(row_active, g1, 0)
         for t2 in range(min(int(max_g2), g2)):
             local_train(bank, x, y, g1_dev, max_g1, perms[t2])
-            edge_mat = ops.segment_agg(mat, w, seg, n_edges)
+            edge_mat = ctx.segment_agg_rows(mat, w, seg, n_edges)
             # resync only this edge's rows
-            mat.copy_(masked_resync(edge_mat, mat, seg, alive))
+            mat.copy_(masked_resync(edge_mat, mat, seg, alive, ctx=ctx))
         return bank, edge_mat[j].clone()
 
     return _round_mode(edge_round, deterministic)
@@ -409,9 +583,12 @@ def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
     ``sizes * participate``) and no ``segment_broadcast``: like the
     reference's ``broadcast_model``, the global model is copied to every
     row, here into the bank's own storage. ``g1`` is a scalar or one
-    value per device. Turns TF32 off.
+    value per device. Turns TF32 off. Under a sharded ``ctx`` it takes
+    and returns this rank's rows (``participate`` too) as
+    ``make_cloud_round`` does, and the aggregation is one launch on them
+    plus ``all_reduce``.
     """
-    _resolve_ctx(ctx, "make_fedavg_round")
+    ctx = _resolve_ctx(ctx, "make_fedavg_round")
     local_train = make_local_trainer(loss_fn, lr, batch_size,
                                      all_rows=deterministic)
 
@@ -420,6 +597,7 @@ def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
         _check_one_dtype(spec, "fedavg_round")
         mat = spec.flatten(bank)
         bank = spec.unflatten(mat)           # views: updates land in mat
+        perms = ctx.local_perms(perms, mat.shape[0])
         dev = mat.device
         part = _host_ints(participate).astype(bool)
         g1_dev = np.where(part, _host_ints(g1), 0)   # scalar or (N,)
@@ -427,7 +605,7 @@ def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
         w = torch.as_tensor(sizes, dtype=torch.float32, device=dev) \
             * torch.as_tensor(part, device=dev)
         seg = torch.zeros((mat.shape[0],), dtype=torch.int32, device=dev)
-        glob = ops.segment_agg(mat, w, seg, 1)[0]
+        glob = ctx.segment_agg_rows(mat, w, seg, 1)[0]
         mat.copy_(glob.to(mat.dtype).expand_as(mat))
         return bank, spec.unflatten_model(glob)
 

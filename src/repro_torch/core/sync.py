@@ -225,7 +225,12 @@ def _favor(env, *, g1: int, frac: float, eps: float, seed: int):
 
 def share_topology(env) -> np.ndarray:
     """Share [9]: assign devices to edges so every edge's label histogram
-    approaches the global distribution (greedy, size-balanced)."""
+    approaches the global distribution (greedy, size-balanced). Reads
+    every device's labels, so it runs on a one-device env only."""
+    if env.agg_ctx.sharded:
+        raise NotImplementedError(
+            "share_topology reads all N devices' labels; a sharded env "
+            "holds its rows only (ROADMAP item 10 (b))")
     y = env.fed.y.cpu().numpy()                  # (N, n_local)
     n, m = env.cfg.n_devices, env.cfg.n_edges
     n_classes = int(y.max()) + 1

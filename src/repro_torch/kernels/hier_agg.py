@@ -11,8 +11,14 @@ kernel (``csrc/hier_agg.cu``, built by ``_build``):
     multiplying with ``1 / max(sum, 1e-9)``, as the reference does.
 ``segment_sum_partial``
     The same launch unnormalized: the sums plus the ``(E,)`` weight sums,
-    which the kernel writes too (the per-shard half of the sharded path;
-    the collective itself waits for the multi-GPU bank).
+    which the kernel writes too (the per-shard half of the sharded path).
+``segment_agg_sharded``
+    ``segment_agg`` over a bank whose rows are sharded over the ranks of
+    a ``torch.distributed`` group: one ``segment_sum_partial`` launch on
+    this rank's rows, ``all_reduce`` of the sums and weight sums, and the
+    multiply by the reciprocal. The kernel splits no row across threads
+    or blocks, so when each segment's rows lie on one rank the result is
+    bitwise the single launch on the whole bank.
 ``segment_broadcast``
     ``(E, P) models x (N,) segment ids -> (N, P)``, ``out[i] =
     models[seg_i]`` written in the bank's dtype: the bank resync.
@@ -113,6 +119,16 @@ def _check_agg_inputs(bank, weights, segment_ids) -> torch.device:
     return check_device("segment_agg", bank, weights, segment_ids)
 
 
+def _cpu_weight_sums(weights, segment_ids, e: int):
+    """The weight sums of the CPU path: added in f64 and rounded once to
+    f32. The kernel adds each segment's rows in one sequential chain, so
+    a shard's rows sum to the bits of the whole bank's chain restricted
+    to them; the CPU's vectorised f32 sum groups the rows by their
+    position, and the exact f64 sum restores that property."""
+    return ref.segment_weight_sums(weights, segment_ids, e,
+                                   dtype=torch.float64).to(torch.float32)
+
+
 def segment_agg(bank, weights, segment_ids, num_segments: int):
     """bank: (N, P) f32 or bf16; weights: (N,); segment_ids: (N,) int.
     Returns the per-segment weighted means (num_segments, P) f32:
@@ -122,8 +138,7 @@ def segment_agg(bank, weights, segment_ids, num_segments: int):
     Empty segments return zeros (the weight-sum clamp)."""
     e = int(num_segments)
     if _check_agg_inputs(bank, weights, segment_ids).type == "cpu":
-        inv = 1.0 / ref.segment_weight_sums(weights, segment_ids,
-                                            e).clamp_min(1e-9)
+        inv = 1.0 / _cpu_weight_sums(weights, segment_ids, e).clamp_min(1e-9)
         return ref.segment_scaled_sum_ref(bank, weights, segment_ids, inv, e)
     return _launch_segment_agg(bank, weights, segment_ids, e,
                                normalize=True)[0]
@@ -137,12 +152,37 @@ def segment_sum_partial(bank, weights, segment_ids, num_segments: int):
     """
     e = int(num_segments)
     if _check_agg_inputs(bank, weights, segment_ids).type == "cpu":
-        wsum = ref.segment_weight_sums(weights, segment_ids, e)
+        wsum = _cpu_weight_sums(weights, segment_ids, e)
         sums = ref.segment_scaled_sum_ref(bank, weights, segment_ids,
                                           torch.ones_like(wsum), e)
         return sums, wsum
     return _launch_segment_agg(bank, weights, segment_ids, e,
                                normalize=False, with_wsum=True)
+
+
+def segment_agg_sharded(bank, weights, segment_ids, num_segments: int,
+                        group=None):
+    """``segment_agg`` of a row-sharded bank: ``bank`` (N/k, P),
+    ``weights`` and ``segment_ids`` (N/k,) are this rank's rows; every
+    rank of ``group`` calls it with its own. Returns the (num_segments, P)
+    f32 means over all ranks' rows, the same on every rank:
+
+        out[j] = S_j * (1 / max(W_j, 1e-9)),
+        S_j = all_reduce(sum_{local i: seg_i=j} w_i bank[i]),
+        W_j = all_reduce(sum_{local i: seg_i=j} w_i)
+
+    The local sums are one ``segment_sum_partial`` launch (the plain
+    version for CPU tensors); the normalisation multiplies by the
+    reciprocal, as the kernel does, never divides. Zero partials add
+    nothing, so a segment whose rows lie on one rank gets the single
+    launch's bits; a segment spanning ranks differs in the last bits.
+    Segments empty on every rank give zeros."""
+    import torch.distributed as dist
+    sums, wsum = segment_sum_partial(bank, weights, segment_ids,
+                                     num_segments)
+    dist.all_reduce(sums, group=group)
+    dist.all_reduce(wsum, group=group)
+    return sums * (1.0 / wsum.clamp_min(1e-9))[:, None]
 
 
 def segment_broadcast(models, segment_ids, *, out_dtype=None, out=None):

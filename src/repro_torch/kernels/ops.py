@@ -1,14 +1,17 @@
 """Public kernel entry points, under the names ``repro.kernels.ops`` uses.
 
-``segment_agg``, ``segment_sum_partial``, ``segment_broadcast`` and
-``hier_agg`` are the flat-bank hot path (``core/hfl.py``);
+``segment_agg``, ``segment_sum_partial``, ``segment_agg_sharded`` (the
+row-sharded bank over a ``torch.distributed`` group),
+``segment_broadcast`` and ``hier_agg`` are the flat-bank hot path
+(``core/hfl.py``);
 ``flash_attention`` (every attention of the dense LLMs) and ``wkv6``
 (every multi-token RWKV6 time-mix) serve the LLM path (``models/``,
 ``launch/serve.py``). Each runs its CUDA kernel for CUDA tensors and its
 plain version (``kernels/ref.py``) for CPU tensors; ``LAUNCHES`` counts
 the kernel launches.
 
-``segment_agg`` and ``segment_broadcast`` go through
+``segment_agg``, ``segment_agg_sharded`` and ``segment_broadcast`` go
+through
 ``repro_torch.telemetry.ktime.call_timed``, as the reference's do: with
 no registry installed that is one ``None`` check in front of the
 unchanged call; inside ``ktime.kernel_timing(reg)`` each call is timed
@@ -32,6 +35,15 @@ def segment_agg(bank, weights, segment_ids, num_segments: int):
     (``hier_agg.segment_agg``), timed by ``ktime`` when it is on."""
     return _ktime.call_timed("segment_agg", _ha.segment_agg, bank, weights,
                              segment_ids, num_segments)
+
+
+def segment_agg_sharded(bank, weights, segment_ids, num_segments: int,
+                        group=None):
+    """This rank's (N/k, P) rows -> the (E, P) f32 means over every rank
+    of ``group`` (``hier_agg.segment_agg_sharded``), timed by ``ktime``
+    as ``segment_agg`` when it is on."""
+    return _ktime.call_timed("segment_agg", _ha.segment_agg_sharded, bank,
+                             weights, segment_ids, num_segments, group)
 
 
 def segment_broadcast(models, segment_ids, *, out_dtype=None, out=None):

@@ -5,7 +5,9 @@ Each function states in tensor operations what a CUDA kernel of
 tensors that lie on the CPU, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. They mirror the oracles of
 ``repro.kernels.ref`` (``segment_agg_ref``, ``segment_broadcast_ref``,
-``hier_agg_ref``, ``flash_attention_ref``, ``wkv6_ref``);
+``hier_agg_ref``, ``flash_attention_ref``, ``wkv6_ref``), and
+``segment_agg_sharded_ref`` states the sharded aggregation over a
+``torch.distributed`` group;
 the async flush's numpy oracles ``staleness_scale_ref``,
 ``staleness_aggregate_ref`` and ``coverage_aggregate_ref`` are copies
 of the reference's;
@@ -24,18 +26,25 @@ import torch.nn.functional as F
 NEG_INF = -1e30          # the reference's finite mask value
 
 
-def segment_weight_sums(weights, segment_ids, num_segments: int):
-    """(N,) weights x (N,) ids -> (E,) f32 per-segment weight sums.
+def segment_weight_sums(weights, segment_ids, num_segments: int,
+                        dtype=torch.float32):
+    """(N,) weights x (N,) ids -> (E,) per-segment weight sums, added and
+    returned in ``dtype`` (f32).
 
     Each sum runs over a masked row of an (E, N) matrix, a plain
     reduction with no atomics, so the result is the same on every run
-    on either device (``index_add_`` on CUDA is atomic). Ids outside
-    ``[0, E)`` contribute nothing."""
-    w = weights.to(torch.float32)
+    on either device (``index_add_`` on CUDA is atomic). With
+    ``dtype=torch.float64`` the sums of f32 weights are exact while the
+    weights lie within 2^(28 - log2 N) of each other (dataset sizes
+    always do), so their rounding to f32 does not depend on the order
+    or the grouping of the rows. Ids outside ``[0, E)`` contribute
+    nothing."""
+    w = weights.to(dtype)
     seg = segment_ids.to(torch.int64)
     ids = torch.arange(int(num_segments), device=w.device)
     hit = seg[None, :] == ids[:, None]
-    return torch.where(hit, w[None, :], torch.zeros((), device=w.device)
+    return torch.where(hit, w[None, :], torch.zeros((), dtype=dtype,
+                                                    device=w.device)
                        ).sum(dim=1)
 
 
@@ -68,6 +77,24 @@ def segment_agg_ref(bank, weights, segment_ids, num_segments: int):
     s = segment_scaled_sum_ref(bank, weights, segment_ids, ones,
                                num_segments)
     return s / wsum.clamp_min(1e-9)[:, None]
+
+
+def segment_agg_sharded_ref(bank, weights, segment_ids, num_segments: int,
+                            group=None):
+    """What ``segment_agg_sharded`` computes on one rank of ``group``:
+    this rank's rows' unnormalised sums and weight sums
+    (``segment_scaled_sum_ref`` with unit scale, ``segment_weight_sums``),
+    each summed over the group's ranks with ``all_reduce``, then the sums
+    multiplied by ``1 / max(wsum, 1e-9)`` (the reciprocal, as the
+    single-device kernel and the reference do). Segments empty on every
+    rank give zeros."""
+    import torch.distributed as dist
+    wsum = segment_weight_sums(weights, segment_ids, num_segments)
+    sums = segment_scaled_sum_ref(bank, weights, segment_ids,
+                                  torch.ones_like(wsum), num_segments)
+    dist.all_reduce(sums, group=group)
+    dist.all_reduce(wsum, group=group)
+    return sums * (1.0 / wsum.clamp_min(1e-9))[:, None]
 
 
 def segment_broadcast_ref(models, segment_ids, out_dtype=None):

@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass
@@ -83,8 +82,10 @@ class StalenessBuffer:
     with staleness-decayed weights into one ``(P,)`` f32 global update
     on ``device`` and empties the buffer.
 
-    Only the single-device ``hfl.AggContext`` is ported (the replicated
-    sharded flush is ROADMAP item 10). ``telemetry`` (a
+    The flush runs through ``ctx.segment_agg_small`` (an
+    ``hfl.AggContext``): under a sharded context every rank holds the
+    same buffered vectors and computes the plain launch, bitwise the
+    one-device flush for any K. ``telemetry`` (a
     ``repro_torch.telemetry.Telemetry``) and ``clock`` (the event queue,
     which supplies timestamps) are pure observers: the buffer reports
     each push and flush as residency spans, bitwise no-perturbation.
@@ -194,12 +195,14 @@ class StalenessBuffer:
             vecs.append(torch.as_tensor(anchor, dtype=vecs[0].dtype,
                                         device=self.device))
             w = np.concatenate([w, np.float32([anchor_weight])])
-        return _aggregate(torch.stack(vecs), torch.from_numpy(w)), info
+        return _aggregate(torch.stack(vecs), torch.from_numpy(w),
+                          self.ctx), info
 
 
-def _aggregate(stack, w):
+def _aggregate(stack, w, ctx):
     """One-segment staleness-weighted mean of the (K, P) update stack:
-    one ``segment_agg`` launch, the one Eq. 2 makes."""
+    one ``segment_agg`` launch, the one Eq. 2 makes, replicated on every
+    rank under a sharded ``ctx`` (``AggContext.segment_agg_small``)."""
     k = stack.shape[0]
     seg = torch.zeros((k,), dtype=torch.int32, device=stack.device)
-    return ops.segment_agg(stack, w.to(stack.device), seg, 1)[0]
+    return ctx.segment_agg_small(stack, w.to(stack.device), seg, 1)[0]

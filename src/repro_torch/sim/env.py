@@ -38,8 +38,15 @@ ride ``info["health"]``; ``EnvConfig.telemetry`` or
 metrics (``info["telemetry"]``). Both only read: on or off, the
 trajectory is bitwise the same.
 
-Not ported yet, and refused when set: ``EnvConfig.agg`` with a mesh
-and ``mesh`` (the multi-GPU bank, ROADMAP item 10).
+Multi-GPU bank: ``EnvConfig.agg`` takes an ``hfl.AggContext``
+(``AggContext.for_mesh(launch.mesh.make_bank_mesh(k))``; the
+reference's deprecated ``EnvConfig.mesh`` has no counterpart).
+Under a mesh every rank builds the env from the same config and seed
+and runs the same host code and draws; it keeps its ``N/k`` rows of the
+bank, the data shards, the device sizes and the edge assignment, on the
+mesh's device, while the edge matrix, the global model, the PCA state,
+the hardware costs and the fault draws are the same on every rank. The
+rounds, the flushes and the churn-join resync take the context.
 """
 from __future__ import annotations
 
@@ -54,7 +61,6 @@ from repro_torch.core import reward as reward_mod
 from repro_torch.core import state as state_mod
 from repro_torch.data import federated, synthetic
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ref
 from repro_torch.models import model as model_mod
 from repro_torch.runtime import (AsyncConfig, EventQueue, FaultInjector,
                                  StalenessBuffer, edge_round_cost)
@@ -83,10 +89,10 @@ class EnvConfig:
     # device mobility (paper 2.3)
     churn_prob: float = 0.0
     recluster_every: int = 0
-    # not ported yet: multi-GPU aggregation context and the deprecated
-    # mesh spelling (ROADMAP item 10)
+    # multi-GPU bank: the aggregation context (hfl.AggContext) every
+    # round/flush/resync runs under -- build it once with
+    # launch.mesh.make_bank_context(k); None = one device
     agg: Optional[object] = None
-    mesh: Optional[object] = None
     # observability (repro_torch.telemetry): True builds the async env
     # with an enabled Telemetry facade; on vs off is bitwise-identical
     telemetry: bool = False
@@ -115,16 +121,6 @@ class EnvConfig:
         return self
 
 
-def _refuse_unported(cfg: EnvConfig) -> None:
-    if cfg.agg is not None and not isinstance(cfg.agg, hfl.AggContext):
-        raise NotImplementedError(
-            "EnvConfig.agg: only repro_torch.core.hfl.AggContext."
-            "single_chip() is ported; the multi-GPU bank is ROADMAP item 10")
-    if cfg.mesh is not None:
-        raise NotImplementedError("EnvConfig.mesh: the multi-GPU bank is "
-                                  "not ported yet (ROADMAP item 10)")
-
-
 class HFLEnv:
     """Gym-ish: reset() -> state; step(a) -> (state, reward, done, info)."""
 
@@ -132,7 +128,6 @@ class HFLEnv:
                  init_params: Optional[dict] = None,
                  perm_source: Optional[Callable] = None):
         cfg = cfg.fixup()
-        _refuse_unported(cfg)
         self.cfg = cfg
         # per-run health monitors: an explicit HealthMonitor (or a bare
         # HealthConfig) wins; else cfg.health toggles the defaults on.
@@ -142,8 +137,16 @@ class HFLEnv:
         elif isinstance(health, HealthConfig):
             health = HealthMonitor(health)
         self.health = health
+        # one AggContext carries the mesh and row placement of every
+        # aggregation this env runs
+        self.agg_ctx = hfl._resolve_ctx(cfg.agg, "EnvConfig")
         self.device = resolve_device(cfg.device)
-        self.agg_ctx = cfg.agg or hfl.AggContext.single_chip()
+        if self.agg_ctx.sharded:
+            if self.agg_ctx.mesh.device.type != self.device.type:
+                raise ValueError(f"EnvConfig.device {cfg.device!r} and the "
+                                 f"bank mesh's {self.agg_ctx.mesh.device} "
+                                 f"differ")
+            self.device = self.agg_ctx.mesh.device
         self.rng = np.random.default_rng(cfg.seed)
         self.profiles = hardware.DeviceProfiles.sample(
             self.rng, cfg.n_devices, task=cfg.task)
@@ -177,6 +180,9 @@ class HFLEnv:
                 train, test, cfg.n_devices, cfg.n_local,
                 scheme=cfg.data_scheme, seed=cfg.seed,
                 alpha=cfg.dirichlet_alpha)
+            # this rank's data shards (identity on one device)
+            self.fed.x = self.agg_ctx.place_rows(self.fed.x)
+            self.fed.y = self.agg_ctx.place_rows(self.fed.y)
             apply_fn = self._apply_fn
             self._loss_fn = lambda p, b: model_mod.cnn_loss(apply_fn, p, b)
             self._cloud_round = hfl.make_cloud_round(
@@ -235,7 +241,9 @@ class HFLEnv:
             self.health.reset()
         p0 = self._w0()
         if cfg.mode == "real":
-            self.bank = hfl.broadcast_model(p0, cfg.n_devices)
+            # every row starts from w(0): a rank builds its N/k rows only
+            self.bank = hfl.broadcast_model(
+                p0, self.agg_ctx.check_rows(cfg.n_devices))
             self.global_model = hfl.bank_select(self.bank, 0)
         else:
             self.global_model = p0
@@ -293,8 +301,8 @@ class HFLEnv:
         e_tot = float(e_edge.sum())
         # --- model update ---------------------------------------------------
         if cfg.mode == "real":
-            part = torch.as_tensor(np.asarray(participate, np.float32),
-                                   device=self.device)
+            part = self.agg_ctx.place_rows(torch.as_tensor(
+                np.asarray(participate, np.float32), device=self.device))
             sizes = self.fed.device_sizes() * part
             self.bank, self.global_model, self.edge_models = \
                 self._cloud_round(
@@ -394,8 +402,8 @@ class HFLEnv:
         """Replace the device->edge assignment (the profiling module's
         periodic re-cluster, paper 3.1)."""
         self.edge_assign = np.asarray(edge_assign, np.int64)
-        self._edge_assign_t = torch.as_tensor(
-            self.edge_assign.astype(np.int32), device=self.device)
+        self._edge_assign_t = self.agg_ctx.place_rows(torch.as_tensor(
+            self.edge_assign.astype(np.int32), device=self.device))
         self._edge_sizes = np.array(
             [np.sum(self.edge_assign == j) * self.cfg.n_local
              for j in range(self.cfg.n_edges)], np.float32)
@@ -556,7 +564,7 @@ class AsyncHFLEnv(HFLEnv):
             self._global_vec = self._spec.flatten_model(self.global_model)
             self._edge_mat = self._spec.flatten(self.edge_models)
             self._dev_sizes = self.fed.device_sizes()
-            self._edge_w = ref.segment_weight_sums(
+            self._edge_w = self.agg_ctx.segment_weight_sums(
                 self._dev_sizes, self._edge_assign_t, m).cpu().numpy()
         else:
             self._edge_w = self._edge_sizes.copy()

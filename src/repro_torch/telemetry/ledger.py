@@ -97,12 +97,14 @@ def config_digest(obj, exclude: tuple = ()):
     return _digest(summary), summary
 
 
-def mesh_desc(agg_ctx) -> str:
-    """The header's mesh field for an ``hfl.AggContext`` (or ``None``).
-    Only ``AggContext.single_chip()`` is ported (the multi-GPU bank is
-    ROADMAP item 10), and it reads ``"single-chip"``, as in the
-    reference."""
-    return "single-chip"
+def mesh_desc(agg_ctx) -> object:
+    """JSON-ready mesh shape of an ``hfl.AggContext`` (or ``None``):
+    ``"single-chip"``, or the bank mesh's axes and shape."""
+    mesh = getattr(agg_ctx, "mesh", None)
+    if mesh is None:
+        return "single-chip"
+    return {"axes": [str(a) for a in mesh.axis_names],
+            "shape": {str(k): int(v) for k, v in dict(mesh.shape).items()}}
 
 
 def run_header(*, scheme: str, env, params: Optional[dict] = None) -> dict:

@@ -1,0 +1,676 @@
+"""Rank driver of the port's sharded-bank tests (not a pytest file);
+imports only the port.
+
+    python tests/_torch_dist_driver.py WORLD INPUTS OUTDIR
+
+spawns WORLD ranks (``torch.multiprocessing``) on the CPU, joined by a
+gloo process group through a file store in OUTDIR; each rank runs torch
+on one intra-op thread, runs every case of ``CASES`` whose worlds include
+WORLD, in order (their collectives line up across ranks), and pickles
+``{case: result}`` to ``OUTDIR/rank<r>.pkl``. ``INPUTS`` is a pickle the
+test process wrote: the reference's draws for the rounds and the envs
+(``inputs`` below lists its keys). Results are numpy arrays, lists and
+flags: this rank's rows of a bank, the replicated (E, P) results, and
+the same computation on one device (no context) in the same process.
+
+The numpy data of each case comes from the ``*_inputs`` functions here,
+which ``tests/test_torch_sharded.py`` also calls to build the JAX
+reference's inputs, so both sides see the same arrays. They mirror
+``tests/test_sharded_bank.py`` case for case, with its seeds.
+"""
+import os
+import pickle
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.checkpoint import store
+from repro_torch.core import flatbank, hfl
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.runtime import (AsyncConfig, ChurnEvent, FaultSpec,
+                                 StalenessBuffer)
+from repro_torch.sim import AsyncHFLEnv, EnvConfig, HFLEnv
+from repro_torch.telemetry import ledger
+
+# the mesh shapes each world runs (rows shard over all ranks either way)
+MESHES = {1: [(1, 1)], 2: [(2, 1)], 4: [(4, 1), (2, 2)]}
+# the reference's async trajectory config (tests/test_sharded_bank.py)
+TRAJ_CFG = dict(task="mnist", mode="real", n_devices=8, n_edges=4,
+                n_local=32, batch_size=16, threshold_time=300.0,
+                gamma_max=2, seed=0)
+TRAJ_ASSIGN = np.repeat(np.arange(4), 2)        # edge-aligned shards
+TRAJ_RUNS = {"clean": 4, "faults": 6}           # events per trajectory
+ENV_ROUNDS = 2                                  # HFLEnv step_raw calls
+
+
+# ---------------------------------------------------------------------------
+# numpy inputs, shared with the test process
+# ---------------------------------------------------------------------------
+
+def mixed_bank_inputs():
+    """A nested-bank stand-in, f32 + bf16 leaves, P = 140, 16 rows on 5
+    segments (seed 2): (leaves, bf16 keys, weights, segment ids)."""
+    rng = np.random.default_rng(2)
+    n, m = 16, 5
+    leaves = {"conv/w": rng.normal(size=(n, 2, 3, 5)),
+              "conv/b": rng.normal(size=(n, 74)),
+              "head/0": rng.normal(size=(n, 5, 7)),
+              "head/1": rng.normal(size=(n,))}
+    leaves = {k: v.astype(np.float32) for k, v in leaves.items()}
+    w = rng.uniform(0.1, 3.0, size=(n,)).astype(np.float32)
+    seg = rng.integers(0, m, size=(n,)).astype(np.int32)
+    return leaves, ("conv/b", "head/0"), w, seg, m
+
+
+def uneven_inputs():
+    """Edge 0 spans ranks 0-2, edge 1 straddles ranks 2/3, edge 2 lies on
+    rank 3, edge 3 is empty (seed 3)."""
+    rng = np.random.default_rng(3)
+    seg = np.asarray([0] * 9 + [1] * 3 + [2] * 4, np.int32)
+    bank = {"w": rng.normal(size=(16, 130)).astype(np.float32)}
+    w = rng.uniform(0.5, 2.0, size=(16,)).astype(np.float32)
+    return bank, w, seg, 4
+
+
+def bf16_inputs():
+    rng = np.random.default_rng(4)
+    n, m = 8, 3
+    bank = {"a": rng.normal(size=(n, 9)).astype(np.float32),
+            "b": rng.normal(size=(n, 3, 2)).astype(np.float32)}
+    w = rng.uniform(0.5, 2.0, size=(n,)).astype(np.float32)
+    seg = rng.integers(0, m, size=(n,)).astype(np.int32)
+    return bank, w, seg, m
+
+
+def broadcast_inputs():
+    rng = np.random.default_rng(5)
+    models = rng.normal(size=(4, 137)).astype(np.float32)
+    seg = rng.integers(0, 4, size=(16,)).astype(np.int32)
+    return models, seg
+
+
+def cloud_agg_inputs():
+    rng = np.random.default_rng(6)
+    return (rng.normal(size=(4, 33)).astype(np.float32),
+            rng.uniform(1, 3, size=(4,)).astype(np.float32))
+
+
+def flush_inputs(kind: str):
+    """(vecs (K, P), weights, staleness, anchor or None, anchor weight):
+    ``stale`` K = 8 (seed 11), ``degraded`` 7 + an anchor (seed 13),
+    ``indivisible`` K = 5 (seed 12)."""
+    if kind == "indivisible":
+        rng = np.random.default_rng(12)
+        vecs = rng.normal(size=(5, 140)).astype(np.float32)
+        return vecs, np.arange(5, dtype=np.float32) + 1.0, \
+            np.zeros(5, np.int64), None, 0.0
+    rng = np.random.default_rng(11 if kind == "stale" else 13)
+    k = 8 if kind == "stale" else 7
+    vecs = np.stack([rng.normal(size=(130,)) for _ in range(k)]
+                    ).astype(np.float32)
+    anchor = None
+    if kind == "degraded":
+        anchor = rng.normal(size=(130,)).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, size=k).astype(np.float32)
+    tau = rng.integers(0, 4, size=k)
+    return vecs, w, tau, anchor, 2.5 if kind == "degraded" else 0.0
+
+
+def round_inputs(seed: int, n: int = 16):
+    """The reference's ``_round_fixtures``: a linear model's bank, data
+    and sizes (``loss_quad`` is its loss)."""
+    rng = np.random.default_rng(seed)
+    bank = {"w": rng.normal(size=(n, 4, 3)).astype(np.float32),
+            "b": rng.normal(size=(n, 3)).astype(np.float32)}
+    x = rng.normal(size=(n, 8, 4)).astype(np.float32)
+    y = rng.normal(size=(n, 8)).astype(np.float32)
+    sizes = rng.uniform(1, 3, size=(n,)).astype(np.float32)
+    return bank, x, y, sizes, rng
+
+
+def loss_quad(p, batch):
+    return torch.mean((batch["x"] @ p["w"][..., 0] - batch["y"]) ** 2)
+
+
+def cloud_round_inputs(aligned: bool):
+    """Seed 7, 16 rows: 5 edges on random rows (edges span ranks), or 4
+    edges of 4 contiguous rows (edge-aligned at 1, 2 and 4 ranks)."""
+    bank, x, y, sizes, rng = round_inputs(7)
+    if aligned:
+        m, seg = 4, np.repeat(np.arange(4), 4).astype(np.int32)
+        g1, g2 = np.array([2, 1, 3, 2]), np.array([1, 2, 1, 2])
+    else:
+        m = 5
+        seg = rng.integers(0, m, size=(16,)).astype(np.int32)
+        g1, g2 = np.array([2, 1, 3, 2, 1]), np.array([1, 2, 1, 2, 1])
+    return bank, x, y, sizes, seg, m, g1, g2
+
+
+def fedavg_inputs():
+    bank, x, y, sizes, rng = round_inputs(8)
+    return bank, x, y, sizes, rng.random(16) < 0.7
+
+
+def edge_round_inputs():
+    bank, x, y, sizes, rng = round_inputs(20)
+    seg = np.repeat(np.arange(4), 4).astype(np.int32)
+    gvec = rng.normal(size=(15,)).astype(np.float32)
+    return bank, x, y, sizes, seg, gvec
+
+
+def resync_inputs():
+    rng = np.random.default_rng(23)
+    bank_mat = rng.normal(size=(16, 37)).astype(np.float32)
+    edge_mat = rng.normal(size=(4, 37)).astype(np.float32)
+    return bank_mat, edge_mat, np.repeat(np.arange(4), 4).astype(np.int32)
+
+
+def traj_runtime(kind: str):
+    """(AsyncConfig, FaultSpec) of the reference's clean (all-zeros
+    spec) and faulty (drops, deadline flushes, a leave and a join of
+    edge 1) trajectories."""
+    if kind == "clean":
+        return AsyncConfig(buffer_k=2, decay="none"), FaultSpec(seed=3)
+    return (AsyncConfig(buffer_k=3, flush_deadline=20.0),
+            FaultSpec(drop_prob=0.6, churn=(ChurnEvent(30.0, 1, "leave"),
+                                            ChurnEvent(60.0, 1, "join")),
+                      seed=5))
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def _t(a, bf16=False):
+    t = torch.from_numpy(np.array(a))
+    return t.to(torch.bfloat16) if bf16 else t
+
+
+def _np(t):
+    if isinstance(t, dict):
+        return {k: _np(v) for k, v in t.items()}
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _ctx(shape, **kw):
+    return mesh_lib.make_bank_context(*shape, device="cpu", **kw)
+
+
+def _raises(exc, fn) -> bool:
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def _bank(leaves, bf16=()):
+    return {k: _t(v, k in bf16) for k, v in leaves.items()}
+
+
+def _leaf_rows(bank: dict) -> list:
+    return sorted({int(v.shape[0]) for v in bank.values()})
+
+
+# ---------------------------------------------------------------------------
+# cases: each returns {mesh label: result} (or one result)
+# ---------------------------------------------------------------------------
+
+def case_agg_mixed(world, inp):
+    leaves, bf16, w, seg, m = mixed_bank_inputs()
+    full = _bank(leaves, bf16)
+    out = {"single": _np(hfl.weighted_aggregate(full, _t(w), _t(seg), m))}
+    for shape in MESHES[world]:
+        ctx = _ctx(shape)
+        got = hfl.weighted_aggregate(ctx.place_bank(full), ctx.place_rows(
+            _t(w)), ctx.place_rows(_t(seg)), m, ctx=ctx)
+        out[shape] = _np(got)
+    return out
+
+
+def case_uneven(world, inp):
+    bank, w, seg, m = uneven_inputs()
+    ctx = _ctx((4, 1))
+    full = _bank(bank)
+    return {"single": _np(hfl.weighted_aggregate(full, _t(w), _t(seg), m)),
+            "got": _np(hfl.weighted_aggregate(
+                ctx.place_bank(full), ctx.place_rows(_t(w)),
+                ctx.place_rows(_t(seg)), m, ctx=ctx))}
+
+
+def case_bf16(world, inp):
+    bank, w, seg, m = bf16_inputs()
+    full = _bank(bank, ("a", "b"))
+    out = {"single": _np(hfl.weighted_aggregate(full, _t(w), _t(seg), m)),
+           "dtype": str(flatbank.bank_spec(full).dtype)}
+    for shape in MESHES[world][-1:]:
+        ctx = _ctx(shape)
+        part = ctx.place_bank(full)
+        got = hfl.weighted_aggregate(part, ctx.place_rows(_t(w)),
+                                     ctx.place_rows(_t(seg)), m, ctx=ctx)
+        out[shape] = {"got": _np(got), "dtypes": sorted(
+            str(v.dtype) for v in got.values())}
+    return out
+
+
+def case_broadcast(world, inp):
+    models, seg = broadcast_inputs()
+    ctx = _ctx(MESHES[world][0])
+    out = ops.segment_broadcast(_t(models), ctx.place_rows(_t(seg)))
+    return {"rows": _np(out), "shape": tuple(out.shape)}
+
+
+def case_cloud_agg(world, inp):
+    em, esz = cloud_agg_inputs()
+    want = hfl.cloud_aggregate({"w": _t(em)}, _t(esz))
+    out = {"single": _np(want)}
+    ctxs = [(world, _ctx((world, 1)))]
+    group3 = dist.new_group([0, 1, 2]) if world == 4 else None
+    if world == 4 and dist.get_rank() < 3:
+        ctxs.append((3, hfl.AggContext.for_mesh(
+            mesh_lib.make_bank_mesh(3, group=group3, device="cpu"))))
+    for k, ctx in ctxs:
+        got = hfl.cloud_aggregate({"w": _t(em)}, _t(esz), ctx=ctx)
+        out[k] = _np(got)
+        out[f"equal-{k}"] = torch.equal(got["w"], want["w"])
+    return out
+
+
+def _flush(kind, ctx):
+    vecs, w, tau, anchor, m_w = flush_inputs(kind)
+    k = len(vecs) + (anchor is not None)
+    decay = "none" if kind == "indivisible" else "poly"
+    buf = StalenessBuffer(k, decay=decay, decay_a=0.5, ctx=ctx,
+                          device="cpu")
+    for j in range(len(vecs)):
+        buf.push(j, _t(vecs[j]), float(w[j]), version=10 - int(tau[j]))
+    kw = {} if anchor is None else dict(anchor=_t(anchor), anchor_weight=m_w)
+    glob, info = buf.flush(version=10, **kw)
+    return glob, info
+
+
+def case_flushes(world, inp):
+    out = {}
+    for kind in ("stale", "degraded"):
+        single, _ = _flush(kind, None)
+        out[kind] = {"single": _np(single)}
+        for shape in MESHES[world]:
+            glob, info = _flush(kind, _ctx(shape))
+            out[kind][shape] = {"got": _np(glob), "equal": torch.equal(
+                glob, single), "staleness": info["staleness"],
+                "coverage": info.get("coverage")}
+    if world == 4:
+        vecs, w, *_ = flush_inputs("indivisible")
+        glob, _ = _flush("indivisible", _ctx((4, 1)))
+        want = ops.segment_agg(_t(vecs), _t(w), torch.zeros(
+            5, dtype=torch.int32), 1)[0]
+        out["indivisible"] = {"got": _np(glob),
+                              "equal": torch.equal(glob, want)}
+    return out
+
+
+def _cloud_round(ctx, aligned, perms):
+    bank, x, y, sizes, seg, m, g1, g2 = cloud_round_inputs(aligned)
+    rnd = hfl.make_cloud_round(loss_quad, 0.05, 4, m, 3, 2, ctx=ctx)
+    full = _bank(bank)
+    if ctx is None:
+        return rnd(full, _t(x), _t(y), _t(sizes), _t(seg), g1, g2, perms)
+    return rnd(ctx.place_bank(full), ctx.place_rows(_t(x)),
+               ctx.place_rows(_t(y)), ctx.place_rows(_t(sizes)),
+               ctx.place_rows(_t(seg)), g1, g2, perms)
+
+
+def case_cloud_round(world, inp):
+    out = {}
+    for aligned in (False, True):
+        perms = _t(inp["cloud_perms"])
+        b, g, e = _cloud_round(None, aligned, perms)
+        res = {"single": (_np(b), _np(g), _np(e))}
+        for shape in MESHES[world]:
+            b1, g1_, e1 = _cloud_round(_ctx(shape), aligned, perms)
+            res[shape] = (_np(b1), _np(g1_), _np(e1))
+        out[aligned] = res
+    return out
+
+
+def case_fedavg(world, inp):
+    bank, x, y, sizes, part = fedavg_inputs()
+    perms = _t(inp["fedavg_perms"])
+    out = {}
+    for label, ctx in (("single", None), ("sharded", _ctx((world, 1)))):
+        rnd = hfl.make_fedavg_round(loss_quad, 0.05, 4, 2, ctx=ctx)
+        place = (lambda a: a) if ctx is None else ctx.place_rows
+        full = _bank(bank)
+        b, g = rnd(full if ctx is None else ctx.place_bank(full),
+                   place(_t(x)), place(_t(y)), place(_t(sizes)),
+                   place(_t(part)), 2, perms)
+        out[label] = (_np(b), _np(g))
+    return out
+
+
+def case_placement(world, inp):
+    """No rank holds the full bank: the placed bank and the rounds'
+    output banks, which reuse the placed rows' storage; a clone passed in
+    stays as it was."""
+    ctx = _ctx((4, 1))
+    bank, x, y, sizes, seg, m, g1, g2 = cloud_round_inputs(True)
+    part = ctx.place_bank(_bank(bank))
+    before = {k: v.clone() for k, v in part.items()}
+    perms = _t(inp["cloud_perms"])
+    rnd = hfl.make_cloud_round(loss_quad, 0.05, 4, m, 2, 2, ctx=ctx)
+    args = (ctx.place_rows(_t(x)), ctx.place_rows(_t(y)),
+            ctx.place_rows(_t(sizes)), ctx.place_rows(_t(seg)),
+            np.full(m, 2), np.full(m, 2), perms)
+    kept = {k: v.clone() for k, v in part.items()}
+    kb, _, _ = rnd(kept, *args)
+    untouched = all(torch.equal(part[k], before[k]) for k in part)
+    ob, glob, edges = rnd(part, *args)
+    ebank, ex, ey, esz, eseg, gvec = edge_round_inputs()
+    epart = ctx.place_bank(_bank(ebank))
+    er = hfl.make_edge_round(loss_quad, 0.05, 4, 4, 2, 2, ctx=ctx)
+    eb, evec = er(epart, ctx.place_rows(_t(ex)), ctx.place_rows(_t(ey)),
+                  ctx.place_rows(_t(esz)), ctx.place_rows(_t(eseg)), 1, 2, 2,
+                  torch.zeros(15), _t(inp["edge_perms"]))
+    return {"placed_rows": _leaf_rows(part), "out_rows": _leaf_rows(ob),
+            "edge_out_rows": _leaf_rows(eb),
+            "glob_shapes": sorted(tuple(v.shape) for v in glob.values()),
+            "edge_shapes": sorted(tuple(v.shape) for v in edges.values()),
+            "evec_shape": tuple(evec.shape),
+            "in_place": all(ob[k].data_ptr() == part[k].data_ptr()
+                           for k in part)
+            and eb["w"].data_ptr() == epart["w"].data_ptr(),
+            "copy_untouched": untouched,
+            "copy_equal": all(torch.equal(kb[k], ob[k]) for k in kb),
+            "bank_mat_rows": int(flatbank.bank_spec(ob).flatten(ob).shape[0])}
+
+
+def case_indivisible(world, inp):
+    ctx = _ctx((4, 1))
+    bank, x, y, sizes, _ = round_inputs(10, n=10)
+    rnd = hfl.make_cloud_round(loss_quad, 0.05, 4, 2, 2, 2, ctx=ctx)
+    full = _bank(bank)
+    return {
+        "local_rows_8": flatbank.local_rows(8, ctx.mesh),
+        "local_rows_7": _raises(ValueError,
+                                lambda: flatbank.local_rows(7, ctx.mesh)),
+        "place_bank": _raises(ValueError, lambda: ctx.place_bank(full)),
+        "place_rows": _raises(ValueError, lambda: ctx.place_rows(_t(x))),
+        "round": _raises(ValueError, lambda: rnd(
+            full, _t(x), _t(y), _t(sizes), torch.zeros(10, dtype=torch.int32),
+            np.ones(2, np.int64), np.ones(2, np.int64),
+            torch.zeros((2, 2, 10, 8), dtype=torch.int64))),
+        "mesh_5": _raises(ValueError, lambda: mesh_lib.make_bank_mesh(5)),
+    }
+
+
+def case_context(world, inp):
+    """Construction and validation (one rank); the entry points take the
+    context only (the reference's deprecated ``mesh=`` kwargs have no
+    counterpart)."""
+    sc = hfl.AggContext.single_chip()
+    m1 = mesh_lib.make_bank_mesh(1, device="cpu")
+    ctx1 = hfl.AggContext.for_mesh(m1)
+    bank = {"w": torch.from_numpy(
+        np.random.default_rng(21).normal(size=(4, 9)).astype(np.float32))}
+    w, seg = torch.ones(4), torch.zeros(4, dtype=torch.int32)
+    want = hfl.weighted_aggregate(bank, w, seg, 1)["w"]
+    env = AsyncHFLEnv(EnvConfig(task="mnist", mode="analytic", n_devices=8,
+                                n_edges=4, threshold_time=300.0, seed=0,
+                                device="cpu", agg=ctx1))
+    env.reset()
+    return {
+        "single": (not sc.sharded and sc.mesh is None and sc.n_shards == 1
+                   and sc.axes == ()),
+        "for_mesh_none": _raises(ValueError,
+                                 lambda: hfl.AggContext.for_mesh(None)),
+        "for_mesh_str": _raises(TypeError,
+                                lambda: hfl.AggContext.for_mesh("mesh")),
+        "ctx1": (ctx1.sharded, ctx1.axes, ctx1.n_shards, ctx1.check_rows(8)),
+        "mesh1": (m1.axis_names, m1.shape, m1.size, m1.rank, str(m1.device)),
+        "mesh_2": _raises(ValueError, lambda: mesh_lib.make_bank_mesh(2)),
+        "spec": (flatbank.local_rows(8, m1),
+                 flatbank.row_slice(8, m1) == slice(0, 8),
+                 _leaf_rows(flatbank.place_bank(bank, m1))),
+        "replicated": _np(ctx1.place_replicated(
+            {"a": np.arange(3.0), "b": [torch.ones(2)]})["a"]).tolist()
+        + [type(flatbank.place_replicated([torch.ones(1)], m1)).__name__,
+           ctx1.place_replicated(bank) is not bank,
+           sc.place_replicated(bank) is bank, sc.place_rows(w) is w],
+        "ctx_equal": torch.equal(hfl.weighted_aggregate(
+            ctx1.place_bank(bank), w, seg, 1, ctx=ctx1)["w"], want),
+        "bad_ctx": [_raises(TypeError, f) for f in (
+            lambda: hfl.weighted_aggregate(bank, w, seg, 1, ctx="nope"),
+            lambda: hfl.edge_aggregate(bank, w, seg, 1, ctx=m1),
+            lambda: hfl.cloud_aggregate(bank, w, ctx=m1),
+            lambda: hfl.make_cloud_round(loss_quad, 0.1, 4, 1, 1, 1, ctx=m1),
+            lambda: hfl.make_fedavg_round(loss_quad, 0.1, 4, 1, ctx=m1),
+            lambda: StalenessBuffer(2, ctx=m1, device="cpu"),
+            lambda: AsyncHFLEnv(EnvConfig(task="mnist", mode="analytic",
+                                          device="cpu", agg=m1)))],
+        "buffer_ctx": StalenessBuffer(2, ctx=ctx1, device="cpu").ctx is ctx1,
+        "mesh_desc": ledger.mesh_desc(ctx1),
+        "single_desc": ledger.mesh_desc(sc),
+        "snapshot": (_raises(NotImplementedError,
+                             lambda: store.save_runtime(env, "unused"))
+                     and _raises(NotImplementedError,
+                                 lambda: store.load_runtime(env, "unused"))),
+    }
+
+
+def case_edge_round(world, inp):
+    bank, x, y, sizes, seg, gvec = edge_round_inputs()
+    perms = _t(inp["edge_perms"])
+
+    def run(ctx, j):
+        rnd = hfl.make_edge_round(loss_quad, 0.05, 4, 4, 3, 3, ctx=ctx)
+        full = _bank(bank)
+        place = (lambda a: a) if ctx is None else ctx.place_rows
+        b, e = rnd(full if ctx is None else ctx.place_bank(full),
+                   place(_t(x)), place(_t(y)), place(_t(sizes)),
+                   place(_t(seg)), j, 2, 2, _t(gvec), perms)
+        return _np(b), _np(e)
+
+    out = {"single": [run(None, j) for j in range(4)]}
+    for shape in MESHES[world]:
+        ctx = _ctx(shape)
+        out[shape] = [run(ctx, j) for j in range(4)]
+    return out
+
+
+def case_resync(world, inp):
+    bank_mat, edge_mat, seg = resync_inputs()
+    alive = np.arange(4) == 1                      # edge 1 rejoins
+    out = {"single": _np(hfl.masked_resync(_t(edge_mat), _t(bank_mat),
+                                           _t(seg), alive))}
+    for shape in MESHES[world]:
+        ctx = _ctx(shape)
+        out[shape] = _np(hfl.masked_resync(
+            _t(edge_mat), ctx.place_rows(_t(bank_mat)),
+            ctx.place_rows(_t(seg)), alive, ctx=ctx))
+    return out
+
+
+def _sources(inp):
+    """The reference's w(0), warmup shuffles and per-version edge-round
+    shuffles, as the env hooks take them."""
+    w0 = {k: torch.from_numpy(v) for k, v in inp["w0"].items()}
+    return dict(init_params=w0,
+                perm_source=lambda: _t(inp["warm_perms"]),
+                edge_perm_source=lambda v: _t(inp["async_perms"][int(v)]))
+
+
+def _traj(inp, ctx, kind, telemetry=False):
+    acfg, spec = traj_runtime(kind)
+    cfg = EnvConfig(**TRAJ_CFG, device="cpu", deterministic=True, agg=ctx,
+                    telemetry=telemetry)
+    env = AsyncHFLEnv(cfg, acfg, faults=spec, **_sources(inp))
+    env.set_topology(TRAJ_ASSIGN)
+    env.reset()
+    reset_acc = env.acc
+    traj, degraded, rows = [], 0, []
+    for _ in range(TRAJ_RUNS[kind]):
+        _, r, done, info = env.step(np.array([2.0, 2.0]))
+        traj.append((float(r), info["acc"], info["edge"], info["flushed"],
+                     info["dropped"]))
+        degraded += bool(info["flushed"] and env._flush_info.get("degraded"))
+        rows.append(_leaf_rows(env.bank))
+        if done:
+            break
+    return {"traj": traj, "degraded": degraded, "reset_acc": reset_acc,
+            "gvec": _np(env._global_vec),
+            "bank": _np(env._spec.flatten(env.bank)), "rows": rows,
+            "trace": len(env.telemetry.recorder) if telemetry else 0}
+
+
+def case_traj(world, inp):
+    out = {}
+    for kind in TRAJ_RUNS:
+        if world == 1:
+            out[(kind, "single")] = _traj(inp, None, kind)
+        out[(kind, "sharded")] = _traj(inp, _ctx((world, 1)), kind)
+    if world == 2:
+        out[("faults", "telemetry")] = _traj(inp, _ctx((2, 1)), "faults",
+                                             telemetry=True)
+    return out
+
+
+def _hflenv(inp, ctx):
+    perms = iter(inp["env_perms"])
+    w0 = {k: torch.from_numpy(v) for k, v in inp["w0"].items()}
+    cfg = EnvConfig(**TRAJ_CFG, device="cpu", deterministic=True, agg=ctx)
+    env = HFLEnv(cfg, init_params=w0, perm_source=lambda: _t(next(perms)))
+    env.set_topology(TRAJ_ASSIGN)
+    env.reset()
+    accs = [env.acc]
+    for _ in range(ENV_ROUNDS):
+        _, r, _, info = env.step_raw(np.full(4, 2), np.full(4, 2))
+        accs.append(info["acc"])
+    spec = flatbank.model_spec(env.global_model)
+    return {"accs": accs,
+            "gvec": _np(spec.flatten_model(env.global_model)),
+            "bank": _np(flatbank.bank_spec(env.bank).flatten(env.bank)),
+            "rows": _leaf_rows(env.bank), "device": str(env.device)}
+
+
+def case_one_row(world, inp):
+    """ROADMAP fault 3 on the CPU: 4 devices on 4 ranks, one bank row per
+    rank, so each rank's vmapped convolutions hold 1 row where one
+    device's hold 4. A deterministic MNIST ``HFLEnv``: reset and one
+    (2, 2) round, sharded and on one device in this process."""
+    cfg = dict(TRAJ_CFG, n_devices=4, device="cpu", deterministic=True)
+    out = {}
+    for label, ctx in (("single", None), ("sharded", _ctx((4, 1)))):
+        env = HFLEnv(EnvConfig(**cfg, agg=ctx))
+        env.set_topology(np.arange(4))
+        env.reset()
+        env.step_raw(np.full(4, 2), np.full(4, 2))
+        spec = flatbank.model_spec(env.global_model)
+        out[label] = {"acc": env.acc, "gvec": _np(spec.flatten_model(
+            env.global_model)), "bank": _np(flatbank.bank_spec(
+                env.bank).flatten(env.bank))}
+    return out
+
+
+def case_hflenv(world, inp):
+    out = {"sharded": _hflenv(inp, _ctx((world, 1)))}
+    if world == 1:
+        out["single"] = _hflenv(inp, None)
+    return out
+
+
+CASES = [("context", (1,), case_context),
+         ("agg_mixed", (1, 2, 4), case_agg_mixed),
+         ("uneven", (4,), case_uneven),
+         ("bf16", (2, 4), case_bf16),
+         ("broadcast", (2, 4), case_broadcast),
+         ("cloud_agg", (2, 4), case_cloud_agg),
+         ("flushes", (1, 2, 4), case_flushes),
+         ("cloud_round", (1, 2, 4), case_cloud_round),
+         ("fedavg", (4,), case_fedavg),
+         ("placement", (4,), case_placement),
+         ("indivisible", (4,), case_indivisible),
+         ("edge_round", (1, 2, 4), case_edge_round),
+         ("resync", (2, 4), case_resync),
+         ("hflenv", (1, 2), case_hflenv),
+         ("one_row", (4,), case_one_row),
+         ("traj", (1, 2, 4), case_traj)]
+
+
+def card_aggregation(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of a gloo group on the card (a ``torch.multiprocessing.
+    spawn`` target of ``tests/test_torch_cuda.py``): MNIST-width Eq. 1
+    (50 x 21,840, 5 contiguous edges of 10 rows, random weights) through
+    ``segment_agg_sharded`` on this rank's rows against the single launch
+    on the whole bank and the plain version, and the shard-local resync
+    of edge 2 against the one-device resync and the plain gather; writes
+    its findings to ``outdir/rank<r>.pt``."""
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        ctx = mesh_lib.make_bank_context(world)
+        dev, e = ctx.mesh.device, 5
+        gen = torch.Generator(device=dev).manual_seed(3)
+        bank = torch.randn((50, 21840), generator=gen, device=dev)
+        w = torch.rand((50,), generator=gen, device=dev) + 0.5
+        seg = torch.repeat_interleave(torch.arange(e, device=dev),
+                                      10).to(torch.int32)
+        single = ops.segment_agg(bank, w, seg, e)
+        lb, lw, ls = (ctx.place_rows(bank), ctx.place_rows(w),
+                      ctx.place_rows(seg))
+        ops.reset_launches()
+        got = ops.segment_agg_sharded(lb, lw, ls, e, ctx.mesh.group)
+        launches = dict(ops.LAUNCHES)
+        plain = ref.segment_agg_sharded_ref(lb, lw, ls, e, ctx.mesh.group)
+        one = [j for j in range(e) if j * 10 // 25 == (j * 10 + 9) // 25]
+        span = [j for j in range(e) if j not in one]
+        edge_mat = torch.randn((e, 21840), generator=gen, device=dev)
+        alive = np.arange(e) == 2
+        rows = flatbank.row_slice(50, ctx.mesh)
+        resync = hfl.masked_resync(edge_mat, lb, ls, alive, ctx=ctx)
+        keep = torch.as_tensor(alive, device=dev)[ls.long()]
+        res = {"launches": launches, "device": str(got.device),
+               "one_rank_edges": one,
+               "bitwise": torch.equal(got[one], single[one]),
+               "span": bool(torch.allclose(got[span], single[span],
+                                           atol=1e-5, rtol=1e-5)),
+               "plain": bool(torch.allclose(got, plain, atol=1e-5,
+                                            rtol=1e-5)),
+               "resync": torch.equal(
+                   resync, hfl.masked_resync(edge_mat, bank, seg,
+                                             alive)[rows]),
+               "resync_plain": torch.equal(resync, torch.where(
+                   keep[:, None], ref.segment_broadcast_ref(
+                       edge_mat, ls, lb.dtype), lb))}
+        torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank(rank: int, world: int, inputs: str, outdir: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(outdir, "store"),
+        rank=rank, world_size=world)
+    try:
+        with open(inputs, "rb") as f:
+            inp = pickle.load(f)
+        res = {name: fn(world, inp) for name, worlds, fn in CASES
+               if world in worlds}
+        with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def main() -> None:
+    world, inputs, outdir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    mp.spawn(_rank, args=(world, inputs, outdir), nprocs=world, join=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -28,6 +28,7 @@ from repro.sim import env as jenv
 from repro_torch import weights
 from repro_torch.core import flatbank, hfl, sync
 from repro_torch.kernels import ops, ref
+from repro_torch.launch.mesh import BankMesh
 from repro_torch.models import model
 from repro_torch.runtime import (AsyncConfig, ChurnEvent, FaultSpec,
                                  Outage, StalenessBuffer)
@@ -519,8 +520,13 @@ def test_async_env_refuses_unported_options_and_defaults_to_the_card():
     pe = AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu", telemetry=True,
                                health=True))
     assert pe.telemetry.enabled and isinstance(pe.health, HealthMonitor)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu", mesh=object()))
+    mesh = BankMesh(dims=(1, 1), rank=0, device=torch.device("cpu"))
+    pm = AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu",
+                               agg=hfl.AggContext.for_mesh(mesh)))
+    assert pm.agg_ctx.mesh is mesh and pm.agg_ctx.sharded
+    assert pm.reset().shape == pm.state_shape
+    with pytest.raises(TypeError, match="AggContext"):
+        AsyncHFLEnv(EnvConfig(**ANALYTIC, device="cpu", agg=mesh))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             AsyncHFLEnv(EnvConfig(**ANALYTIC))

@@ -24,7 +24,7 @@ from repro_torch.kernels import _build, flash_attention, hier_agg, ops, ref
 from repro_torch.models import model
 from repro_torch.models.rwkv import wkv_scan
 from repro_torch.runtime import AsyncConfig, FaultSpec
-from repro_torch.sim import AsyncHFLEnv, EnvConfig
+from repro_torch.sim import AsyncHFLEnv, EnvConfig, HFLEnv
 from repro_torch.telemetry import MetricsRegistry, ktime
 
 pytestmark = pytest.mark.cuda
@@ -758,3 +758,62 @@ def test_reduced_serve_on_card_matches_cpu(cuda_dev, arch):
         if k != "t":
             torch.testing.assert_close(outs[1][1][k].cpu(), a, atol=1e-4,
                                        rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the sharded bank over torch.distributed (one card)
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_sharded_nccl_one_rank_round_is_bitwise_on_card(cuda_dev):
+    """NCCL, one rank in this process: a deterministic MNIST-width
+    ``HFLEnv`` (8 devices, 4 edges) under ``make_bank_context(1)``, reset
+    and one (2, 2) round, bitwise the one-device env: accuracy, global
+    model and bank."""
+    import torch.distributed as dist
+    from repro_torch.core import flatbank
+    from repro_torch.launch import mesh as mesh_lib
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        out = []
+        for ctx in (None, mesh_lib.make_bank_context(1)):
+            env = HFLEnv(EnvConfig(task="mnist", mode="real", n_devices=8,
+                                   n_edges=4, n_local=64, gamma_max=2,
+                                   deterministic=True, agg=ctx))
+            env.reset()
+            env.step_raw(np.full(4, 2), np.full(4, 2))
+            spec = flatbank.model_spec(env.global_model)
+            out.append((env.acc, spec.flatten_model(env.global_model),
+                        flatbank.bank_spec(env.bank).flatten(env.bank),
+                        env.bank["c1_b"].device))
+    finally:
+        dist.destroy_process_group()
+    (acc0, g0, b0, d0), (acc1, g1, b1, d1) = out
+    assert acc0 == acc1 and torch.equal(g0, g1) and torch.equal(b0, b1)
+    assert d0.type == d1.type == "cuda"
+
+
+def test_sharded_gloo_two_ranks_aggregation_on_card(cuda_dev, tmp_path):
+    """Two gloo ranks spawned on the one card: the sharded Eq. 1 at MNIST
+    width makes one launch per rank, the edges on one rank are bitwise
+    the single launch's, the spanning edge within 1e-5, the whole within
+    1e-5 of the plain version; the shard-local resync is bitwise the
+    one-device resync and the plain gather."""
+    import torch.multiprocessing as mp
+    import _torch_dist_driver as drv
+    mp.spawn(drv.card_aggregation, args=(2, _free_port(), str(tmp_path)),
+             nprocs=2, join=True)
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt")
+        assert res["launches"]["segment_agg"] == 1
+        assert res["device"].startswith("cuda")
+        assert res["one_rank_edges"] == [0, 1, 3, 4]
+        assert res["bitwise"] and res["span"] and res["plain"]
+        assert res["resync"] and res["resync_plain"]

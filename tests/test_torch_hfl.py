@@ -134,7 +134,7 @@ def test_bank_helpers_and_unported_context():
     assert torch.equal(mat[0], mat[2])                        # same w(0)
     one = hfl.bank_select(bank, 1)
     assert all(torch.equal(one[k], bank[k][1]) for k in bank)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="BankMesh"):
         hfl.AggContext.for_mesh(object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

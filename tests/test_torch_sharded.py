@@ -1,0 +1,648 @@
+"""The port's row-sharded bank over ``torch.distributed``: gloo process
+groups of 1, 2 and 4 ranks on the CPU, case for case what
+``tests/test_sharded_bank.py`` holds for the reference's mesh path.
+
+Each world size is spawned once (``tests/_torch_dist_driver.py``, one
+intra-op thread per rank) and runs every case; the module fixture
+gathers every rank's results. Each case is held against the same
+computation on one device (no context) -- bitwise where every edge's
+rows lie on one rank, within 1e-5 where an edge spans ranks -- and
+against the JAX package's single-device result on the same numpy
+inputs, at the tolerance of the existing single-device parity test of
+that function. Banks come back as each rank's rows; no rank may hold
+more than ``N/k`` of them.
+"""
+import functools
+import os
+import pickle
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import _torch_dist_driver as drv
+from _subproc import REPO, child_env
+from _torch_parity import (jax_async_perm_sources, jax_env_perm_source,
+                           jax_fedavg_perms, jax_round_perms)
+
+from repro.core import hfl as jhfl
+from repro.kernels import ref as jref
+from repro.models import model as jmodel
+from repro.runtime import AsyncConfig as JAsyncConfig
+from repro.runtime import ChurnEvent as JChurnEvent
+from repro.runtime import FaultSpec as JFaultSpec
+from repro.runtime import StalenessBuffer as JStalenessBuffer
+from repro.sim import env as jenv
+from repro_torch.kernels import ops, ref
+
+WORLDS = (1, 2, 4)
+MESH_CASES = [(w, s) for w in WORLDS for s in drv.MESHES[w]]
+MESH_IDS = [f"{s[0]}x{s[1]}" for _, s in MESH_CASES]
+SEED = drv.TRAJ_CFG["seed"]
+G = drv.TRAJ_CFG["gamma_max"]
+N = drv.TRAJ_CFG["n_devices"]
+N_LOCAL = drv.TRAJ_CFG["n_local"]
+VERSIONS = 8                     # edge-round shuffles for versions 0..7
+# ROADMAP section 3, fault 3: a rank's vmapped convolutions hold its N/k
+# rows, one device's all N, and the CPU's convolution takes another path
+# for a 1-row call. 4 MNIST devices on 4 ranks (deterministic HFLEnv,
+# reset + one (2, 2) round): 4.47e-8 on the global model and the bank
+# (CPU); the bound is that rounded up. With 2 or more rows per rank the
+# CPU runs are bitwise (the trajectory tests below).
+ONE_ROW_BOUND = 1e-7
+
+
+def _inputs() -> dict:
+    """The reference's draws for the rounds and the envs, as numpy."""
+    perm_source, edge_perm_source = jax_async_perm_sources(
+        SEED, G, G, N, N_LOCAL)
+    env_source = jax_env_perm_source(SEED, G, G, N, N_LOCAL)
+    w0 = jmodel.mnist_cnn_init(jax.random.PRNGKey(SEED + 1000))
+    return {
+        "cloud_perms": jax_round_perms(jax.random.PRNGKey(0), 2, 3, 16, 8),
+        "fedavg_perms": jax_fedavg_perms(jax.random.PRNGKey(1), 2, 16, 8),
+        "edge_perms": jax_round_perms(jax.random.PRNGKey(3), 3, 3, 16, 8),
+        "w0": {k: np.asarray(v) for k, v in w0.items()},
+        "warm_perms": perm_source().numpy(),
+        "async_perms": [edge_perm_source(v).numpy()
+                        for v in range(VERSIONS)],
+        "env_perms": [env_source().numpy()
+                      for _ in range(drv.ENV_ROUNDS + 1)],
+    }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Torch on one intra-op thread in this process: a thread pool per
+    xdist worker over the same cores slows the CPU cases many times."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{world: [rank 0's results, rank 1's, ...]}: the three worlds run
+    at once, one driver process each, while this process computes the
+    reference's env runs."""
+    root = tmp_path_factory.mktemp("dist")
+    inputs = root / "inputs.pkl"
+    with open(inputs, "wb") as f:
+        pickle.dump(_inputs(), f)
+    driver = os.path.join(REPO, "tests", "_torch_dist_driver.py")
+    procs = {}
+    for w in WORLDS:
+        (root / f"w{w}").mkdir()
+        procs[w] = subprocess.Popen(
+            [sys.executable, driver, str(w), str(inputs),
+             str(root / f"w{w}")], env=child_env(OMP_NUM_THREADS=1),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _jtraj_all()
+    _jenv_accs()
+    out = {}
+    for w, p in procs.items():
+        _, err = p.communicate(timeout=900)
+        assert p.returncode == 0, err[-4000:]
+        out[w] = []
+        for r in range(w):
+            with open(root / f"w{w}" / f"rank{r}.pkl", "rb") as f:
+                out[w].append(pickle.load(f))
+    return out
+
+
+def _same(a, b) -> bool:
+    """Bitwise (as torch.equal: -0 equals +0) for arrays, dicts, lists."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and bool(np.all(a == b))
+    return a == b
+
+
+def _rows(parts: list):
+    """The ranks' row parts (arrays or dicts of arrays) joined in rank
+    order: the whole bank, for comparison only."""
+    if isinstance(parts[0], dict):
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return np.concatenate(parts)
+
+
+def _close(got, want, atol, rtol=0.0):
+    if isinstance(got, dict):
+        assert sorted(got) == sorted(want)
+        for k in got:
+            _close(got[k], want[k], atol, rtol)
+        return
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64), atol=atol,
+                               rtol=rtol)
+
+
+def _replicated(results: list, case: str, *key):
+    """The value every rank returned for ``case`` (asserting they agree
+    bitwise: the sharded results are replicated)."""
+    vals = []
+    for res in results:
+        v = res[case]
+        for k in key:
+            v = v[k]
+        vals.append(v)
+    for v in vals[1:]:
+        assert _same(v, vals[0])
+    return vals[0]
+
+
+def _nest(flat: dict) -> dict:
+    """The driver's flat mixed-bank keys as the reference's nested tree."""
+    return {"conv": {"w": flat["conv/w"], "b": flat["conv/b"]},
+            "head": [flat["head/0"], flat["head/1"]]}
+
+
+def _flat(tree) -> dict:
+    return {"conv/w": tree["conv"]["w"], "conv/b": tree["conv"]["b"],
+            "head/0": tree["head"][0], "head/1": tree["head"][1]}
+
+
+def _jbank(leaves, bf16=()):
+    return {k: jnp.asarray(v, jnp.bfloat16 if k in bf16 else jnp.float32)
+            for k, v in leaves.items()}
+
+
+def _f32(tree):
+    return {k: np.asarray(v, np.float32) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# mesh construction, the context, the shims
+# ---------------------------------------------------------------------------
+
+def test_agg_context_construction_and_validation(runs):
+    c = runs[1][0]["context"]
+    assert c["single"] and c["for_mesh_none"] and c["for_mesh_str"]
+    assert c["ctx1"] == (True, ("edge", "fl"), 1, 8)
+    assert c["mesh1"] == (("edge", "fl"), {"edge": 1, "fl": 1}, 1, 0, "cpu")
+
+
+def test_make_bank_mesh_needs_a_group_of_its_size(runs):
+    assert runs[1][0]["context"]["mesh_2"]
+    assert all(r["indivisible"]["mesh_5"] for r in runs[4])
+
+
+def test_flatbank_placement_plumbing(runs):
+    """``flatbank``'s row layout: rows per shard, this rank's slice, a
+    placed bank's rows, replicated trees keeping their container type;
+    on one device the context's placement is the identity."""
+    c = runs[1][0]["context"]
+    assert c["spec"] == (8, True, [4])
+    assert c["replicated"] == [0.0, 1.0, 2.0, "list", True, True, True]
+    for r in runs[4]:
+        assert r["indivisible"]["local_rows_8"] == 2
+        assert r["indivisible"]["local_rows_7"]
+
+
+def test_entry_points_take_a_context_only(runs):
+    """A one-rank context gives the one-device result; every entry point
+    (weighted/edge/cloud aggregate, both round factories, the buffer,
+    the env) raises TypeError for a ctx that is not an ``AggContext``
+    (a bare ``BankMesh`` included); the buffer keeps the context it was
+    given."""
+    c = runs[1][0]["context"]
+    assert c["ctx_equal"] and c["buffer_ctx"]
+    assert c["bad_ctx"] == [True] * 7
+
+
+def test_ledger_mesh_and_sharded_snapshot(runs):
+    c = runs[1][0]["context"]
+    assert c["mesh_desc"] == {"axes": ["edge", "fl"],
+                              "shape": {"edge": 1, "fl": 1}}
+    assert c["single_desc"] == "single-chip"
+    assert c["snapshot"]
+
+
+# ---------------------------------------------------------------------------
+# aggregation: sharded vs one device vs the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("world,shape", MESH_CASES, ids=MESH_IDS)
+def test_weighted_aggregate_sharded_matches_oracle(runs, world, shape):
+    """Mixed f32 + bf16 bank, P = 140, 5 edges on random rows: within the
+    reference's 1e-5 (bf16 2e-2) of its tree oracle and of the one-device
+    port; the one-device port within the parity test's 1e-6 of the
+    reference's ``weighted_aggregate``; the same bits on every rank."""
+    leaves, bf16, w, seg, m = drv.mixed_bank_inputs()
+    got = _replicated(runs[world], "agg_mixed", shape)
+    single = runs[world][0]["agg_mixed"]["single"]
+    jb = _nest(_jbank(leaves, bf16))
+    oracle = _flat(jref.weighted_aggregate_ref(jb, jnp.asarray(w),
+                                               jnp.asarray(seg), m))
+    want = _flat(jhfl.weighted_aggregate(jb, jnp.asarray(w),
+                                         jnp.asarray(seg), m))
+    for k in got:
+        tol = 2e-2 if k in bf16 else 1e-5
+        _close(got[k], np.asarray(oracle[k], np.float32), tol, tol)
+        _close(got[k], single[k], tol, tol)
+        _close(single[k], np.asarray(want[k], np.float32),
+               2e-2 if k in bf16 else 1e-6)
+    if world == 1:
+        assert _same(got, single)
+
+
+def test_uneven_edge_to_shard_split(runs):
+    """Edge 0 spans ranks 0-2, edge 1 straddles ranks 2/3, edge 2 lies on
+    rank 3 and edge 3 is empty: within 1e-5 of the oracle, the empty
+    segment exactly zero, the one-rank edge bitwise the one-device one."""
+    bank, w, seg, m = drv.uneven_inputs()
+    got = _replicated(runs[4], "uneven", "got")["w"]
+    single = runs[4][0]["uneven"]["single"]["w"]
+    oracle = np.asarray(jref.weighted_aggregate_ref(
+        {"w": jnp.asarray(bank["w"])}, jnp.asarray(w), jnp.asarray(seg),
+        m)["w"])
+    _close(got, oracle, 1e-5, 1e-5)
+    _close(got, single, 1e-5, 1e-5)
+    assert np.abs(got[3]).max() == 0.0
+    assert _same(got[2], single[2])
+    want = np.asarray(jhfl.weighted_aggregate(
+        {"w": jnp.asarray(bank["w"])}, jnp.asarray(w), jnp.asarray(seg),
+        m)["w"])
+    _close(single, want, 1e-6)
+
+
+@pytest.mark.parametrize("world", [2, 4], ids=["2x1", "2x2"])
+def test_sharded_bf16_bank(runs, world):
+    """A bf16 bank stays bf16 through the sharded path (f32 only inside
+    the kernel and the collective)."""
+    bank, w, seg, m = drv.bf16_inputs()
+    shape = drv.MESHES[world][-1]
+    res = _replicated(runs[world], "bf16", shape)
+    assert runs[world][0]["bf16"]["dtype"] == "torch.bfloat16"
+    assert res["dtypes"] == ["torch.bfloat16"] * 2
+    jb = _jbank(bank, ("a", "b"))
+    oracle = jref.weighted_aggregate_ref(jb, jnp.asarray(w),
+                                         jnp.asarray(seg), m)
+    _close(res["got"], _f32(oracle), 4e-2, 4e-2)
+    _close(res["got"], runs[world][0]["bf16"]["single"], 4e-2, 4e-2)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_shard_local_broadcast_matches_ref(runs, world):
+    """The shard-local resync: replicated (E, P) models onto each rank's
+    rows only, bitwise the gather oracle."""
+    models, seg = drv.broadcast_inputs()
+    parts = [r["broadcast"]["rows"] for r in runs[world]]
+    assert {r["broadcast"]["shape"] for r in runs[world]} \
+        == {(16 // world, 137)}
+    want = np.asarray(jref.segment_broadcast_ref(jnp.asarray(models),
+                                                 jnp.asarray(seg)))
+    assert _same(_rows(parts), want)
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_cloud_aggregate_replicated_bitwise(runs, k):
+    """Eq. 2 under a mesh is the plain launch on every rank: bitwise the
+    one-device result for any shard count, 3 (a subgroup of the 4-rank
+    world, E = 4 not divisible) included; within the parity test's 1e-6
+    of the reference."""
+    ranks = runs[2] if k == 2 else runs[4][:k] if k == 3 else runs[4]
+    for r in ranks:
+        assert r["cloud_agg"][f"equal-{k}"]
+        assert _same(r["cloud_agg"][k], r["cloud_agg"]["single"])
+    em, esz = drv.cloud_agg_inputs()
+    want = jhfl.cloud_aggregate({"w": jnp.asarray(em)}, jnp.asarray(esz))
+    _close(ranks[0]["cloud_agg"]["single"]["w"], np.asarray(want["w"]), 1e-6)
+
+
+@pytest.mark.parametrize("n,k,m", [(16, 2, 4), (16, 4, 4), (50, 5, 5),
+                                   (40, 4, 4)])
+def test_plain_sums_of_aligned_shards_are_the_whole_banks_bits(n, k, m):
+    """The CPU path of ``segment_agg_sharded`` on edge-aligned shards,
+    its ``all_reduce`` done by hand: the ranks' plain partial sums and
+    weight sums added (one non-zero term per segment, so any order) and
+    multiplied by the reciprocal are bitwise the one-device
+    ``segment_agg``, for 20 random banks and weights each. It rests on
+    the CPU path adding the weights in f64, where the sums are exact
+    over any subset of rows, as the kernel's one chain per segment is
+    over a shard's rows; f32 sums of a shard's rows and of all rows
+    associate differently."""
+    for seed in range(20):
+        rng = np.random.default_rng(seed)
+        bank = torch.from_numpy(rng.normal(size=(n, 33)).astype(np.float32))
+        w = torch.from_numpy(rng.uniform(0.1, 3.0, n).astype(np.float32))
+        seg = torch.from_numpy(np.repeat(np.arange(m), n // m).astype(
+            np.int32))
+        per = n // k
+        parts = [ops.segment_sum_partial(bank[r * per:(r + 1) * per],
+                                         w[r * per:(r + 1) * per],
+                                         seg[r * per:(r + 1) * per], m)
+                 for r in range(k)]
+        sums, wsum = parts[0]
+        for s, ws in parts[1:]:
+            sums, wsum = sums + s, wsum + ws
+        got = sums * (1.0 / wsum.clamp_min(1e-9))[:, None]
+        assert torch.equal(got, ops.segment_agg(bank, w, seg, m)), seed
+
+
+# ---------------------------------------------------------------------------
+# staleness-weighted flushes
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _reference_flush(kind):
+    vecs, w, tau, anchor, m_w = drv.flush_inputs(kind)
+    k = len(vecs) + (anchor is not None)
+    buf = JStalenessBuffer(k, decay="poly", decay_a=0.5)
+    for j in range(len(vecs)):
+        buf.push(j, jnp.asarray(vecs[j]), float(w[j]),
+                 version=10 - int(tau[j]))
+    kw = {} if anchor is None else dict(anchor=jnp.asarray(anchor),
+                                        anchor_weight=m_w)
+    return np.asarray(buf.flush(version=10, **kw)[0])
+
+
+@pytest.mark.parametrize("kind", ["stale", "degraded"])
+@pytest.mark.parametrize("world,shape", MESH_CASES, ids=MESH_IDS)
+def test_flush_sharded_matches_oracle_and_is_bitwise(runs, world, shape,
+                                                    kind):
+    """The async flush (staleness folded into the weights; degraded: 7
+    survivors plus the anchor row) runs replicated under a mesh: bitwise
+    the one-device flush at any shard count, within 1e-5 of the numpy
+    oracle and of the reference's flush."""
+    vecs, w, tau, anchor, m_w = drv.flush_inputs(kind)
+    res = _replicated(runs[world], "flushes", kind, shape)
+    assert res["equal"] and res["staleness"] == tau.tolist()
+    if kind == "stale":
+        want = ref.staleness_aggregate_ref(vecs, w, tau, decay="poly", a=0.5)
+    else:
+        assert 0.0 < res["coverage"] < 1.0
+        want = ref.coverage_aggregate_ref(vecs, w, tau, anchor, m_w,
+                                          decay="poly", a=0.5)
+    _close(res["got"], want, 1e-5, 1e-5)
+    _close(res["got"], _reference_flush(kind), 1e-5, 1e-5)
+
+
+def test_staleness_flush_indivisible_k_is_bitwise(runs):
+    """K = 5 on 4 ranks: the flush is the plain launch on every rank, so
+    bitwise the one-device ``segment_agg``."""
+    res = _replicated(runs[4], "flushes", "indivisible")
+    assert res["equal"]
+    vecs, w, *_ = drv.flush_inputs("indivisible")
+    want = jref.segment_agg_ref(jnp.asarray(vecs), jnp.asarray(w),
+                                jnp.zeros((5,), jnp.int32), 1)[0]
+    _close(res["got"], np.asarray(want), 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# rounds (training on)
+# ---------------------------------------------------------------------------
+
+def _jloss(p, batch):
+    return jnp.mean((batch["x"] @ p["w"][..., 0] - batch["y"]) ** 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _jcloud_round(aligned):
+    bank, x, y, sizes, seg, m, g1, g2 = drv.cloud_round_inputs(aligned)
+    rnd = jhfl.make_cloud_round(_jloss, 0.05, 4, m, 3, 2)
+    b, g, e = rnd({k: jnp.asarray(v) for k, v in bank.items()},
+                  jnp.asarray(x), jnp.asarray(y), jnp.asarray(sizes),
+                  jnp.asarray(seg), jnp.asarray(g1), jnp.asarray(g2),
+                  jax.random.PRNGKey(0))
+    return _f32(b), _f32(g), _f32(e)
+
+
+@pytest.mark.parametrize("aligned", [False, True],
+                         ids=["spanning", "aligned"])
+@pytest.mark.parametrize("world,shape", MESH_CASES, ids=MESH_IDS)
+def test_cloud_round_sharded_matches_single_chip(runs, world, shape,
+                                                 aligned):
+    """A cloud round of the linear fixture with local SGD on, the
+    reference's shuffles: bank rows, global and edge models bitwise the
+    one-device round when every edge lies on one rank, within 1e-5 when
+    edges span ranks; the one-device round within the parity test's
+    rtol 1e-4 / atol 1e-5 of the reference's."""
+    res = [r["cloud_round"][aligned] for r in runs[world]]
+    single = res[0]["single"]
+    bank = _rows([r[shape][0] for r in res])
+    glob = _replicated(runs[world], "cloud_round", aligned, shape, 1)
+    edges = _replicated(runs[world], "cloud_round", aligned, shape, 2)
+    got = (bank, glob, edges)
+    if aligned:
+        assert _same(got, single)
+    else:
+        for a, b in zip(got, single):
+            _close(a, b, 1e-5, 1e-5)
+    for a, b in zip(single, _jcloud_round(aligned)):
+        _close(a, b, 1e-5, 1e-4)
+
+
+def test_fedavg_round_sharded_matches_single_chip(runs):
+    """FedAvg's one segment spans all 4 ranks: bank and global model
+    within 1e-5 of the one-device round, which is within the parity
+    test's 1e-5 of the reference's."""
+    res = [r["fedavg"] for r in runs[4]]
+    bank = _rows([r["sharded"][0] for r in res])
+    glob = res[0]["sharded"][1]
+    _close(bank, res[0]["single"][0], 1e-5, 1e-5)
+    _close(glob, res[0]["single"][1], 1e-5, 1e-5)
+    bank0, x, y, sizes, part = drv.fedavg_inputs()
+    rnd = jhfl.make_fedavg_round(_jloss, 0.05, 4, max_g1=2)
+    jb, jg = rnd({k: jnp.asarray(v) for k, v in bank0.items()},
+                 jnp.asarray(x), jnp.asarray(y), jnp.asarray(sizes),
+                 jnp.asarray(part), jnp.asarray(2), jax.random.PRNGKey(1))
+    _close(res[0]["single"][0], _f32(jb), 1e-5)
+    _close(res[0]["single"][1], _f32(jg), 1e-5)
+
+
+def test_sharded_round_never_materializes_full_bank(runs):
+    """Each of 4 ranks holds N/4 = 4 rows of the placed bank and of the
+    cloud and edge rounds' output banks; global and edge models and the
+    edge vector come back whole; the round updates the rank's rows in
+    place, and a clone passed in instead leaves them untouched and gives
+    the same result."""
+    for r in runs[4]:
+        p = r["placement"]
+        assert p["placed_rows"] == p["out_rows"] == p["edge_out_rows"] \
+            == [4]
+        assert p["bank_mat_rows"] == 4
+        assert p["glob_shapes"] == [(3,), (4, 3)]
+        assert p["edge_shapes"] == [(4, 3), (4, 4, 3)]
+        assert p["evec_shape"] == (15,)
+        assert p["in_place"] and p["copy_untouched"] and p["copy_equal"]
+
+
+def test_round_rejects_indivisible_rows(runs):
+    """10 rows on 4 ranks: placing them raises, and so does a sharded
+    round handed a bank that is not a rank's N/k rows."""
+    for r in runs[4]:
+        i = r["indivisible"]
+        assert i["place_bank"] and i["place_rows"] and i["round"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jedge_rounds():
+    bank, x, y, sizes, seg, gvec = drv.edge_round_inputs()
+    rnd = jhfl.make_edge_round(_jloss, 0.05, 4, 4, 3, 3)
+    out = []
+    for j in range(4):
+        b, e = rnd({k: jnp.asarray(v) for k, v in bank.items()},
+                   jnp.asarray(x), jnp.asarray(y), jnp.asarray(sizes),
+                   jnp.asarray(seg), jnp.int32(j), jnp.int32(2),
+                   jnp.int32(2), jnp.asarray(gvec), jax.random.PRNGKey(3))
+        out.append((_f32(b), np.asarray(e)))
+    return out
+
+
+@pytest.mark.parametrize("world,shape", MESH_CASES, ids=MESH_IDS)
+def test_edge_round_sharded_bitwise(runs, world, shape):
+    """The async edge round of each of 4 edge-aligned edges: the edge
+    vector (the same on every rank) and the bank bitwise the one-device
+    round's; the one-device round within the parity test's 1e-5 of the
+    reference's."""
+    res = [r["edge_round"] for r in runs[world]]
+    single = res[0]["single"]
+    for j in range(4):
+        bank = _rows([r[shape][j][0] for r in res])
+        evec = _replicated(runs[world], "edge_round", shape, j, 1)
+        assert _same(evec, single[j][1]) and _same(bank, single[j][0])
+    for (b, e), (jb, je) in zip(single, _jedge_rounds()):
+        _close(e, je, 1e-5)
+        _close(b, jb, 1e-5)
+
+
+@pytest.mark.parametrize("world,shape", MESH_CASES[1:], ids=MESH_IDS[1:])
+def test_masked_resync_sharded_churn_join_bitwise(runs, world, shape):
+    """Churn-join: edge 1's rows take its edge model, each rank writing
+    its own rows; bitwise the one-device resync and the reference's."""
+    bank_mat, edge_mat, seg = drv.resync_inputs()
+    res = [r["resync"] for r in runs[world]]
+    got = _rows([r[shape] for r in res])
+    assert {r[shape].shape[0] for r in res} == {16 // world}
+    assert _same(got, res[0]["single"])
+    alive = np.arange(4) == 1
+    want = jhfl.masked_resync(jnp.asarray(edge_mat), jnp.asarray(bank_mat),
+                              jnp.asarray(seg), jnp.asarray(alive))
+    assert _same(got, np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# the envs end to end
+# ---------------------------------------------------------------------------
+
+def _jtraj(kind):
+    """The reference's single-device trajectory of ``kind`` (its own key
+    chain, which ``_inputs`` replays for the port)."""
+    if kind == "clean":
+        acfg, spec = JAsyncConfig(buffer_k=2, decay="none"), JFaultSpec(
+            seed=3)
+    else:
+        acfg = JAsyncConfig(buffer_k=3, flush_deadline=20.0)
+        spec = JFaultSpec(drop_prob=0.6,
+                          churn=(JChurnEvent(30.0, 1, "leave"),
+                                 JChurnEvent(60.0, 1, "join")), seed=5)
+    env = jenv.AsyncHFLEnv(jenv.EnvConfig(**drv.TRAJ_CFG), acfg, faults=spec)
+    env.set_topology(drv.TRAJ_ASSIGN)
+    env.reset()
+    traj = []
+    for _ in range(drv.TRAJ_RUNS[kind]):
+        _, _, done, info = env.step(np.array([2.0, 2.0]))
+        traj.append((info["acc"], info["edge"], info["flushed"],
+                     info["dropped"]))
+        if done:
+            break
+    return traj, np.asarray(env._global_vec)
+
+
+@functools.lru_cache(maxsize=None)
+def _jtraj_all():
+    return {kind: _jtraj(kind) for kind in drv.TRAJ_RUNS}
+
+
+@pytest.fixture(scope="module")
+def jtraj():
+    return _jtraj_all()
+
+
+@pytest.mark.parametrize("kind", ["clean", "faults"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_async_env_trajectory_sharded_bitwise(runs, jtraj, world, kind):
+    """MNIST ``AsyncHFLEnv`` (``TRAJ_CFG``, edge-aligned, deterministic
+    mode) with an all-zeros spec (4 events) or with drops, deadline
+    flushes and a leave + join of edge 1 (6 events): every event, the
+    global vector and the bank bitwise the one-rank run, no rank ever
+    holding more than N/k bank rows; the one-rank run against the
+    reference's: acc within 0.002 at every event, the same edges,
+    flushes and drops, the global vector within 1e-5."""
+    single = runs[1][0]["traj"][(kind, "single")]
+    res = [r["traj"][(kind, "sharded")] for r in runs[world]]
+    for r in res:
+        assert r["traj"] == single["traj"] and r["reset_acc"] \
+            == single["reset_acc"] and r["degraded"] == single["degraded"]
+        assert _same(r["gvec"], single["gvec"])
+        assert all(rows == [N // world] for rows in r["rows"])
+    assert _same(_rows([r["bank"] for r in res]), single["bank"])
+    if kind == "faults":
+        assert single["degraded"] >= 1 and any(t[4] for t in single["traj"])
+    jt, jvec = jtraj[kind]
+    assert len(jt) == len(single["traj"])
+    for (_, acc, edge, flushed, dropped), (jacc, jedge, jfl, jdr) in zip(
+            single["traj"], jt):
+        assert abs(acc - jacc) <= 0.002
+        assert (edge, flushed, dropped) == (jedge, jfl, jdr)
+    _close(single["gvec"], jvec, 1e-5)
+
+
+def test_async_env_telemetry_on_equals_off_sharded(runs):
+    """2 ranks, the faulty trajectory with telemetry on: every event, the
+    global vector and the bank bitwise the telemetry-off run's."""
+    for r in runs[2]:
+        on, off = r["traj"][("faults", "telemetry")], \
+            r["traj"][("faults", "sharded")]
+        assert on["trace"] > 0 and off["trace"] == 0
+        assert on["traj"] == off["traj"]
+        assert _same(on["gvec"], off["gvec"]) and _same(on["bank"],
+                                                        off["bank"])
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_hflenv_sharded_matches_one_rank(runs, world):
+    """The synchronous ``HFLEnv`` (``TRAJ_CFG``, deterministic) on a
+    mesh: reset plus two (2, 2) rounds, accuracies, global model and bank
+    bitwise the one-rank env's, N/k rows per rank; the one-rank env's
+    accuracies within 0.002 of the reference's."""
+    single = runs[1][0]["hflenv"]["single"]
+    res = [r["hflenv"]["sharded"] for r in runs[world]]
+    for r in res:
+        assert r["accs"] == single["accs"] and _same(r["gvec"],
+                                                     single["gvec"])
+        assert r["rows"] == [N // world] and r["device"] == "cpu"
+    assert _same(_rows([r["bank"] for r in res]), single["bank"])
+    jaccs = _jenv_accs()
+    assert max(abs(a - b) for a, b in zip(single["accs"], jaccs)) <= 0.002
+
+
+@functools.lru_cache(maxsize=None)
+def _jenv_accs():
+    je = jenv.HFLEnv(jenv.EnvConfig(**drv.TRAJ_CFG))
+    je.set_topology(drv.TRAJ_ASSIGN)
+    je.reset()
+    return [je.acc] + [je.step_raw(np.full(4, 2), np.full(4, 2))[3]["acc"]
+                       for _ in range(drv.ENV_ROUNDS)]
+
+
+def test_one_row_per_rank_cnn_round_within_fault3_bound(runs):
+    """Fault 3 pinned on the CPU: with one bank row per rank the MNIST
+    CNN's vmapped convolutions take another path than one device's
+    4-row calls; global model and bank within ONE_ROW_BOUND, the same on
+    every rank, the accuracy equal."""
+    res = [r["one_row"] for r in runs[4]]
+    single = res[0]["single"]
+    gvec = _replicated(runs[4], "one_row", "sharded", "gvec")
+    _close(gvec, single["gvec"], ONE_ROW_BOUND)
+    _close(_rows([r["sharded"]["bank"] for r in res]), single["bank"],
+           ONE_ROW_BOUND)
+    assert all(r["sharded"]["acc"] == single["acc"] for r in res)
