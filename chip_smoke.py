@@ -17,7 +17,8 @@ Phases, each fatal on failure (the script exits non-zero):
    same tensors, at the main path's shapes (MNIST and CIFAR banks, Eq. 1
    with 5 edges and Eq. 2 with 1, and the async flushes: one segment over
    K = 3 CIFAR or K = 2 MNIST updates) in f32 and with a bf16 bank, plus
-   a ragged case with an empty segment: ``segment_agg`` within atol = rtol
+   a ragged case with an empty segment, and at the LLM train step's
+   largest edge mean (4 x 352,321,536 f32, 2 edges): ``segment_agg`` within atol = rtol
    = 1e-5 (the kernel sums rows in order with fmaf, the plain version
    with ``index_add_``; the orders differ), ``segment_broadcast``
    bitwise, and two runs of each kernel bitwise equal;
@@ -51,8 +52,9 @@ Phases, each fatal on failure (the script exits non-zero):
    and without the mode; (b) ``make_edge_round`` at CIFAR width
    (gamma1 [2, 1, 3, 2, 1], gamma2 [1, 2, 2, 1, 2]) in both modes: in
    deterministic mode each edge's vector bitwise row j of one cloud
-   round (every epoch trains all N rows; ROADMAP fault 2), the other
-   rows bitwise untouched, 1 + gamma2 ``segment_agg`` and gamma2
+   round (every epoch trains fixed chunks of each edge's rows; ROADMAP
+   fault 2),
+   the other rows bitwise untouched, 1 + gamma2 ``segment_agg`` and gamma2
    ``segment_broadcast`` launches each, and the zero-decay K = 5 flush
    bitwise the cloud round's global model; plain mode's gap and the
    walls of both modes printed; (c) ``AsyncHFLEnv`` real at
@@ -69,13 +71,13 @@ Phases, each fatal on failure (the script exits non-zero):
 3e. checkpoints, telemetry, health and the ledger
    (``repro_torch.checkpoint.store``, ``repro_torch.telemetry``) at the
    paper's CIFAR width in deterministic mode with phase 3d (c)'s faults:
-   (a) 16 events at action (1, 1) with telemetry, health and ``ktime``
+   (a) 8 events at action (1, 1) with telemetry, health and ``ktime``
    off, then on: every event's (reward, acc, edge, flushed), the global
    vector and the bank bitwise equal, ``ktime``'s call counts equal to
    the launch counts, the per-event walls of both and ``ktime``'s
    median readings (printed beside phase 4's graph-timed CIFAR Eq. 1
-   times); (b) ``save_runtime`` at event 8 of the on-run,
-   ``load_runtime`` into a fresh env on the card, 8 more events bitwise
+   times); (b) ``save_runtime`` at event 4 of the on-run,
+   ``load_runtime`` into a fresh env on the card, 4 more events bitwise
    the on-run's (trace included), the snapshot's size and the save and
    load seconds; (c) at the MNIST defaults with T cut to 80 s,
    deterministic: ``run_scheme("async-fedavg", g1=1, g2=1,
@@ -93,13 +95,15 @@ Phases, each fatal on failure (the script exits non-zero):
    the single launch on the whole bank at 5 ranks (one edge per rank);
    at 2 ranks edge 2 spans the ranks and is held within 1e-5, the others
    bitwise; every rank within 1e-5 of the plain version
-   (``ref.segment_agg_sharded_ref``) with one launch; the shard-local
+   (``ref.segment_agg_sharded_ref``) with one launch;
+   ``ops.segment_agg_ordered`` (the ranks chained in row order) bitwise
+   the single launch at both; the shard-local
    ``masked_resync`` of one alive edge bitwise the one-device resync
    and the plain gather (``ref.segment_broadcast_ref``) at 10 and 25
-   rows; at 5 ranks the
-   deterministic CIFAR warmup round against (a)'s one-device round:
-   bitwise, or its gap printed and held within 5e-3; each rank holding
-   10 bank rows. It prints the per-rank graph-timed
+   rows; at 5 and at 2 ranks (edge 2 and so its training call spanning
+   ranks 0 and 1) the deterministic CIFAR warmup round bitwise
+   (a)'s one-device round (ROADMAP fault 3, closed), each rank holding N/k
+   bank rows. It prints the per-rank graph-timed
    ``segment_sum_partial`` at 10 and 25 rows beside its bound and the
    gloo ``all_reduce`` time: ranks sharing one card, which says nothing
    of multi-GPU scaling;
@@ -111,6 +115,22 @@ Phases, each fatal on failure (the script exits non-zero):
    causal end and an empty split inside the range, and both sides of the
    16-packed-row routing edge; each with its stated tolerance, and two
    runs of each kernel bitwise equal;
+3g. the hierarchical LLM train step (``repro_torch.launch.train``), on a
+   180 s budget: (a) reduced qwen3 and rwkv6 (f32 activations, vocab
+   128) one (2, 2) round on replicas (1, 2, 2) on the card against the
+   CPU within 1e-4, TF32 off; (b) full-width qwen3-1.7b (f32 weights
+   from seed 0, bf16 activations) on replicas (1, 2, 2), the reference
+   main's settings (batch 8 x seq 128, lr 3e-3, 2 minibatches per epoch,
+   remat, KV chunks of 128): one static (2, 2) round, the
+   ``segment_agg`` and ``segment_broadcast`` launches held to (g2 + 1)
+   per leaf, every leaf bitwise equal across the replicas, replica 0's
+   loss before and after, seconds per round and per SGD step, peak
+   memory beside the 45 GB reckoning; (c) in deterministic mode a
+   dynamic round at g1e = g2e = 2 bitwise the static (2, 2) round, then
+   a dynamic round with the reference main's seeded draws, launches
+   held; (d) one (1, 1) round at seq 4096 (train_4k), one sequence per
+   replica; (e) full-width rwkv6-1.6b, one (1, 1) round through
+   ``wkv_chunked``;
 3b. the LLM serving path: a reduced qwen3 and rwkv6 (f32 activations)
    served on the card against the CPU; then the main path, the full-width
    qwen3-1.7b and rwkv6-1.6b (random weights from seed 0) through
@@ -123,7 +143,9 @@ Phases, each fatal on failure (the script exits non-zero):
    its resync and Eq. 2, and the flushes with ``torch.mv`` as the
    library call; the JSON line has CIFAR and MNIST Eq. 1 rows and the
    CIFAR flush row for ``segment_agg``, and phase 3f's sharded Eq. 1
-   row): device time per launch from CUDA events around
+   row), and at phase 3g's LLM edge mean (both kernels, ``torch.mean``
+   over the replica axis and a ``copy_`` of the expanded means as the
+   library calls, CUDA events around 10 calls): device time per launch from CUDA events around
    a CUDA-graph replay, beside the plain version's, one PyTorch library
    call's, the bound (bytes over 3.35 TB/s), and the eager wrapper's
    time per call as the round pays it (host dispatch included);
@@ -315,6 +337,41 @@ def kernel_checks(torch, ops, ref, dev) -> dict:
             print(f"  {name:13s} {str(dtype):15s} N={n:3d} P={p:7d} E={e}"
                   f"  segment_agg max|err| {d:.3e}  broadcast bitwise")
     return err
+
+
+# the LLM train step's edge mean (phase 3g) at its largest leaf: qwen3-1.7b's
+# layers/mlp/w_gate (28 x 2048 x 6144 elements) over replicas (1, 2, 2),
+# viewed as a (4, P) f32 bank with 2 segments (the edges), weights 1
+LLM_AGG = ("llm-edge-mean", 4, 28 * 2048 * 6144, 2)
+
+
+def llm_agg_check(torch, ops, ref, dev) -> dict:
+    """Phase 2 at the LLM edge-mean shape: ``segment_agg`` within AGG_TOL
+    of its plain version, ``segment_broadcast`` bitwise, two runs of each
+    bitwise equal; returns the max abs errors."""
+    name, n, p, e = LLM_AGG
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bank = torch.randn((n, p), generator=gen, device=dev)
+    w = torch.ones((n,), device=dev)
+    seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
+    got = ops.segment_agg(bank, w, seg, e)
+    want = ref.segment_agg_ref(bank, w, seg, e)
+    d = float((got - want).abs().max())
+    check(torch.allclose(got, want, atol=AGG_TOL, rtol=AGG_TOL),
+          f"segment_agg {name}: max abs err {d}")
+    del want
+    check(torch.equal(got, ops.segment_agg(bank, w, seg, e)),
+          f"segment_agg {name}: two runs differ")
+    out = ops.segment_broadcast(got, seg, out=bank)
+    check(torch.equal(out, ref.segment_broadcast_ref(got, seg)),
+          f"segment_broadcast {name}: not bitwise equal")
+    check(torch.equal(out, ops.segment_broadcast(got, seg)),
+          f"segment_broadcast {name}: two runs differ")
+    print(f"  {name:13s} torch.float32  N={n:3d} P={p:,} E={e}  segment_agg "
+          f"max|err| {d:.3e}  broadcast bitwise")
+    del bank, got, out
+    torch.cuda.empty_cache()
+    return {"segment_agg": d, "segment_broadcast": 0.0}
 
 
 # ---------------------------------------------------------------------------
@@ -679,10 +736,11 @@ def agents_and_schemes(torch, ops, ref, env_mod, sync, ppo, hfl, model,
 FLUSH_TOL = 1e-5
 # an edge round at CIFAR width in deterministic mode is bitwise its row of
 # the cloud round, and the zero-decay K = 5 flush bitwise the cloud
-# round's global model: in that mode every epoch trains all N rows (as the
-# reference does), so a row's result depends on nothing but its own
-# parameters and batch (ROADMAP section 3, fault 2). Plain mode trains the
-# active rows only; its gap is printed, not held
+# round's global model: in that mode every vmap(grad) call trains one
+# fixed chunk of an edge's global rows (its 10 rows at the paper's
+# width, hfl.train_calls), so a row's result depends on nothing but
+# its own parameters and batch (ROADMAP section 3, faults 2 and 3). Plain
+# mode trains the active rows only; its gap is printed, not held
 EDGE_G1, EDGE_G2 = np.array([2, 1, 3, 2, 1]), np.array([1, 2, 2, 1, 2])
 # phase 3d (c): the paper's CIFAR width in real mode; the fault windows
 # and the deadline fall inside the first 40 events (simulated 92-460 s)
@@ -820,6 +878,14 @@ def edge_round_check(torch, hfl, flatbank, ops, ref, runtime, env) -> None:
           f"bitwise the cloud global, other rows bitwise untouched; plain "
           f"mode max|edge vec - cloud row| per edge "
           f"{[f'{x:.3e}' for x in plain_d]}")
+    ea_h = env.edge_assign
+    chunks = [sum(int(np.all(ea_h[c] == j)) for c in hfl.train_calls(ea_h))
+              for j in range(m)]
+    blocks = [len(set((np.flatnonzero(ea_h == j) // 10).tolist()))
+              for j in range(m)]
+    print(f"      deterministic calls per epoch of each edge round "
+          f"{chunks} (its chunks, hfl.train_calls); blocks of 10 "
+          f"consecutive rows its rows span {blocks}")
     print(f"      walls, cloud round plain {t_cloud[False]:.3f} s, "
           f"deterministic {t_cloud[True]:.3f} s; edge rounds plain "
           f"{[round(w, 3) for w in walls[False]]} s (sum "
@@ -1062,9 +1128,9 @@ def async_runtime(torch, ops, ref, env_mod, sync, hfl, flatbank,
 # ---------------------------------------------------------------------------
 
 # events of the no-perturbation and resume runs (save at half of them),
-# at action (1, 1): in deterministic mode a landed upload trains all 50
-# rows for gamma1 gamma2 epochs (2.0-2.4 s per (2, 2) event on an H100
-# 80GB HBM3 at 700 W, which put this phase at 128 s of its 90 s budget)
+# at action (1, 1): in deterministic mode a landed upload trains its
+# edge's 10-row call for gamma1 gamma2 epochs; the phase prints its wall
+# against its 90 s budget
 OBS_EVENTS = 16
 OBS_ACTION = np.array([1.0, 1.0])
 
@@ -1111,9 +1177,9 @@ def observability(torch, ops, env_mod, runtime, sync, telemetry, store,
     the events of the on-run, ``load_runtime`` into a fresh env on the
     card, the rest bitwise the on-run's (trace too); (c) ``run_scheme(
     "async-fedavg", g1=1, g2=1, ledger=RunLedger(tmpdir))`` at MNIST
-    width (T 80 s, FEDAVG_EVENTS events, deterministic, where every
-    epoch trains all 50 rows; (1, 1) keeps it short): rows written and
-    read back,
+    width (T 80 s, FEDAVG_EVENTS events, deterministic, where an epoch
+    trains the calls of 12-13 rows that hold an active device; (1, 1)
+    keeps it short): rows written and read back,
     ``final_acc`` bitwise the same run's without a ledger. Returns the
     ``ktime`` medians (us) per kernel."""
     t_phase = time.perf_counter()
@@ -1229,14 +1295,10 @@ def observability(torch, ops, env_mod, runtime, sync, telemetry, store,
 # ---------------------------------------------------------------------------
 
 # an edge whose rows span ranks splits its chain of sums at the
-# all_reduce: f32 summation order
+# all_reduce of segment_agg_sharded: f32 summation order
+# (segment_agg_ordered, which the deterministic rounds use, chains the
+# ranks in row order and is held bitwise)
 SHARD_SPAN_TOL = 1e-5
-# a deterministic CIFAR round at 5 ranks against one process, if not
-# bitwise: each rank's vmapped convolutions hold 10 rows where the one
-# process's hold 50, and cuDNN may pick its algorithm by group count;
-# the subset trainer showed up to 2.0e-3 from that cause on the H100
-# (ROADMAP section 3, fault 2)
-SHARD_ROUND_TOL = 5e-3
 SHARD_EDGES = 5                 # the CIFAR default: 5 edges of 10 devices
 SHARD_WORLDS = (5, 2)           # one edge per rank; edge 2 spans ranks
 SHARD_BUDGET_S = 90.0
@@ -1322,6 +1384,13 @@ def _shard_aggregation(torch, dist, hfl, hier_agg, ops, ref, ctx,
         check(torch.allclose(got[span], single[span], atol=SHARD_SPAN_TOL,
                              rtol=SHARD_SPAN_TOL), f"phase 3f: the spanning "
               f"edge is {gap:.3e} off the single launch")
+    ops.reset_launches()
+    ordered = ops.segment_agg_ordered(lb, lw, ls, e, ctx.mesh.group)
+    check(ops.LAUNCHES["segment_agg"] == 1, "phase 3f: segment_agg_ordered "
+          "made more than one launch")
+    check(torch.equal(ordered, single), f"phase 3f: {world} ranks, ordered "
+          f"Eq. 1 is not bitwise the single launch "
+          f"({float((ordered - single).abs().max()):.3e})")
     edge_mat = torch.randn((e, p), generator=gen, device=dev)
     alive = np.arange(e) == 2
     want = hfl.masked_resync(edge_mat, bank, seg, alive)[
@@ -1378,9 +1447,8 @@ def _shard_rank(rank: int, world: int, port: int, outdir: str) -> None:
         ctx = mesh_lib.make_bank_context(world)
         res = _shard_aggregation(torch, dist, hfl, hier_agg, ops, ref, ctx,
                                  world)
-        if world == SHARD_EDGES:
-            res["env"] = _shard_reset(torch, ops, flatbank,
-                                      _cifar_shard_env(env_mod, ctx))
+        res["env"] = _shard_reset(torch, ops, flatbank,
+                                  _cifar_shard_env(env_mod, ctx))
         torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -1388,7 +1456,10 @@ def _shard_rank(rank: int, world: int, port: int, outdir: str) -> None:
 
 def sharded_bank(torch, ops, env_mod, flatbank, mesh_lib) -> dict:
     """Phase 3f: (a) NCCL, one rank, in this process; (b) gloo, 5 and 2
-    ranks spawned on the one card. Returns the JSON row's numbers."""
+    ranks spawned on the one card. The ranks share the card with this
+    process, so it runs before the LLM phases (3b, 3g), returns its
+    cached blocks to the driver first and prints the card's free memory.
+    Returns the JSON row's numbers."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
     t_phase = time.perf_counter()
@@ -1411,6 +1482,11 @@ def sharded_bank(torch, ops, env_mod, flatbank, mesh_lib) -> dict:
           f"{single['acc']:.4f}); walls one device {single['wall']:.3f} s, "
           f"one rank {nccl['wall']:.3f} s; launches {nccl['counts']}")
     ranks = {}
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  card memory free before spawning {free / 2**30:.1f} of "
+          f"{total / 2**30:.1f} GiB (this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)")
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
         for world in SHARD_WORLDS:
             t0 = time.perf_counter()
@@ -1434,35 +1510,277 @@ def sharded_bank(torch, ops, env_mod, flatbank, mesh_lib) -> dict:
               f"{r0['plain_ms']:.4f} ms, torch.mm "
               f"{r0['library_ms']:.4f} ms; all_reduce of (5, 456,906) f32 "
               f"over gloo median {r0['allreduce_ms']:.3f} ms")
-    envs = [r["env"] for r in ranks[SHARD_EDGES]]
-    check(all(e["rows"] == [10] for e in envs),
-          "phase 3f (b): a rank holds more than N/5 bank rows")
-    gvecs = [e["gvec"] for e in envs]
-    check(all(torch.equal(g, gvecs[0]) for g in gvecs),
-          "phase 3f (b): the ranks' global models differ")
-    bank = torch.cat([e["bank"] for e in envs]).to(single["bank"].device)
-    gvec = gvecs[0].to(single["gvec"].device)
-    bitwise = torch.equal(gvec, single["gvec"]) and torch.equal(
-        bank, single["bank"])
-    gap = max(float((gvec - single["gvec"]).abs().max()),
-              float((bank - single["bank"]).abs().max()))
-    print(f"    5 ranks: CIFAR deterministic warmup round (2, 2) vs one "
-          f"process: bitwise {bitwise} (max|diff| {gap:.3e}; acc "
-          f"{envs[0]['acc']:.4f} vs {single['acc']:.4f}); wall per rank "
-          f"{np.median([e['wall'] for e in envs]):.3f} s (median), "
-          f"launches per rank {envs[0]['counts']}")
-    check(bitwise or gap <= SHARD_ROUND_TOL, f"phase 3f (b): the 5-rank "
-          f"round is {gap:.3e} off the one-process round (> "
-          f"{SHARD_ROUND_TOL})")
+    for world, res in ranks.items():
+        envs = [r["env"] for r in res]
+        rows = 50 // world
+        check(all(e["rows"] == [rows] for e in envs), f"phase 3f (b): a rank "
+              f"holds more than N/{world} bank rows")
+        gvecs = [e["gvec"] for e in envs]
+        check(all(torch.equal(g, gvecs[0]) for g in gvecs),
+              f"phase 3f (b): the {world} ranks' global models differ")
+        bank = torch.cat([e["bank"] for e in envs]).to(single["bank"].device)
+        gvec = gvecs[0].to(single["gvec"].device)
+        gap = max(float((gvec - single["gvec"]).abs().max()),
+                  float((bank - single["bank"]).abs().max()))
+        print(f"    {world} ranks ({rows} rows each"
+              f"{', edge 2 spanning ranks 0 and 1' if world == 2 else ''}):"
+              f" CIFAR deterministic warmup round (2, 2) vs one process: "
+              f"max|diff| {gap:.3e} (acc {envs[0]['acc']:.4f} vs "
+              f"{single['acc']:.4f}); wall per rank "
+              f"{np.median([e['wall'] for e in envs]):.3f} s (median), "
+              f"launches per rank {envs[0]['counts']}")
+        check(torch.equal(gvec, single["gvec"]) and torch.equal(
+            bank, single["bank"]) and envs[0]["acc"] == single["acc"],
+              f"phase 3f (b): the {world}-rank round is {gap:.3e} off the "
+              f"one-process round, not bitwise (ROADMAP section 3, fault 3)")
     wall = time.perf_counter() - t_phase
     print(f"  phase 3f took {wall:.1f} s (budget {SHARD_BUDGET_S:.0f} s); "
           f"ranks sharing one card say nothing of multi-GPU scaling")
     r0 = ranks[SHARD_EDGES][0]
-    return {"launches": sum(e["counts"]["segment_agg"] for e in envs),
+    return {"launches": sum(r["env"]["counts"]["segment_agg"]
+                            for r in ranks[SHARD_EDGES]),
             "max_abs_err": max(r["err"] for r in ranks[SHARD_EDGES]),
             "ms": r0["ms"], "plain_ms": r0["plain_ms"],
             "bound_ms": r0["bound_ms"], "bound_by": "bytes",
             "library_ms": r0["library_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the hierarchical LLM train step
+# ---------------------------------------------------------------------------
+
+# (a) a reduced round on the card against the same round on the CPU, f32
+# activations, TF32 off: the f32 parity tolerance of the CPU tests. rwkv6
+# takes its two sequences per replica in one minibatch: its reduced round
+# is ill-conditioned over 8 SGD steps (tests/_torch_train_ref.py)
+TRAIN_TOL = 1e-4
+TRAIN_MB = {"qwen3-1.7b": 2, "rwkv6-1.6b": 1}
+# the reference main's settings at full width: lr 3e-3, batch 8 x seq 128
+# over replicas (1, 2, 2), 2 minibatches of one sequence per epoch, remat
+TRAIN_KW = dict(lr=3e-3, mb_per_epoch=2, remat=True)
+TRAIN_REPS = (1, 2, 2)
+# four f32 replicas of qwen3-1.7b (32.5 GB), one replica's gradients
+# (8.1 GB) and the largest per-leaf aggregation transient (2.8 GB)
+TRAIN_MEM_GB = 45.0
+TRAIN_BUDGET_S = 180.0
+
+
+def _replicas_equal(torch, train, params) -> bool:
+    r = int(np.prod(TRAIN_REPS))
+    for leaf in train._leaves(params):
+        v = leaf.view(r, -1)
+        if not all(torch.equal(v[i], v[0]) for i in range(1, r)):
+            return False
+    return True
+
+
+def _agg_launches(n_leaves: int, g2: int) -> dict:
+    """A static round's launches: g2 edge means and one cloud mean, each
+    one segment_agg and one segment_broadcast per leaf."""
+    return {"segment_agg": (g2 + 1) * n_leaves,
+            "segment_broadcast": (g2 + 1) * n_leaves, "flash_attention": 0,
+            "wkv6": 0}
+
+
+def small_train_check(torch, ops, configs, model_mod, train, mesh_lib,
+                      token_batch, dev) -> None:
+    """(a) Reduced qwen3 and rwkv6, f32 activations, vocab 128: one (2, 2)
+    round on replicas (1, 2, 2), batch 8 x seq 32, KV chunks of 16, on
+    the card and on the CPU from the same weights; every leaf within
+    TRAIN_TOL, launches as the round implies on the card."""
+    import dataclasses
+    for arch in ("qwen3-1.7b", "rwkv6-1.6b"):
+        cfg = dataclasses.replace(configs.get_config(arch).reduce(),
+                                  activ_dtype="float32", vocab=128)
+        p0 = model_mod.build_model(cfg).init(torch.Generator().manual_seed(0),
+                                             "cpu")
+        outs, counts = [], None
+        for d in ("cpu", dev):
+            hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, device=d)
+            step, _, _ = train.make_hfl_train_step(
+                cfg, hm, lr=3e-3, mb_per_epoch=TRAIN_MB[arch], remat=False,
+                g1=2, g2=2, attn_chunk=16)
+            params = train.lift_params(_tree_to(p0, d), *TRAIN_REPS)
+            ops.reset_launches()
+            out = step(params, token_batch(0, 8, 32, cfg.vocab, device=d))
+            counts = dict(ops.LAUNCHES)
+            check(_replicas_equal(torch, train, out), f"phase 3g (a) {arch}: "
+                  f"replicas differ after the round on {d}")
+            outs.append(train._leaves(out))
+        n = len(outs[0])
+        check(counts == _agg_launches(n, 2), f"phase 3g (a) {arch}: "
+              f"launches {counts} != {_agg_launches(n, 2)}")
+        err = max(float((a - b.cpu()).abs().max())
+                  for a, b in zip(*outs))
+        check(err <= TRAIN_TOL, f"phase 3g (a) {arch}: card vs CPU max|err| "
+              f"{err:.3e} > {TRAIN_TOL}")
+        print(f"  (a) reduced {arch} (f32 activations), (2, 2) round on "
+              f"(1, 2, 2): card vs CPU max|err| {err:.3e} (tolerance "
+              f"{TRAIN_TOL}), launches {counts}")
+
+
+def _full_round(torch, ops, train, step, params, batch, args=()):
+    """One train-step call with the launch counts set to 0 just before and
+    read just after; returns (params, wall s, launches)."""
+    ops.reset_launches()
+    t0 = sync_time(torch)
+    params = step(params, batch, *args)
+    return params, sync_time(torch) - t0, dict(ops.LAUNCHES)
+
+
+def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
+              dev) -> dict:
+    """Phase 3g: (a) reduced rounds card vs CPU; (b) full-width
+    qwen3-1.7b, one static (2, 2) round on replicas (1, 2, 2); (c)
+    dynamic = static bitwise in deterministic mode, then a dynamic round
+    with the reference main's draws; (d) one round at train_4k's length;
+    (e) full-width rwkv6-1.6b, one (1, 1) round through ``wkv_chunked``.
+    Returns the JSON rows' launches."""
+    from repro_torch.data.synthetic import token_batch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    small_train_check(torch, ops, configs, model_mod, train, mesh_lib,
+                      token_batch, dev)
+    cfg = configs.get_config("qwen3-1.7b")
+    model = model_mod.build_model(cfg)
+    hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, device=dev)
+    reps = int(np.prod(TRAIN_REPS))
+
+    def init():
+        """Seed-0 weights lifted to the replicas (one copy at a time)."""
+        p1 = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        out = train.lift_params(p1, *TRAIN_REPS)
+        del p1
+        return out
+
+    def loss_of(params, batch) -> float:
+        with torch.no_grad():
+            return float(model.loss(train._map(lambda a: a[0, 0, 0], params),
+                                    batch))
+
+    batch = token_batch(0, 8, 128, cfg.vocab, device=dev)
+    evalb = token_batch(9999, 8, 128, cfg.vocab, device=dev)
+    kw = dict(TRAIN_KW, attn_chunk=128)
+
+    # (b) one static round at full width
+    params = init()
+    n_leaves = len(train._leaves(params))
+    loss0 = loss_of(params, evalb)
+    step, specs, _ = train.make_hfl_train_step(cfg, hm, g1=2, g2=2, **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, wall, counts = _full_round(torch, ops, train, step, params, batch)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = _agg_launches(n_leaves, 2)
+    check(counts == want, f"phase 3g (b): launches {counts} != {want}")
+    check(_replicas_equal(torch, train, params), "phase 3g (b): replicas "
+          "differ after the cloud round")
+    loss1 = loss_of(params, evalb)
+    check(np.isfinite(loss0) and np.isfinite(loss1),
+          f"phase 3g (b): loss {loss0} -> {loss1}")
+    n_sgd = 2 * 2 * reps * TRAIN_KW["mb_per_epoch"]
+    print(f"  (b) qwen3-1.7b full width ({cfg.n_params():,} parameters, f32 "
+          f"weights, bf16 activations), replicas {TRAIN_REPS}, batch 8 x "
+          f"seq 128, (g1, g2) = (2, 2), remat, KV chunks of 128: round "
+          f"{wall:.3f} s, {n_sgd} SGD steps, {wall / n_sgd:.4f} s per step "
+          f"(aggregations included); replica 0's loss on token_batch(9999) "
+          f"{loss0:.4f} -> {loss1:.4f}; peak memory {peak:.2f} GB "
+          f"(reckoned {TRAIN_MEM_GB:.0f} GB); launches {counts} = (g2 + 1) "
+          f"x {n_leaves} leaves; replicas bitwise equal; embed spec "
+          f"{specs['embed']}")
+    del params
+
+    # (c) dynamic = static bitwise, deterministic mode
+    dyn, _, _ = train.make_hfl_train_step(cfg, hm, dynamic=True, max_g1=3,
+                                          max_g2=3, **kw)
+    with device_mod.deterministic_algorithms():
+        params, w_static, c_static = _full_round(torch, ops, train, step,
+                                                 init(), batch)
+        ref0 = [leaf[0, 0, 0].cpu() for leaf in train._leaves(params)]
+        del params
+        g = np.full(TRAIN_REPS[1], 2)
+        params, w_dyn, c_dyn = _full_round(torch, ops, train, dyn, init(),
+                                           batch, (g, g))
+    same = c_dyn == c_static and all(
+        torch.equal(leaf[0, 0, 0].cpu(), r)
+        for leaf, r in zip(train._leaves(params), ref0))
+    check(same and _replicas_equal(torch, train, params), "phase 3g (c): the "
+          "dynamic round at g1e = g2e = 2 is not bitwise the static (2, 2) "
+          "round")
+    del ref0
+    print(f"  (c) deterministic mode: dynamic round (g1e = g2e = 2, bounds "
+          f"(3, 3)) bitwise the static (2, 2) round, launches equal; walls "
+          f"static {w_static:.3f} s, dynamic {w_dyn:.3f} s")
+    rng = np.random.default_rng(0)        # the reference main's draws
+    g1e, g2e = rng.integers(1, 3, 2), rng.integers(1, 3, 2)
+    main_dyn, _, _ = train.make_hfl_train_step(cfg, hm, dynamic=True,
+                                               max_g1=4, max_g2=4, **kw)
+    params, w_main, c_main = _full_round(torch, ops, train, main_dyn, params,
+                                         batch, (g1e, g2e))
+    t2s = int(g2e.max())
+    bcast = sum(1 if (t2 < g2e).all() else int((t2 < g2e).sum())
+                for t2 in range(t2s)) + 1
+    want = {"segment_agg": (t2s + 1) * n_leaves,
+            "segment_broadcast": bcast * n_leaves, "flash_attention": 0,
+            "wkv6": 0}
+    check(c_main == want, f"phase 3g (c): launches {c_main} != {want}")
+    loss2 = loss_of(params, evalb)
+    check(np.isfinite(loss2), f"phase 3g (c): loss {loss2}")
+    print(f"  (c) dynamic round with the reference main's draws g1e "
+          f"{g1e.tolist()}, g2e {g2e.tolist()} (bounds (4, 4)): "
+          f"{w_main:.3f} s, launches {c_main}, loss {loss2:.4f}")
+    del params
+
+    # (d) train_4k's length: one sequence of 4096 per replica
+    params = init()
+    step4k, _, _ = train.make_hfl_train_step(
+        cfg, hm, g1=1, g2=1, lr=3e-3, mb_per_epoch=1, remat=True,
+        attn_chunk=1024)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, w4k, c4k = _full_round(torch, ops, train, step4k, params,
+                                   token_batch(1, reps, 4096, cfg.vocab,
+                                               device=dev))
+    peak4k = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(c4k == _agg_launches(n_leaves, 1), f"phase 3g (d): launches {c4k}")
+    loss4k = loss_of(params, token_batch(9999, 1, 4096, cfg.vocab,
+                                         device=dev))
+    check(np.isfinite(loss4k), f"phase 3g (d): loss {loss4k}")
+    print(f"  (d) seq 4096 (train_4k), one sequence per replica, (1, 1), "
+          f"KV chunks of 1024 (4 per attention), xent in 8 chunks: round "
+          f"{w4k:.3f} s ({w4k / reps:.3f} s per SGD step), peak memory "
+          f"{peak4k:.2f} GB, loss {loss4k:.4f}")
+    del params
+    torch.cuda.empty_cache()
+
+    # (e) rwkv6-1.6b at full width through wkv_chunked
+    rcfg = configs.get_config("rwkv6-1.6b")
+    rmodel = model_mod.build_model(rcfg)
+    p1 = rmodel.init(torch.Generator(device=dev).manual_seed(0), dev)
+    params = train.lift_params(p1, *TRAIN_REPS)
+    del p1
+    rstep, _, _ = train.make_hfl_train_step(rcfg, hm, g1=1, g2=1,
+                                            wkv_chunked=True, **kw)
+    rn = len(train._leaves(params))
+    params, w_r, c_r = _full_round(torch, ops, train, rstep, params,
+                                   token_batch(0, 8, 128, rcfg.vocab,
+                                               device=dev))
+    check(c_r == _agg_launches(rn, 1), f"phase 3g (e): launches {c_r}")
+    check(_replicas_equal(torch, train, params), "phase 3g (e): replicas "
+          "differ")
+    with torch.no_grad():
+        rloss = float(rmodel.loss(train._map(lambda a: a[0, 0, 0], params),
+                                  token_batch(9999, 8, 128, rcfg.vocab,
+                                              device=dev), wkv_chunked=True))
+    check(np.isfinite(rloss), f"phase 3g (e): loss {rloss}")
+    n_r = reps * TRAIN_KW["mb_per_epoch"]
+    print(f"  (e) rwkv6-1.6b full width ({rcfg.n_params():,} parameters), "
+          f"(1, 1) round, batch 8 x seq 128, wkv_chunked: {w_r:.3f} s "
+          f"({w_r / n_r:.4f} s per SGD step), launches {c_r}, loss "
+          f"{rloss:.4f}")
+    del params
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 3g took {wall:.1f} s (budget {TRAIN_BUDGET_S:.0f} s)")
+    return {"launches": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -1571,6 +1889,53 @@ def timings(torch, hier_agg, ops, ref, dev, runs: dict, err: dict):
                          launches=runs[run]["counts"][k],
                          max_abs_err=max_err, shape=shape, **t))
     return rows
+
+
+def time_llm_agg(torch, hier_agg, ops, ref, dev) -> dict:
+    """Phase 4 at the LLM edge-mean shape: each kernel, its plain version
+    and the library call (``torch.mean`` over the replica axis; a
+    ``copy_`` of the expanded means), CUDA events around 10 back-to-back
+    calls (each moves 8.46 GB, so dispatch is noise), kernel and plain
+    twice in turns; the bound is the bytes over 3.35 TB/s."""
+    name, n, p, e = LLM_AGG
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bank = torch.randn((n, p), generator=gen, device=dev)
+    w = torch.ones((n,), device=dev)
+    seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
+    models = torch.randn((e, p), generator=gen, device=dev)
+    out = torch.empty((n, p), device=dev)
+    agg = lambda: hier_agg._launch_segment_agg(bank, w, seg, e,
+                                               normalize=True)[0]
+    mean = lambda: bank.view(e, n // e, p).mean(dim=1)
+    check(torch.allclose(mean(), agg(), atol=AGG_TOL, rtol=AGG_TOL),
+          "LLM edge mean: torch.mean disagrees")
+    bcast = lambda: ops.segment_broadcast(models, seg, out=out)
+    copy = lambda: out.view(e, n // e, p).copy_(
+        models[:, None].expand(e, n // e, p))
+    cases = [("segment_agg", agg,
+              lambda: ref.segment_agg_ref(bank, w, seg, e), mean,
+              4 * (n * p + e * p + 2 * n)),
+             ("segment_broadcast", bcast,
+              lambda: ref.segment_broadcast_ref(models, seg), copy,
+              4 * (e * p + n * p + n))]
+    res = {}
+    before = dict(hier_agg.LAUNCHES)
+    for k, kern, plain, lib, nbytes in cases:
+        ms = lambda fn: event_ms(torch, fn, iters=10, warmup=2)
+        t_k1, t_p1, t_k2, t_p2 = ms(kern), ms(plain), ms(kern), ms(plain)
+        t_lib = ms(lib)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        res[k] = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2),
+                  "bound_ms": bound, "bound_by": "bytes",
+                  "library_ms": t_lib}
+        print(f"  {k:17s} {name} N={n} E={e} P={p:,}: kernel {t_k1:.4f}/"
+              f"{t_k2:.4f} ms, plain {t_p1:.4f}/{t_p2:.4f} ms, library "
+              f"{t_lib:.4f} ms, {nbytes / 1e9:.2f} GB, bound {bound:.4f} ms "
+              f"({bound / res[k]['ms'] * 100:.1f}% of bound)")
+    hier_agg.LAUNCHES.update(before)         # timing launches do not count
+    del bank, models, out
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2000,7 +2365,8 @@ def serve_only(torch, root: str) -> int:
     from repro_torch.device import disable_tf32
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import serve
+    from repro_torch import device as device_mod
+    from repro_torch.launch import serve, train
     from repro_torch.models import model
     check(os.path.dirname(os.path.abspath(fa.__file__)).startswith(
         os.path.abspath(root)), f"repro_torch not imported from {root}")
@@ -2049,7 +2415,8 @@ def main() -> int:
     from repro_torch.device import disable_tf32
     from repro_torch.kernels import _build, flash_attention, hier_agg, ops
     from repro_torch.kernels import ref, wkv6
-    from repro_torch.launch import serve
+    from repro_torch import device as device_mod
+    from repro_torch.launch import serve, train
     from repro_torch.models import model
     from repro_torch.sim import env as env_mod
 
@@ -2075,6 +2442,7 @@ def main() -> int:
     print("phase 2: kernels against their plain versions (atol=rtol=1e-5 "
           "for segment_agg, bitwise for segment_broadcast)")
     err = kernel_checks(torch, ops, ref, dev)
+    llm_err = llm_agg_check(torch, ops, ref, dev)
     print("phase 2b: LLM kernels against their plain versions (flash: "
           f"atol=rtol {FLASH_TOL}; wkv6: atol=rtol {WKV_TOL}, hard decay "
           f"{WKV_HARD_TOL})")
@@ -2112,6 +2480,10 @@ def main() -> int:
                                serve, arch, dev)
               for arch in ("qwen3-1.7b", "rwkv6-1.6b")}
 
+    print(f"phase 3g: the hierarchical LLM train step ({smi})")
+    trained = llm_train(torch, ops, configs, model, train, mesh_lib,
+                        device_mod, dev)
+
     print("phase 4: times per call, CUDA events around a CUDA-graph "
           "replay of 50 calls (kernel and plain each twice, in turns); "
           "the eager wrapper call is 50 back-to-back calls")
@@ -2122,6 +2494,13 @@ def main() -> int:
                      source=KERNEL_SRC["segment_agg"],
                      replaces=REPLACES["segment_agg"],
                      shape="cifar-eq1-sharded-k5", **sharded))
+    # the LLM edge mean: the largest leaf of phase 3g (b)'s round, its
+    # launches those of that round (every leaf, Eq. 1 and Eq. 2)
+    for k, t in time_llm_agg(torch, hier_agg, ops, ref, dev).items():
+        rows.append(dict(name=k, route="cuda", source=KERNEL_SRC[k],
+                         replaces=REPLACES[k],
+                         launches=trained["launches"][k],
+                         max_abs_err=llm_err[k], shape=LLM_AGG[0], **t))
     cifar_eq1 = {r["name"]: r["ms"] for r in rows
                  if r["shape"] == "cifar-eq1"}
     print(f"  phase 3e's in-program ktime medians (CUDA events around each "

@@ -34,9 +34,12 @@ Every factory takes ``deterministic`` (default False): with it, each
 call of the round runs inside ``repro_torch.device.
 deterministic_algorithms``, so the same inputs give the same bank bits
 on every run on the card too (cuDNN and the gathers otherwise sum in
-run-dependent orders), and every epoch trains all N rows as the
-reference does (``make_local_trainer(all_rows=True)``), so an edge
-round is bitwise its row of the cloud round.
+run-dependent orders); local SGD trains fixed chunks of each edge's
+global rows (``make_local_trainer(all_rows=True)``), so a row's result
+depends on nothing but its own parameters and batch; and under a mesh
+Eq. 1 chains the ranks' sums in row order (``ops.segment_agg_ordered``).
+An edge round is then bitwise its row of the cloud round, and a sharded
+round bitwise the one-device round on any row layout.
 
 Multi-GPU banks -- the **AggContext contract**: every aggregation entry
 point and round factory takes an optional ``ctx: AggContext``, which
@@ -55,11 +58,12 @@ plain launch on the replicated (E, P) matrices on every rank
 Bitwise contract of the sharded paths: the kernel splits no row across
 threads or blocks and zero partials add nothing, so when every edge's
 rows lie on one rank (the ``flatbank.place_bank`` layout with
-edge-aligned shards) the aggregations reproduce the one-device accumulation exactly,
-as the reference's do. An edge spanning ranks splits its chain at the
-``all_reduce`` and differs in the last bits. Local SGD is bitwise only
-where the model's per-row gradients do not depend on how many rows one
-``vmap(grad)`` call holds (ROADMAP section 3).
+edge-aligned shards) the aggregations reproduce the one-device
+accumulation exactly, as the reference's do. In plain mode an edge
+spanning ranks splits its chain at the ``all_reduce`` and differs in the
+last bits, and local SGD differs where a rank's ``vmap(grad)`` calls
+hold other rows than one device's; deterministic mode closes both
+(ROADMAP section 3, fault 3).
 """
 from __future__ import annotations
 
@@ -205,14 +209,40 @@ class AggContext:
 
     # -- kernel routing -----------------------------------------------
     def segment_agg_rows(self, mat, weights, segment_ids,
-                         num_segments: int):
+                         num_segments: int, ordered: bool = False):
         """Aggregate the bank's rows (Eq. 1, FedAvg): one ``segment_agg``
         launch on one device; under a mesh one launch on this rank's
-        rows plus ``all_reduce`` (``ops.segment_agg_sharded``)."""
+        rows plus ``all_reduce`` (``ops.segment_agg_sharded``), or, when
+        ``ordered``, the ranks' launches chained in rank order
+        (``ops.segment_agg_ordered``: the one-device bits even where an
+        edge spans ranks; the deterministic rounds set it)."""
         if self.mesh is None:
             return ops.segment_agg(mat, weights, segment_ids, num_segments)
-        return ops.segment_agg_sharded(mat, weights, segment_ids,
-                                       num_segments, self.mesh.group)
+        agg = ops.segment_agg_ordered if ordered else ops.segment_agg_sharded
+        return agg(mat, weights, segment_ids, num_segments, self.mesh.group)
+
+    def row_offset(self, rows: int) -> int:
+        """The global index of this rank's first bank row, for a part of
+        ``rows`` rows (0 on one device)."""
+        if self.mesh is None:
+            return 0
+        return flatbank.row_slice(rows * self.n_shards, self.mesh).start
+
+    def gather_row_ids(self, ids) -> np.ndarray:
+        """The global (N,) host ints whose rows this rank holds as
+        ``ids`` (its (N/k,) part, e.g. its edge assignment): ``ids``
+        itself on one device, else one ``all_reduce`` of N int64 on the
+        mesh's device, the same on every rank."""
+        ids = _host_ints(ids)
+        if self.mesh is None:
+            return ids
+        import torch.distributed as dist
+        n = ids.size * self.n_shards
+        full = torch.zeros((n,), dtype=torch.int64, device=self.mesh.device)
+        full[flatbank.row_slice(n, self.mesh)] = torch.as_tensor(
+            ids, device=self.mesh.device)
+        dist.all_reduce(full, group=self.mesh.group)
+        return full.cpu().numpy()
 
     def segment_agg_small(self, mat, weights, segment_ids,
                           num_segments: int):
@@ -320,9 +350,32 @@ def _host_ints(v) -> np.ndarray:
     return np.asarray(v, dtype=np.int64).reshape(-1)
 
 
+TRAIN_CALL_ROWS = 16               # most rows in one deterministic call
+
+
+def train_calls(groups) -> list:
+    """The ``vmap(grad)`` calls of the deterministic trainer for a bank
+    whose global rows carry the group ids ``groups`` ((N,) ints: the edge
+    assignment, or all one group): each group's rows in ascending order,
+    cut into ``ceil(size / TRAIN_CALL_ROWS)`` consecutive chunks of
+    near-equal size.
+    Returns one array of global row indices per call. It depends on the
+    global groups only, never on the shard count or on which rows are
+    active."""
+    groups = np.asarray(groups).reshape(-1)
+    calls = []
+    for gid in np.unique(groups):
+        rows = np.flatnonzero(groups == gid)
+        calls.extend(np.array_split(rows,
+                                    -(-rows.size // TRAIN_CALL_ROWS)))
+    return calls
+
+
 def make_local_trainer(loss_fn: Callable, lr: float, batch_size: int,
-                       all_rows: bool = False):
-    """Returns ``local_train(bank, x, y, gamma1_dev, max_g1, perms)``.
+                       all_rows: bool = False,
+                       ctx: Optional[AggContext] = None):
+    """Returns ``local_train(bank, x, y, gamma1_dev, max_g1, perms,
+    groups=None)``.
 
     ``loss_fn(params, batch) -> scalar`` for one device. One epoch is one
     pass over the device's shard in minibatches of ``batch_size`` taken
@@ -335,17 +388,35 @@ def make_local_trainer(loss_fn: Callable, lr: float, batch_size: int,
     ``torch.func.grad``. The bank's leaves are updated in place and the
     bank is returned.
 
-    An epoch in which only some devices are active takes ``vmap(grad)``
-    over those rows only, unless ``all_rows``: then, as the reference
-    does, every epoch trains all N rows and writes back only the active
-    ones (the inactive rows come back bit-identical). The vmapped
-    convolutions pick their algorithm by the number of rows in the call,
-    so only with ``all_rows`` does a row's result depend on nothing but
-    its own parameters and batch, and an edge round equal its row of the
-    cloud round bit for bit. The round factories set it when built with
-    ``deterministic=True``.
+    Plain mode (``all_rows`` False) takes ``vmap(grad)`` over all rows
+    when every device is active, else over the active rows only. The
+    vmapped convolutions pick their algorithm by the number of rows in
+    the call, so a row's bits then depend on which rows share its call.
+
+    With ``all_rows`` (the round factories set it when built with
+    ``deterministic=True``) every call holds one fixed chunk of
+    ``train_calls(groups)``: ``groups`` is the *global* (N,) edge
+    assignment (``None``: all rows one group), each edge's rows cut into
+    chunks of at most ``TRAIN_CALL_ROWS``, each row at its own position
+    in its chunk. On a rank of a sharded ``ctx`` that holds only part of
+    a chunk, the call is padded to the chunk's size with copies of one of
+    the rank's real rows, whose results are dropped. So the call that
+    trains a row has the same shape and the row the same position in it
+    on one device, on any shard count and whichever rows are active: a
+    row's result depends on nothing but its own parameters and batch, an
+    edge round is bitwise its row of the cloud round, and a sharded round
+    bitwise the one-device round. An epoch trains only the chunks that
+    hold an active row and writes back only the active rows. Design
+    choice: chunks follow the edges (rather than fixed blocks of
+    consecutive global rows) because the profiling module clusters
+    devices by capability, which scatters an edge's rows over the whole
+    bank; blocks of consecutive rows would make an edge round train
+    nearly every block. An edge round trains its edge's chunks only.
+    Cost: a cloud round makes one call per chunk where plain mode makes
+    one N-row call (PERF.md section 5).
     """
     grad_fn = torch.func.vmap(torch.func.grad(loss_fn))
+    ctx = _resolve_ctx(ctx, "make_local_trainer")
 
     def run_epoch(params: dict, x, y, rows, perm) -> None:
         nb = x.shape[1] // batch_size
@@ -357,30 +428,46 @@ def make_local_trainer(loss_fn: Callable, lr: float, batch_size: int,
                 p.copy_(p.to(torch.float32)
                         - lr * g[k].to(torch.float32))
 
-    def local_train(bank: dict, x, y, gamma1_dev, max_g1: int, perms):
+    def run_calls(bank: dict, x, y, active, perm, calls) -> None:
+        n = x.shape[0]
+        off = ctx.row_offset(n)
+        for call in calls:
+            local = call - off
+            real = (local >= 0) & (local < n)
+            keep = real & active[np.clip(local, 0, n - 1)]
+            if not keep.any():
+                continue
+            idx = np.where(real, local, local[real][0])
+            rows = torch.as_tensor(idx, device=x.device)
+            params = {k: v[rows] for k, v in bank.items()}
+            run_epoch(params, x, y, rows, perm[rows])
+            pos = torch.as_tensor(np.flatnonzero(keep), device=x.device)
+            dst = rows[pos]
+            for k, v in bank.items():
+                v[dst] = params[k][pos]
+
+    def local_train(bank: dict, x, y, gamma1_dev, max_g1: int, perms,
+                    groups=None):
         g1 = _host_ints(gamma1_dev)
         n_epochs = min(int(max_g1), int(g1.max(initial=0)))
+        if all_rows:
+            calls = train_calls(np.zeros(x.shape[0] * ctx.n_shards, np.int64)
+                                if groups is None else groups)
         for e in range(n_epochs):
             active = e < g1
             perm = perms[e].to(device=x.device, dtype=torch.int64)
-            if active.all():
-                rows = torch.arange(x.shape[0], device=x.device)
-                run_epoch(bank, x, y, rows, perm)
-                continue
             if all_rows:
+                run_calls(bank, x, y, active, perm, calls)
+            elif active.all():
                 rows = torch.arange(x.shape[0], device=x.device)
-                idle = torch.as_tensor(np.flatnonzero(~active),
-                                       device=x.device)
-                old = {k: v[idle] for k, v in bank.items()}
                 run_epoch(bank, x, y, rows, perm)
+            else:
+                rows = torch.as_tensor(np.flatnonzero(active),
+                                       device=x.device)
+                params = {k: v[rows] for k, v in bank.items()}
+                run_epoch(params, x, y, rows, perm[rows])
                 for k, v in bank.items():
-                    v[idle] = old[k]
-                continue
-            rows = torch.as_tensor(np.flatnonzero(active), device=x.device)
-            params = {k: v[rows] for k, v in bank.items()}
-            run_epoch(params, x, y, rows, perm[rows])
-            for k, v in bank.items():
-                v[rows] = params[k]
+                    v[rows] = params[k]
         return bank
 
     return local_train
@@ -448,11 +535,13 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
     same on every rank. No rank holds the full bank. When every edge's
     rows lie on one rank the aggregations are bitwise the one-device
     round's (zero partials add nothing); an edge spanning ranks differs
-    in the last bits.
+    in the last bits, except with ``deterministic``, whose Eq. 1 chains
+    the ranks in row order (``ops.segment_agg_ordered``): the round is
+    then bitwise the one-device round on any row layout.
     """
     ctx = _resolve_ctx(ctx, "make_cloud_round")
     local_train = make_local_trainer(loss_fn, lr, batch_size,
-                                     all_rows=deterministic)
+                                     all_rows=deterministic, ctx=ctx)
 
     def cloud_round(bank, x, y, sizes, edge_assign, g1, g2, perms):
         spec = flatbank.bank_spec(bank)
@@ -467,11 +556,14 @@ def make_cloud_round(loss_fn: Callable, lr: float, batch_size: int,
         g1_dev, g2_dev = g1h[ea], g2h[ea]
         seg = torch.as_tensor(ea.astype(np.int32), device=dev)
 
-        edge_mat = ctx.segment_agg_rows(mat, sizes, seg, n_edges)
+        edge_mat = ctx.segment_agg_rows(mat, sizes, seg, n_edges,
+                                        deterministic)
+        groups = ctx.gather_row_ids(ea) if deterministic else None
         for t2 in range(min(int(max_g2), int(g2h.max(initial=0)))):
             g1_eff = np.where(t2 < g2_dev, g1_dev, 0)
-            local_train(bank, x, y, g1_eff, max_g1, perms[t2])
-            a = ctx.segment_agg_rows(mat, sizes, seg, n_edges)
+            local_train(bank, x, y, g1_eff, max_g1, perms[t2], groups)
+            a = ctx.segment_agg_rows(mat, sizes, seg, n_edges,
+                                     deterministic)
             active_edge = t2 < g2h
             if active_edge.all():
                 edge_mat = a
@@ -520,10 +612,10 @@ def make_edge_round(loss_fn: Callable, lr: float, batch_size: int,
     is the scratch buffer of every in-flight edge round. Given the
     shuffles the cloud round got, the returned vector is row
     ``edge_id`` of its edge matrix: bitwise with ``deterministic`` (each
-    epoch then trains all N rows and keeps the edge's), within the
-    grouped convolutions' last bits without it (they train the edge's
-    rows alone). ``bank`` must have one dtype; its storage is reused.
-    Turns TF32 off.
+    epoch then trains the edge's fixed chunks, the calls the cloud round
+    makes for them), within the grouped convolutions' last bits without
+    it (they train the edge's rows alone). ``bank`` must have one dtype;
+    its storage is reused. Turns TF32 off.
 
     Under a sharded ``ctx`` it takes and returns this rank's rows as
     ``make_cloud_round`` does; the masked Eq. 1 is one launch on them
@@ -533,7 +625,7 @@ def make_edge_round(loss_fn: Callable, lr: float, batch_size: int,
     """
     ctx = _resolve_ctx(ctx, "make_edge_round")
     local_train = make_local_trainer(loss_fn, lr, batch_size,
-                                     all_rows=deterministic)
+                                     all_rows=deterministic, ctx=ctx)
 
     def edge_round(bank, x, y, sizes, edge_assign, edge_id, g1, g2,
                    global_vec, perms):
@@ -553,11 +645,13 @@ def make_edge_round(loss_fn: Callable, lr: float, batch_size: int,
 
         # the edge's devices resume from the snapshot it downloaded
         mat.copy_(torch.where(rows[:, None], global_vec.to(mat.dtype), mat))
-        edge_mat = ctx.segment_agg_rows(mat, w, seg, n_edges)
+        edge_mat = ctx.segment_agg_rows(mat, w, seg, n_edges, deterministic)
         g1_dev = np.where(row_active, g1, 0)
+        groups = ctx.gather_row_ids(ea) if deterministic else None
         for t2 in range(min(int(max_g2), g2)):
-            local_train(bank, x, y, g1_dev, max_g1, perms[t2])
-            edge_mat = ctx.segment_agg_rows(mat, w, seg, n_edges)
+            local_train(bank, x, y, g1_dev, max_g1, perms[t2], groups)
+            edge_mat = ctx.segment_agg_rows(mat, w, seg, n_edges,
+                                            deterministic)
             # resync only this edge's rows
             mat.copy_(masked_resync(edge_mat, mat, seg, alive, ctx=ctx))
         return bank, edge_mat[j].clone()
@@ -590,7 +684,7 @@ def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
     """
     ctx = _resolve_ctx(ctx, "make_fedavg_round")
     local_train = make_local_trainer(loss_fn, lr, batch_size,
-                                     all_rows=deterministic)
+                                     all_rows=deterministic, ctx=ctx)
 
     def fedavg_round(bank, x, y, sizes, participate, g1, perms):
         spec = flatbank.bank_spec(bank)
@@ -605,7 +699,7 @@ def make_fedavg_round(loss_fn: Callable, lr: float, batch_size: int,
         w = torch.as_tensor(sizes, dtype=torch.float32, device=dev) \
             * torch.as_tensor(part, device=dev)
         seg = torch.zeros((mat.shape[0],), dtype=torch.int32, device=dev)
-        glob = ctx.segment_agg_rows(mat, w, seg, 1)[0]
+        glob = ctx.segment_agg_rows(mat, w, seg, 1, deterministic)[0]
         mat.copy_(glob.to(mat.dtype).expand_as(mat))
         return bank, spec.unflatten_model(glob)
 

@@ -25,7 +25,18 @@ def reset_launches() -> None:
 
 def check_device(name: str, *tensors) -> torch.device:
     """The one device of ``tensors``; raises if they differ or lie on a
-    device other than the CPU or a CUDA card."""
+    device other than the CPU or a CUDA card, and raises
+    ``RuntimeError`` when grad mode is on and one of them requires a
+    gradient: no kernel has a backward, and its output would carry no
+    ``grad_fn``, so a training forward that reached it would silently
+    train nothing through it. The check runs on the CPU too, where the
+    plain versions would differentiate, so both devices behave alike.
+    Training takes the plain tensor math (``models.attention.
+    chunked_attention``, ``models.rwkv.wkv_scan``/``wkv_chunked``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it "
+                           f"under torch.no_grad() or on tensors that do "
+                           f"not require grad")
     dev = tensors[0].device
     for t in tensors[1:]:
         if t.device != dev:

@@ -19,6 +19,11 @@ kernel (``csrc/hier_agg.cu``, built by ``_build``):
     multiply by the reciprocal. The kernel splits no row across threads
     or blocks, so when each segment's rows lie on one rank the result is
     bitwise the single launch on the whole bank.
+``segment_agg_ordered``
+    The same sharded aggregation with the single launch's bits for any
+    row layout: the ranks take turns, each continuing the chain of sums
+    of the rank before it (one ``segment_sum_partial`` launch per rank,
+    a broadcast per rank). The deterministic rounds use it.
 ``segment_broadcast``
     ``(E, P) models x (N,) segment ids -> (N, P)``, ``out[i] =
     models[seg_i]`` written in the bank's dtype: the bank resync.
@@ -183,6 +188,52 @@ def segment_agg_sharded(bank, weights, segment_ids, num_segments: int,
     dist.all_reduce(sums, group=group)
     dist.all_reduce(wsum, group=group)
     return sums * (1.0 / wsum.clamp_min(1e-9))[:, None]
+
+
+def segment_agg_ordered(bank, weights, segment_ids, num_segments: int,
+                        group=None):
+    """``segment_agg_sharded`` with the one-device bits for any row
+    layout, an edge spanning ranks included: the ranks take turns, rank
+    0 first, and each continues the chain of sums where the rank before
+    it left off, so every (segment, column) is summed in one ascending
+    chain over all N rows, as the single launch sums it.
+
+    Rank r runs one ``segment_sum_partial`` launch on an (E + N/k, P + 1)
+    f32 stack: E carry rows (the sums so far, weight 1: ``fmaf(1, s,
+    0) == s`` starts the chain at s) over its own rows, whose extra
+    column holds 1 so that column P chains the weight sums as the kernel
+    adds them (``acc + w_i``); then it broadcasts the (E, P + 1) sums to
+    the group, and the last rank's are the result. The CPU path sums the
+    weights as the one-device CPU path does (exactly, in f64). k
+    broadcasts of (E, P + 1) f32 per call, in place of two
+    ``all_reduce``; the deterministic rounds use it."""
+    import torch.distributed as dist
+    e = int(num_segments)
+    dev = _check_agg_inputs(bank, weights, segment_ids)
+    n, p = bank.shape
+    stack = torch.empty((e + n, p + 1), dtype=torch.float32, device=dev)
+    stack[e:, :p] = bank
+    stack[e:, p] = 1.0
+    carry = stack[:e]
+    carry.zero_()
+    ids = torch.cat([torch.arange(e, dtype=torch.int32, device=dev),
+                     segment_ids.to(torch.int32)])
+    w = torch.cat([torch.ones((e,), dtype=torch.float32, device=dev),
+                   weights.to(torch.float32)])
+    rank = dist.get_rank(group)
+    for r in range(dist.get_world_size(group)):
+        if r == rank:
+            carry.copy_(segment_sum_partial(stack, w, ids, e)[0])
+        src = r if group is None else dist.get_global_rank(group, r)
+        dist.broadcast(carry, src=src, group=group)
+    if dev.type == "cpu":                # as the one-device CPU path
+        wsum = ref.segment_weight_sums(weights, segment_ids, e,
+                                       dtype=torch.float64)
+        dist.all_reduce(wsum, group=group)
+        wsum = wsum.to(torch.float32)
+    else:
+        wsum = carry[:, p]
+    return carry[:, :p] * (1.0 / wsum.clamp_min(1e-9))[:, None]
 
 
 def segment_broadcast(models, segment_ids, *, out_dtype=None, out=None):

@@ -1,7 +1,8 @@
 """Public kernel entry points, under the names ``repro.kernels.ops`` uses.
 
-``segment_agg``, ``segment_sum_partial``, ``segment_agg_sharded`` (the
-row-sharded bank over a ``torch.distributed`` group),
+``segment_agg``, ``segment_sum_partial``, ``segment_agg_sharded`` and
+``segment_agg_ordered`` (the row-sharded bank over a
+``torch.distributed`` group),
 ``segment_broadcast`` and ``hier_agg`` are the flat-bank hot path
 (``core/hfl.py``);
 ``flash_attention`` (every attention of the dense LLMs) and ``wkv6``
@@ -10,8 +11,8 @@ row-sharded bank over a ``torch.distributed`` group),
 plain version (``kernels/ref.py``) for CPU tensors; ``LAUNCHES`` counts
 the kernel launches.
 
-``segment_agg``, ``segment_agg_sharded`` and ``segment_broadcast`` go
-through
+``segment_agg``, ``segment_agg_sharded``, ``segment_agg_ordered`` and
+``segment_broadcast`` go through
 ``repro_torch.telemetry.ktime.call_timed``, as the reference's do: with
 no registry installed that is one ``None`` check in front of the
 unchanged call; inside ``ktime.kernel_timing(reg)`` each call is timed
@@ -43,6 +44,15 @@ def segment_agg_sharded(bank, weights, segment_ids, num_segments: int,
     of ``group`` (``hier_agg.segment_agg_sharded``), timed by ``ktime``
     as ``segment_agg`` when it is on."""
     return _ktime.call_timed("segment_agg", _ha.segment_agg_sharded, bank,
+                             weights, segment_ids, num_segments, group)
+
+
+def segment_agg_ordered(bank, weights, segment_ids, num_segments: int,
+                        group=None):
+    """``segment_agg_sharded`` with the single launch's bits for any row
+    layout (``hier_agg.segment_agg_ordered``), timed by ``ktime`` as
+    ``segment_agg`` when it is on."""
+    return _ktime.call_timed("segment_agg", _ha.segment_agg_ordered, bank,
                              weights, segment_ids, num_segments, group)
 
 

@@ -1,11 +1,17 @@
-"""GQA attention for the serving slice: full-sequence forward, prefill
+"""GQA attention: full-sequence forward (serving and training), prefill
 (cache write) and one-token decode; the port of ``repro.models.attention``.
 
-Every attention runs through the ``flash_attention`` kernel
-(``repro_torch.kernels.ops``): the reference computes it with
-``chunked_attention``, the pure-jnp oracle of the same Pallas kernel.
-q/k/v stay in the reference's (B, S, H, D) layout and reach the kernel as
-(B, H, S, D) transposed views (the kernel takes strides).
+Two routes compute the same attention. Serving (``self_attention`` with
+``chunk=None``, prefill, decode) runs the ``flash_attention`` kernel
+(``repro_torch.kernels.ops``), which has no backward and refuses
+autograd. Training (``self_attention`` with an int ``chunk``, which
+``transformer.forward_hidden(attn_chunk=)`` sets) runs
+``chunked_attention``, the reference's online-softmax scan over KV
+chunks in plain tensor code, differentiated by autograd, as the
+reference trains through its pure-jnp ``chunked_attention`` and never
+through its Pallas kernel. q/k/v stay in the reference's (B, S, H, D)
+layout and reach the kernel as (B, H, S, D) transposed views (the
+kernel takes strides).
 
 Supported: GQA, qk_norm (qwen3), qkv bias (qwen2), causal and
 sliding-window masks on the full-sequence forward. Out of this slice, and
@@ -21,6 +27,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import common
 
 ROADMAP_ITEM = "ROADMAP.md, 'Modules still to port', item 11"
+NEG_INF = -1e30
 
 
 def attn_init(gen: torch.Generator, cfg, device, dtype=None) -> dict:
@@ -84,14 +91,89 @@ def _attend(q, k, v, *, causal=True, window=0, q_offset=0):
     return out.transpose(1, 2).reshape(b, sq, h * d)
 
 
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_offset: int = 0, chunk: int = 1024,
+                      kv_positions=None):
+    """Online-softmax attention, looped over KV chunks of ``chunk`` rows
+    (the reference's ``chunked_attention`` step for step): f32 scores,
+    running max, sum and accumulator, masked scores at -1e30, the output
+    divided by ``max(sum, 1e-30)``. Differentiable by autograd.
+
+    q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) with H % Hkv == 0; returns
+    (B, Sq, H, D) in q's dtype. Query row t sits at ``q_offset + t``; kv
+    row u at ``kv_positions[:, u]`` (default u) and is visible where its
+    position is <= the query's and, with ``window`` > 0, above the
+    query's minus ``window``. KV padded up to a whole chunk sits at
+    position 2**30, never visible. ``causal`` is the reference's
+    argument: a non-causal call passes all-zero ``kv_positions``."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    chunk = min(chunk, skv)
+    n_chunks = -(-skv // chunk)
+    pad = n_chunks * chunk - skv
+    dev = q.device
+    if kv_positions is None:
+        kv_positions = torch.arange(skv, dtype=torch.int32,
+                                    device=dev).expand(b, skv)
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
+                                               value=2 ** 30)
+    qpos = q_offset + torch.arange(sq, dtype=torch.int32, device=dev)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d), device=dev))  # in f32
+    qf = (q.float() * scale).to(q.dtype)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l_ = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+
+    def heads(t):          # (B, C, Hkv, D) -> (B, C, H, D): GQA repeat
+        c = t.shape[1]
+        return t[:, :, :, None, :].expand(b, c, hkv, rep, d).reshape(
+            b, c, h, d)
+
+    for c0 in range(0, n_chunks * chunk, chunk):
+        kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        pc = kv_positions[:, c0:c0 + chunk]
+        s_ = torch.einsum("bqhd,bchd->bhqc", qf, heads(kc)).float()
+        mask = pc[:, None, None, :] <= qpos[None, None, :, None]
+        if window:
+            mask = mask & (pc[:, None, None, :]
+                           > qpos[None, None, :, None] - window)
+        s_ = torch.where(mask, s_, NEG_INF)
+        m_new = torch.maximum(m, s_.amax(dim=-1))
+        p = torch.exp(s_ - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_ = l_ * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqc,bchd->bhqd", p.to(vc.dtype), heads(vc))
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    out = acc / l_[..., None].clamp_min(1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def self_attention(params, cfg, x, positions=None, *, causal=True,
-                   window: int = 0):
-    """Full-sequence self attention (forward / prefill compute)."""
+                   window: int = 0, chunk=None):
+    """Full-sequence self attention. ``chunk=None`` runs the
+    ``flash_attention`` kernel (serving; no autograd); an int runs
+    ``chunked_attention`` over KV chunks of that size (training, as the
+    reference's train and forward compute), non-causal as the reference
+    does it: all-zero ``kv_positions``."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = _attend(q, k, v, causal=causal, window=window if causal else 0)
+    if chunk is None:
+        out = _attend(q, k, v, causal=causal, window=window if causal else 0)
+    elif causal:
+        out = chunked_attention(q, k, v, causal=True, window=window,
+                                chunk=chunk).reshape(b, s, -1)
+    else:
+        kvp = torch.zeros((b, k.shape[1]), dtype=torch.int32,
+                          device=x.device)
+        out = chunked_attention(q, k, v, causal=False, chunk=chunk,
+                                kv_positions=kvp).reshape(b, s, -1)
     return out @ params["wo"].to(x.dtype)
 
 

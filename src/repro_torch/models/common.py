@@ -96,3 +96,37 @@ def apply_rope(x, positions, theta: float):
     y1 = x1 * cos - x2 * sin
     y2 = x1 * sin + x2 * cos
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def chunked_softmax_xent(h, w_out, labels, mask=None, chunk: int = 512):
+    """Next-token cross-entropy computed in sequence chunks of ``chunk``
+    (the last one the remainder), so the (B, S, vocab) logits never
+    exist whole: per chunk the logits ``h @ w_out`` in h's dtype, then in
+    f32 ``logsumexp`` minus the gold logit, times the mask, summed into
+    an f32 total in chunk order; the mean over ``max(sum(mask), 1)``.
+
+    h: (B, S, d); w_out: (d, V); labels: (B, S) int; mask: (B, S) or
+    None. Returns the f32 scalar mean loss, differentiable in h and
+    w_out. The gold logit is an index into the flattened logits, whose
+    backward (``index_put_`` with accumulation) has a deterministic
+    implementation on the card."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    w = w_out.to(h.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, s, chunk):
+        hi = min(lo + chunk, s)
+        logits = (h[:, lo:hi] @ w).float()               # (B, C, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        flat = logits.reshape(-1, logits.shape[-1])
+        rows = torch.arange(flat.shape[0], device=h.device)
+        gold = flat[rows, labels[:, lo:hi].reshape(-1).long()]
+        total = total + ((lse - gold.reshape(lse.shape))
+                         * mask[:, lo:hi].float()).sum()
+    return total / mask.float().sum().clamp_min(1.0)

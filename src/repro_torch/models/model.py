@@ -1,8 +1,10 @@
-"""Public model API: ``build_model(cfg)`` -> ``Model`` with init /
+"""Public model API: ``build_model(cfg)`` -> ``Model`` with init / loss /
 logits / prefill / decode for the families the port serves (``dense``,
 ``ssm``), and the paper's testbed CNNs (Arena section 4.1); the port of
-``repro.models.model``. ``Model.loss`` (LLM training) is not ported yet
-(ROADMAP.md, "Modules still to port", item 11).
+``repro.models.model``. ``Model.loss`` trains through the reference's
+plain tensor math under autograd (``chunked_attention``, ``wkv_scan`` /
+``wkv_chunked``, ``chunked_softmax_xent``); ``Model.logits`` and serving
+run the kernels.
 
 The CNNs' parameters are plain dicts of tensors in the reference layout:
 conv weights HWIO ``(kh, kw, Cin, Cout)``, dense weights ``(in, out)``;
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import decode, transformer
+from repro_torch.models import common, decode, transformer
 from repro_torch.models.common import dense_init
 
 
@@ -41,6 +43,26 @@ class Model:
         """Random parameters on ``device``, drawn from ``gen`` (a
         generator on the same device type)."""
         return transformer.init_params(gen, self.cfg, resolve_device(device))
+
+    # ---- training ---------------------------------------------------------
+    def loss(self, params, batch, *, remat: bool = False,
+             attn_chunk: int = 1024, wkv_chunked: bool = False,
+             act_spec=None):
+        """batch: {"tokens", "labels"} (B, S) int. Returns the scalar f32
+        loss, ``xent + 0.01 * aux`` (aux is 0 without MoE),
+        differentiable in ``params`` by autograd. Attention runs
+        ``chunked_attention`` with KV chunks of ``attn_chunk``, the RWKV6
+        WKV ``wkv_chunked`` if ``wkv_chunked`` else ``wkv_scan``; no
+        kernel is reached. The families' ``extras`` (``enc_embed``,
+        ``vision_embed``) belong to families the port does not build."""
+        cfg = self.cfg
+        h, aux = transformer.forward_hidden(
+            params, cfg, batch["tokens"], remat=remat,
+            attn_chunk=attn_chunk, wkv_chunked=bool(wkv_chunked),
+            act_spec=act_spec)
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        xent = common.chunked_softmax_xent(h, w, batch["labels"])
+        return xent + 0.01 * aux
 
     # ---- forward ----------------------------------------------------------
     def logits(self, params, batch, *, window: int = 0):

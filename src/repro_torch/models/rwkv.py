@@ -6,11 +6,15 @@ streams, per-channel data-dependent decay ``w``, WKV linear recurrence with
 bonus ``u``; per-head group-norm; silu(g) gate. Channel-mix: squared-relu
 FFN with receptance gate.
 
-A multi-token time-mix from a zero state (prefill, the full forward)
-runs its WKV through the ``wkv6`` kernel (``repro_torch.kernels.ops``),
+``time_mix_forward(use_chunked=)`` picks the WKV route. ``None`` (the
+serving default): a multi-token time-mix from a zero state (prefill, the
+full forward) runs the ``wkv6`` kernel (``repro_torch.kernels.ops``),
 which computes what the reference's sequential ``wkv_scan`` computes to
-f32 rounding. A time-mix that carries a state in (the one-token decode
-update) runs ``wkv_scan`` here, plain tensor code as in the reference.
+f32 rounding and has no backward; a time-mix that carries a state in (the
+one-token decode update) runs ``wkv_scan``. ``False`` / ``True`` (set by
+``transformer.forward_hidden(wkv_chunked=)``, the training route) run the
+reference's plain ``wkv_scan`` / ``wkv_chunked`` in tensor code,
+differentiated by autograd; they never reach the kernel.
 """
 from __future__ import annotations
 
@@ -113,8 +117,58 @@ def wkv_scan(r, k, v, w, u, state=None):
     return torch.stack(ys, dim=1), state
 
 
-def time_mix_forward(p, cfg, x, state=None, return_state: bool = False):
-    """x: (B, S, d). state: (last_x (B, d), S (B, nh, hd, hd)) or None."""
+def wkv_chunked(r, k, v, w, u, state=None, chunk: int = 64):
+    """Chunked WKV6 (the reference's ``wkv_chunked``, its pure-jnp twin
+    of the kernel): within a chunk a matmul with the decay products
+    inside the contraction (log-space, ``log(max(w, 1e-38))``), across
+    chunks the state recurrence. Same arguments and results as
+    ``wkv_scan``; S is padded to a whole chunk (w = 1 there).
+    Differentiable by autograd."""
+    b, s, nh, hd = r.shape
+    if state is None:
+        state = torch.zeros((b, nh, hd, hd), dtype=torch.float32,
+                            device=r.device)
+    if s % chunk:
+        pad = (0, 0, 0, 0, 0, chunk - s % chunk)
+        r, k, v = (F.pad(a, pad) for a in (r, k, v))
+        w = F.pad(w, pad, value=1.0)
+    nc = r.shape[1] // chunk
+    rs, ks, vs, ws = (a.float().reshape(b, nc, chunk, nh, hd)
+                      .permute(0, 1, 3, 2, 4) for a in (r, k, v, w))
+    logw = torch.log(ws.clamp_min(1e-38))
+    logcum = torch.cumsum(logw, dim=3)                      # inclusive
+    lprev = logcum - logw
+    ti = torch.arange(chunk, device=r.device)
+    lower = (ti[:, None] > ti[None, :])[None, None, None, :, :, None]
+    diff = lprev[:, :, :, :, None, :] - logcum[:, :, :, None, :, :]
+    dd = torch.exp(torch.where(lower, diff, -1e30))         # (B,nc,nh,t,u,hd)
+    a = torch.einsum("bchtk,bchuk,bchtuk->bchtu", rs, ks, dd)
+    bonus = torch.einsum("bchtk,bchtk->bcht", rs, ks * u.float()[None, None,
+                                                                  :, None, :])
+    a = a + torch.einsum("bcht,tu->bchtu", bonus,
+                         torch.eye(chunk, dtype=torch.float32,
+                                   device=r.device))
+    y = torch.einsum("bchtu,bchud->bchtd", a, vs)
+    rd = rs * torch.exp(lprev)                              # inter-chunk
+    dend = torch.exp(logcum[:, :, :, -1:, :] - logcum)
+    inc = torch.einsum("bchuk,bchud->bchkd", ks * dend, vs)
+    cdecay = torch.exp(logcum[:, :, :, -1, :])              # (B,nc,nh,hd)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * cdecay[:, c, :, :, None] + inc[:, c]
+    y = y + torch.einsum("bchtk,bchkd->bchtd", rd, torch.stack(prev, dim=1))
+    y = y.permute(0, 1, 3, 2, 4).reshape(b, nc * chunk, nh, hd)
+    return y[:, :s], state
+
+
+def time_mix_forward(p, cfg, x, state=None, return_state: bool = False,
+                     use_chunked=None):
+    """x: (B, S, d). state: (last_x (B, d), S (B, nh, hd, hd)) or None.
+    ``use_chunked``: the WKV route (module docstring): None the serving
+    route (the ``wkv6`` kernel from a zero state), False ``wkv_scan``,
+    True ``wkv_chunked`` (``wkv_scan`` for one token), as the
+    reference's ``use_chunked``."""
     b, s, d = x.shape
     nh, hd = rwkv_dims(cfg)
     if state is None:
@@ -133,8 +187,10 @@ def time_mix_forward(p, cfg, x, state=None, return_state: bool = False):
         @ p["decay_B"]
     w = torch.exp(-torch.exp(dec.float()))                    # (B, S, d)
     rs, ks, vs, ws = (a.reshape(b, s, nh, hd) for a in (r, k, v, w))
-    if wkv_state is None and s > 1:
+    if use_chunked is None and wkv_state is None and s > 1:
         y, wkv_state = ops.wkv6(rs, ks, vs, ws, p["bonus_u"])
+    elif use_chunked and s > 1:
+        y, wkv_state = wkv_chunked(rs, ks, vs, ws, p["bonus_u"], wkv_state)
     else:
         y, wkv_state = wkv_scan(rs, ks, vs, ws, p["bonus_u"], wkv_state)
     # per-head group norm, in f32

@@ -6,16 +6,29 @@ Parameters keep the reference's layout leaf for leaf: each per-layer
 leaf is stacked over layers with a leading ``n_layers`` axis, dense
 weights are ``(in, out)``, so a JAX parameter tree loads unchanged
 (``repro_torch.weights.tree_from_numpy``). Where the reference scans over
-the stacked layers, the port loops over them in Python.
+the stacked layers, the port loops over them in Python, taking each
+stacked leaf apart once per forward (``unbind``, whose backward stacks
+the layers' gradients in one tensor).
+
+``forward_hidden`` serves two callers. Serving (``attn_chunk`` and
+``wkv_chunked`` None, the defaults) runs the ``flash_attention`` and
+``wkv6`` kernels, which refuse autograd. Training (``Model.loss``) sets
+``attn_chunk`` to an int and ``wkv_chunked`` to a bool and runs the
+reference's plain tensor math (``attention.chunked_attention``,
+``rwkv.wkv_scan`` / ``wkv_chunked``) under autograd, each layer body
+recomputed in the backward when ``remat`` (``torch.utils.checkpoint``,
+the reference's ``jax.checkpoint``).
 
 The other families (``moe``, ``hybrid``, ``audio``, ``vlm``) raise
 ``NotImplementedError`` (ROADMAP.md, "Modules still to port", item 11).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, rwkv
 
@@ -98,16 +111,18 @@ def init_params(gen: torch.Generator, cfg, device) -> dict[str, Any]:
     return params
 
 
-def _dense_block_fwd(bp, cfg, x, *, window=0):
+def _dense_block_fwd(bp, cfg, x, *, window=0, chunk=None):
     h = common.rms_norm(x, bp["ln1"])
-    x = x + attention.self_attention(bp["attn"], cfg, h, window=window)
+    x = x + attention.self_attention(bp["attn"], cfg, h, window=window,
+                                     chunk=chunk)
     h = common.rms_norm(x, bp["ln2"])
     return x + common.swiglu(bp["mlp"], h)
 
 
-def _rwkv_block_fwd(bp, cfg, x):
+def _rwkv_block_fwd(bp, cfg, x, *, wkv_chunked=None):
     h = common.rms_norm(x, bp["ln1"])
-    x = x + rwkv.time_mix_forward(bp["tmix"], cfg, h)
+    x = x + rwkv.time_mix_forward(bp["tmix"], cfg, h,
+                                  use_chunked=wkv_chunked)
     h = common.rms_norm(x, bp["ln2"])
     return x + rwkv.channel_mix_forward(bp["cmix"], cfg, h)
 
@@ -117,17 +132,48 @@ def embed(params, cfg, tokens):
     return params["embed"][tokens.long()].to(cfg.adtype)
 
 
-def forward_hidden(params, cfg, tokens, *, window: int = 0):
+def unstack_layers(layers: dict) -> list:
+    """The stacked layer tree as one tree per layer, each leaf taken
+    apart once with ``unbind``."""
+    def split(t):
+        if isinstance(t, dict):
+            parts = {k: split(v) for k, v in t.items()}
+            n = len(next(iter(parts.values())))
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        return t.unbind(0)
+    return split(layers)
+
+
+def forward_hidden(params, cfg, tokens, *, window: int = 0,
+                   remat: bool = False, attn_chunk=None, wkv_chunked=None,
+                   act_spec=None):
     """Embeds ``tokens`` and runs the stack. Returns (hidden (B, S, d),
-    aux_loss), aux_loss a zero f32 scalar (no MoE in this slice)."""
+    aux_loss), aux_loss a zero f32 scalar (no MoE in this slice).
+
+    ``attn_chunk`` None runs attention through the kernel, an int through
+    ``chunked_attention`` with KV chunks of that size; ``wkv_chunked``
+    None runs the ``wkv6`` kernel, False / True ``wkv_scan`` /
+    ``wkv_chunked`` (module docstring). ``remat`` recomputes each layer
+    in the backward (``checkpoint(..., use_reentrant=False)``).
+    ``act_spec`` is the reference's activation sharding constraint, the
+    identity on one device; only None is accepted."""
+    if act_spec is not None:
+        raise NotImplementedError(
+            "act_spec (sequence-sharded activations) needs a multi-rank "
+            "HFL mesh: see ROADMAP.md, 'Modules still to port', item 10 (b)")
     check_family(cfg)
     x = embed(params, cfg, tokens)
-    for i in range(cfg.n_layers):
-        lp = layer(params["layers"], i)
-        if cfg.family == "dense":
-            x = _dense_block_fwd(lp, cfg, x, window=window)
+    if cfg.family == "dense":
+        body = functools.partial(_dense_block_fwd, cfg=cfg, window=window,
+                                 chunk=attn_chunk)
+    else:
+        body = functools.partial(_rwkv_block_fwd, cfg=cfg,
+                                 wkv_chunked=wkv_chunked)
+    for lp in unstack_layers(params["layers"]):
+        if remat:
+            x = checkpoint(body, lp, x=x, use_reentrant=False)
         else:
-            x = _rwkv_block_fwd(lp, cfg, x)
+            x = body(lp, x=x)
     x = common.rms_norm(x, params["final_norm"])
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

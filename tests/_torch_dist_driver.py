@@ -557,23 +557,40 @@ def _hflenv(inp, ctx):
             "rows": _leaf_rows(env.bank), "device": str(env.device)}
 
 
+def _fault3_run(cfg: dict, assign, ctx) -> dict:
+    """A deterministic MNIST ``HFLEnv`` under ``ctx`` (None: one device):
+    reset and one (2, 2) round."""
+    env = HFLEnv(EnvConfig(**cfg, agg=ctx))
+    env.set_topology(assign)
+    env.reset()
+    env.step_raw(np.full(cfg["n_edges"], 2), np.full(cfg["n_edges"], 2))
+    spec = flatbank.model_spec(env.global_model)
+    return {"acc": env.acc, "gvec": _np(spec.flatten_model(
+        env.global_model)), "bank": _np(flatbank.bank_spec(
+            env.bank).flatten(env.bank)), "rows": _leaf_rows(env.bank)}
+
+
 def case_one_row(world, inp):
     """ROADMAP fault 3 on the CPU: 4 devices on 4 ranks, one bank row per
-    rank, so each rank's vmapped convolutions hold 1 row where one
-    device's hold 4. A deterministic MNIST ``HFLEnv``: reset and one
-    (2, 2) round, sharded and on one device in this process."""
+    rank, one edge per device, so every training call is its edge's one
+    row on both layouts. Sharded and on one device in this process."""
     cfg = dict(TRAJ_CFG, n_devices=4, device="cpu", deterministic=True)
-    out = {}
-    for label, ctx in (("single", None), ("sharded", _ctx((4, 1)))):
-        env = HFLEnv(EnvConfig(**cfg, agg=ctx))
-        env.set_topology(np.arange(4))
-        env.reset()
-        env.step_raw(np.full(4, 2), np.full(4, 2))
-        spec = flatbank.model_spec(env.global_model)
-        out[label] = {"acc": env.acc, "gvec": _np(spec.flatten_model(
-            env.global_model)), "bank": _np(flatbank.bank_spec(
-                env.bank).flatten(env.bank))}
-    return out
+    return {label: _fault3_run(cfg, np.arange(4), ctx)
+            for label, ctx in (("single", None), ("sharded", _ctx((4, 1))))}
+
+
+# 10 devices on 3 edges of 3, 4 and 3 rows: on 2 ranks of 5 rows edge 1
+# (rows 3-6) spans them, and so does its 4-row training call
+SPAN_ASSIGN = np.array([0, 0, 0, 1, 1, 1, 1, 2, 2, 2])
+
+
+def case_spanning(world, inp):
+    """The non-aligned layout: ``SPAN_ASSIGN`` on 2 ranks, sharded and on
+    one device in this process."""
+    cfg = dict(TRAJ_CFG, n_devices=10, n_edges=3, device="cpu",
+               deterministic=True)
+    return {label: _fault3_run(cfg, SPAN_ASSIGN, ctx)
+            for label, ctx in (("single", None), ("sharded", _ctx((2, 1))))}
 
 
 def case_hflenv(world, inp):
@@ -598,6 +615,7 @@ CASES = [("context", (1,), case_context),
          ("resync", (2, 4), case_resync),
          ("hflenv", (1, 2), case_hflenv),
          ("one_row", (4,), case_one_row),
+         ("spanning", (2,), case_spanning),
          ("traj", (1, 2, 4), case_traj)]
 
 
@@ -647,6 +665,36 @@ def card_aggregation(rank: int, world: int, port: int, outdir: str) -> None:
                    keep[:, None], ref.segment_broadcast_ref(
                        edge_mat, ls, lb.dtype), lb))}
         torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+# the deterministic MNIST env of the card's fault-3 test
+# (tests/test_torch_cuda.py), SPAN_ASSIGN's edges on 2 ranks of 5 rows
+CARD_ROUND_CFG = dict(task="mnist", mode="real", n_devices=10, n_edges=3,
+                      n_local=64, gamma_max=2, deterministic=True)
+
+
+def card_round(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of a gloo group on the card (a ``torch.multiprocessing.
+    spawn`` target of ``tests/test_torch_cuda.py``): the
+    ``CARD_ROUND_CFG`` env under a ``world``-rank context, reset and one
+    (2, 2) round; writes its accuracy, global vector and bank rows to
+    ``outdir/rank<r>.pt``."""
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        ctx = mesh_lib.make_bank_context(world)
+        env = HFLEnv(EnvConfig(**CARD_ROUND_CFG, agg=ctx))
+        env.set_topology(SPAN_ASSIGN)
+        env.reset()
+        env.step_raw(np.full(3, 2), np.full(3, 2))
+        spec = flatbank.model_spec(env.global_model)
+        torch.save({"acc": env.acc, "device": str(ctx.mesh.device),
+                    "gvec": spec.flatten_model(env.global_model).cpu(),
+                    "bank": flatbank.bank_spec(env.bank).flatten(
+                        env.bank).cpu()},
+                   os.path.join(outdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 

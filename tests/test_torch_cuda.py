@@ -817,3 +817,117 @@ def test_sharded_gloo_two_ranks_aggregation_on_card(cuda_dev, tmp_path):
         assert res["one_rank_edges"] == [0, 1, 3, 4]
         assert res["bitwise"] and res["span"] and res["plain"]
         assert res["resync"] and res["resync_plain"]
+
+
+def test_sharded_gloo_two_ranks_cnn_round_bitwise_on_card(cuda_dev,
+                                                          tmp_path):
+    """Fault 3 closed on the card: a deterministic MNIST ``HFLEnv`` (10
+    devices, edges of 3, 4 and 3 rows, ``_torch_dist_driver.SPAN_ASSIGN``)
+    on two gloo ranks spawned on the one card, edge 1 and its 4-row
+    training call spanning them: reset and one (2, 2) round bitwise the
+    one-device env (accuracy, global model, bank)."""
+    import torch.multiprocessing as mp
+    import _torch_dist_driver as drv
+    from repro_torch.core import flatbank
+    mp.spawn(drv.card_round, args=(2, _free_port(), str(tmp_path)),
+             nprocs=2, join=True)
+    env = HFLEnv(EnvConfig(**drv.CARD_ROUND_CFG))
+    env.set_topology(drv.SPAN_ASSIGN)
+    env.reset()
+    env.step_raw(np.full(3, 2), np.full(3, 2))
+    gvec = flatbank.model_spec(env.global_model).flatten_model(
+        env.global_model).cpu()
+    bank = flatbank.bank_spec(env.bank).flatten(env.bank).cpu()
+    res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    assert all(r["device"].startswith("cuda") for r in res)
+    assert all(r["acc"] == env.acc and torch.equal(r["gvec"], gvec)
+               for r in res)
+    assert torch.equal(torch.cat([r["bank"] for r in res]), bank)
+
+
+# ---------------------------------------------------------------------------
+# the LLM train step
+# ---------------------------------------------------------------------------
+
+def test_kernel_wrappers_refuse_autograd_on_card(cuda_dev):
+    """On CUDA tensors too, every kernel wrapper raises RuntimeError when
+    grad mode is on and an input requires a gradient, and launches under
+    ``torch.no_grad()``."""
+    g = torch.Generator(device=cuda_dev).manual_seed(0)
+    q = torch.randn((1, 2, 8, 64), generator=g, device=cuda_dev)
+    r = torch.randn((1, 16, 2, 64), generator=g, device=cuda_dev)
+    w = torch.rand((1, 16, 2, 64), generator=g, device=cuda_dev)
+    u = torch.zeros((2, 64), device=cuda_dev)
+    bank = torch.randn((4, 1000), generator=g, device=cuda_dev)
+    ones = torch.ones(4, device=cuda_dev)
+    seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=cuda_dev)
+    models = torch.randn((2, 1000), generator=g, device=cuda_dev)
+    for t in (q, r, bank, models):
+        t.requires_grad_(True)
+    calls = {"flash_attention": lambda: ops.flash_attention(q, q, q),
+             "wkv6": lambda: ops.wkv6(r, r, r, w, u),
+             "segment_agg": lambda: ops.segment_agg(bank, ones, seg, 2),
+             "segment_sum_partial": lambda: ops.segment_sum_partial(
+                 bank, ones, seg, 2),
+             "segment_broadcast": lambda: ops.segment_broadcast(models, seg)}
+    for name, call in calls.items():
+        ops.reset_launches()
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        assert sum(ops.LAUNCHES.values()) == 0, name
+        with torch.no_grad():
+            call()
+        assert sum(ops.LAUNCHES.values()) == 1, name
+
+
+def test_llm_edge_mean_shape_matches_plain(cuda_dev):
+    """The train step's largest leaf, qwen3-1.7b's layers/mlp/w_gate over
+    replicas (1, 2, 2): a (4, 352,321,536) f32 bank, 2 edges, weights 1.
+    ``segment_agg`` within AGG_TOL of the plain version, the resync
+    ``segment_broadcast`` bitwise, each run twice bitwise."""
+    n, p, e = 4, 28 * 2048 * 6144, 2
+    g = torch.Generator(device=cuda_dev).manual_seed(1)
+    bank = torch.randn((n, p), generator=g, device=cuda_dev)
+    w = torch.ones(n, device=cuda_dev)
+    seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=cuda_dev)
+    got = ops.segment_agg(bank, w, seg, e)
+    torch.testing.assert_close(got, ref.segment_agg_ref(bank, w, seg, e),
+                               atol=AGG_TOL, rtol=AGG_TOL)
+    assert torch.equal(got, ops.segment_agg(bank, w, seg, e))
+    out = ops.segment_broadcast(got, seg, out=bank)
+    assert torch.equal(out, ref.segment_broadcast_ref(got, seg))
+    assert torch.equal(out, ops.segment_broadcast(got, seg))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-1.6b"])
+def test_reduced_train_step_on_card_matches_cpu(cuda_dev, arch):
+    """The hierarchical train step, reduced config with f32 activations
+    and vocab 128, replicas (1, 2, 2), one (2, 2) round of batch 8 x seq
+    32 (KV chunks of 16; rwkv6 in one minibatch per epoch, as
+    ``tests/_torch_train_ref.py`` explains), TF32 off: card against CPU
+    within 1e-4 at every leaf, replicas bitwise equal, and (g2 + 1)
+    launches of each aggregation kernel per leaf on the card."""
+    from repro_torch.launch import mesh, train
+    disable_tf32()
+    cfg = dataclasses.replace(get_config(arch).reduce(),
+                              activ_dtype="float32", vocab=128)
+    p0 = model.build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    outs = []
+    for d in ("cpu", cuda_dev):
+        step, _, _ = train.make_hfl_train_step(
+            cfg, mesh.make_hfl_mesh((1, 2, 2), device=d), lr=3e-3,
+            mb_per_epoch=2 if arch.startswith("qwen3") else 1, remat=False,
+            g1=2, g2=2, attn_chunk=16)
+        params = train.lift_params(train._map(lambda a: a.to(d), p0), 1, 2, 2)
+        ops.reset_launches()
+        out = step(params, token_batch(0, 8, 32, 128, device=d))
+        leaves = train._leaves(out)
+        for leaf in leaves:
+            rows = leaf.view(4, -1)
+            assert all(torch.equal(rows[i], rows[0]) for i in range(1, 4))
+        outs.append(leaves)
+    assert ops.LAUNCHES["segment_agg"] == ops.LAUNCHES[
+        "segment_broadcast"] == 3 * len(outs[0])
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["wkv6"] == 0
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)

@@ -36,6 +36,7 @@ from repro.runtime import ChurnEvent as JChurnEvent
 from repro.runtime import FaultSpec as JFaultSpec
 from repro.runtime import StalenessBuffer as JStalenessBuffer
 from repro.sim import env as jenv
+from repro_torch.core import hfl
 from repro_torch.kernels import ops, ref
 
 WORLDS = (1, 2, 4)
@@ -46,15 +47,6 @@ G = drv.TRAJ_CFG["gamma_max"]
 N = drv.TRAJ_CFG["n_devices"]
 N_LOCAL = drv.TRAJ_CFG["n_local"]
 VERSIONS = 8                     # edge-round shuffles for versions 0..7
-# ROADMAP section 3, fault 3: a rank's vmapped convolutions hold its N/k
-# rows, one device's all N, and the CPU's convolution takes another path
-# for a 1-row call. 4 MNIST devices on 4 ranks (deterministic HFLEnv,
-# reset + one (2, 2) round): 4.47e-8 on the global model and the bank
-# (CPU); the bound is that rounded up. With 2 or more rows per rank the
-# CPU runs are bitwise (the trajectory tests below).
-ONE_ROW_BOUND = 1e-7
-
-
 def _inputs() -> dict:
     """The reference's draws for the rounds and the envs, as numpy."""
     perm_source, edge_perm_source = jax_async_perm_sources(
@@ -634,15 +626,88 @@ def _jenv_accs():
                        for _ in range(drv.ENV_ROUNDS)]
 
 
-def test_one_row_per_rank_cnn_round_within_fault3_bound(runs):
-    """Fault 3 pinned on the CPU: with one bank row per rank the MNIST
-    CNN's vmapped convolutions take another path than one device's
-    4-row calls; global model and bank within ONE_ROW_BOUND, the same on
-    every rank, the accuracy equal."""
-    res = [r["one_row"] for r in runs[4]]
+def _fault3_bitwise(runs, world: int, case: str) -> None:
+    res = [r[case] for r in runs[world]]
     single = res[0]["single"]
-    gvec = _replicated(runs[4], "one_row", "sharded", "gvec")
-    _close(gvec, single["gvec"], ONE_ROW_BOUND)
-    _close(_rows([r["sharded"]["bank"] for r in res]), single["bank"],
-           ONE_ROW_BOUND)
+    gvec = _replicated(runs[world], case, "sharded", "gvec")
+    assert _same(gvec, single["gvec"])
+    assert _same(_rows([r["sharded"]["bank"] for r in res]), single["bank"])
     assert all(r["sharded"]["acc"] == single["acc"] for r in res)
+    n = single["bank"].shape[0]
+    assert all(r["sharded"]["rows"] == [n // world] for r in res)
+
+
+def test_one_row_per_rank_cnn_round_bitwise(runs):
+    """Fault 3 closed (ROADMAP section 3), the one-row case: 4 MNIST
+    devices on 4 ranks, one bank row and one edge each; the deterministic
+    trainer's calls are each edge's rows (``hfl.train_calls``), one row
+    on one device as on the ranks, so the reset plus one (2, 2) round
+    gives the global model, the bank and the accuracy bitwise, the same
+    on every rank."""
+    _fault3_bitwise(runs, 4, "one_row")
+
+
+def test_spanning_edge_cnn_round_bitwise(runs):
+    """Fault 3 closed, the non-aligned case: 10 MNIST devices on 2 ranks
+    of 5 rows, edge 1 (rows 3-6) spanning them and so its 4-row training
+    call. Each rank pads its half of the call; Eq. 1 of
+    the deterministic round chains the ranks' sums in row order
+    (``ops.segment_agg_ordered``). Global model, bank and accuracy
+    bitwise the one-device round."""
+    _fault3_bitwise(runs, 2, "spanning")
+
+
+@pytest.mark.parametrize("groups,sizes", [
+    (np.zeros(47, np.int64), [16, 16, 15]),      # prime N: no 1-row calls
+    (np.zeros(50, np.int64), [13, 13, 12, 12]),
+    (np.arange(50) % 5, [10] * 5),               # edges scattered over rows
+    (np.repeat([2, 0, 1], [3, 20, 3]), [20 // 2] * 2 + [3, 3]),
+], ids=["prime", "one-group", "round-robin", "uneven"])
+def test_train_calls_chunk_each_edge(groups, sizes):
+    """The deterministic trainer's calls: each edge's global rows in
+    ascending order, in chunks of at most ``TRAIN_CALL_ROWS`` of
+    near-equal size, every row in exactly one call."""
+    calls = hfl.train_calls(groups)
+    assert [c.size for c in calls] == sizes
+    assert np.array_equal(np.sort(np.concatenate(calls)),
+                          np.arange(groups.size))
+    for c in calls:
+        assert np.all(np.diff(c) > 0) and np.unique(groups[c]).size == 1
+        assert c.size <= hfl.TRAIN_CALL_ROWS
+
+
+def test_deterministic_edge_round_trains_its_edge_chunks_only():
+    """A deterministic edge round on scattered edges (40 rows, edge =
+    row % 2) makes one ``vmap(grad)`` call per chunk of its edge per
+    step, two here, where the cloud round makes four; and it returns
+    the edge's row of the cloud round's edge matrix bitwise."""
+    n, m, n_local, bs = 40, 2, 8, 4
+    calls = []
+
+    def loss(p, batch):
+        calls.append(1)
+        return torch.mean((batch["x"] @ p["w"][..., 0] - batch["y"]) ** 2)
+
+    g = torch.Generator().manual_seed(0)
+    bank = {"w": torch.randn(n, 3, 1, generator=g)}
+    x = torch.randn(n, n_local, 3, generator=g)
+    y = torch.randn(n, n_local, generator=g)
+    sizes = torch.full((n,), float(n_local))
+    ea = torch.as_tensor(np.arange(n) % m, dtype=torch.int32)
+    perms = torch.rand((1, 1, n, n_local), generator=g).argsort(-1)
+    steps = n_local // bs
+    cloud = hfl.make_cloud_round(loss, 0.05, bs, m, 1, 1, deterministic=True)
+    _, _, edges = cloud({"w": bank["w"].clone()}, x, y, sizes, ea,
+                        np.ones(m), np.ones(m), perms)
+    assert len(calls) == 4 * steps
+    calls.clear()
+    edge = hfl.make_edge_round(loss, 0.05, bs, m, 1, 1, deterministic=True)
+    _, vec = edge({"w": bank["w"].clone()}, x, y, sizes, ea, 1, 1, 1,
+                  bank["w"][1].reshape(-1).clone(), perms)
+    assert len(calls) == 2 * steps
+    # the edge starts from row 1's model, the cloud round from each row's
+    start = {"w": bank["w"].clone()}
+    start["w"][ea == 1] = bank["w"][1]
+    _, _, edges = cloud(start, x, y, sizes, ea, np.ones(m), np.ones(m),
+                        perms)
+    assert torch.equal(vec, edges["w"][1].reshape(-1))
