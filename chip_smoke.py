@@ -109,17 +109,21 @@ Phases, each fatal on failure (the script exits non-zero):
    of multi-GPU scaling;
 2b. hold ``flash_attention`` and ``wkv6`` against their plain versions
    on the card, in bf16 and f32, at the serving path's shapes (qwen3-1.7b
-   prefill and decode, rwkv6-1.6b prefill) plus ragged, windowed, MHA,
+   prefill and decode, rwkv6-1.6b prefill; phase 3h's olmoe-1b-7b
+   prefill and decode, qwen3's windowed prefill of 8704 tokens under a
+   window of 8192 and its ring decode, non-causal over 8192 slots) plus
+   ragged, windowed, MHA,
    non-causal and hard-decay cases, and for ``flash_attention``'s
    split-KV decode path GQA groups of 1, 4 and 8, Skv 1, 65 and 4097, a
    causal end and an empty split inside the range, and both sides of the
    16-packed-row routing edge; each with its stated tolerance, and two
    runs of each kernel bitwise equal;
 3g. the hierarchical LLM train step (``repro_torch.launch.train``), on a
-   180 s budget: (a) reduced qwen3 and rwkv6 (f32 activations, vocab
-   128) one (2, 2) round on replicas (1, 2, 2) on the card against the
-   CPU within 1e-4, TF32 off; (b) full-width qwen3-1.7b (f32 weights
-   from seed 0, bf16 activations) on replicas (1, 2, 2), the reference
+   180 s budget: (a) reduced qwen3, rwkv6 and olmoe (f32 activations,
+   vocab 128) one (2, 2) round on replicas (1, 2, 2) on the card against
+   the CPU within 1e-4, TF32 off, launches held to (g2 + 1) per leaf;
+   (b) full-width qwen3-1.7b (f32 weights from seed 0, bf16
+   activations) on replicas (1, 2, 2), the reference
    main's settings (batch 8 x seq 128, lr 3e-3, 2 minibatches per epoch,
    remat, KV chunks of 128): one static (2, 2) round, the
    ``segment_agg`` and ``segment_broadcast`` launches held to (g2 + 1)
@@ -131,14 +135,34 @@ Phases, each fatal on failure (the script exits non-zero):
    held; (d) one (1, 1) round at seq 4096 (train_4k), one sequence per
    replica; (e) full-width rwkv6-1.6b, one (1, 1) round through
    ``wkv_chunked``;
-3b. the LLM serving path: a reduced qwen3 and rwkv6 (f32 activations)
-   served on the card against the CPU; then the main path, the full-width
+3b. the LLM serving path: a reduced qwen3, rwkv6 and olmoe (f32
+   activations) served on the card against the CPU; then the main path,
+   the full-width
    qwen3-1.7b and rwkv6-1.6b (random weights from seed 0) through
    ``repro_torch.launch.serve.greedy_serve``: a (4, 1024) prompt, 32
    greedy decode steps, the kernel launch counts held to what the loop
    implies (for qwen3 also the ``flash_attention`` path: prefill on the
    tensor-core tile kernel, decode on split-KV), and every step's logits
    held against ``Model.logits`` over the whole sequence;
+3h. the MoE family and ring-buffer serving (``models.moe``, the
+   ``window`` of ``greedy_serve``), on a 120 s budget: (a) olmoe-1b-7b at
+   full width (64 experts top-8, 6.92 B f32 params from seed 0, bf16
+   activations): a (4, 1024) prompt and 32 greedy steps, ``flash_attention``
+   launches held to 16 wgmma + 16 x 32 split-KV calls, the prefill
+   logits against ``Model.logits`` over the prompt within relative L2
+   1e-2, then the dropless copy (capacity factor 8 = E / k) served the
+   same way in bf16 and f32 activations, the routing of each decode step
+   compared with the full forward's token by token: each sequence is held
+   against ``Model.logits`` by relative L2 0.1 (bf16) / 1e-3 (f32) at
+   every step before its first routing flip (a top-8 boundary closer
+   than the two paths' router-logit difference), at least half of all
+   (step, sequence) pairs in f32, and each flip printed with its margin;
+   prefill seconds, decode tokens/s, peak memory and one profiled decode
+   step printed; (b)
+   qwen3-1.7b from a ring buffer of its sliding window (8192 slots): a
+   (1, 8704) prompt and 32 steps, launches held to 28 + 28 x 32, the
+   ring's positions checked slot by slot, and every step held against
+   ``Model.logits(window=8192)`` over 8736 tokens;
 4. kernel times at the main path's shapes (CIFAR and MNIST, Eq. 1 with
    its resync and Eq. 2, and the flushes with ``torch.mv`` as the
    library call; the JSON line has CIFAR and MNIST Eq. 1 rows and the
@@ -149,9 +173,10 @@ Phases, each fatal on failure (the script exits non-zero):
    a CUDA-graph replay, beside the plain version's, one PyTorch library
    call's, the bound (bytes over 3.35 TB/s), and the eager wrapper's
    time per call as the round pays it (host dispatch included);
-4b. the same for ``flash_attention`` (qwen3 prefill and decode, one
-   JSON row each, with ``scaled_dot_product_attention`` as the library
-   yardstick) and
+4b. the same for ``flash_attention`` (qwen3 prefill and decode, olmoe
+   prefill and decode, qwen3's windowed prefill and ring decode, one JSON
+   row each, with ``scaled_dot_product_attention`` as the library
+   yardstick, a boolean mask for the window) and
    ``wkv6`` (rwkv6 prefill; no single library call computes it), with
    the bound the larger of bytes over 3.35 TB/s and the operations the
    function needs over the card's peak rate for them: for attention the
@@ -1554,7 +1579,7 @@ def sharded_bank(torch, ops, env_mod, flatbank, mesh_lib) -> dict:
 # takes its two sequences per replica in one minibatch: its reduced round
 # is ill-conditioned over 8 SGD steps (tests/_torch_train_ref.py)
 TRAIN_TOL = 1e-4
-TRAIN_MB = {"qwen3-1.7b": 2, "rwkv6-1.6b": 1}
+TRAIN_MB = {"qwen3-1.7b": 2, "rwkv6-1.6b": 1, "olmoe-1b-7b": 2}
 # the reference main's settings at full width: lr 3e-3, batch 8 x seq 128
 # over replicas (1, 2, 2), 2 minibatches of one sequence per epoch, remat
 TRAIN_KW = dict(lr=3e-3, mb_per_epoch=2, remat=True)
@@ -1584,12 +1609,13 @@ def _agg_launches(n_leaves: int, g2: int) -> dict:
 
 def small_train_check(torch, ops, configs, model_mod, train, mesh_lib,
                       token_batch, dev) -> None:
-    """(a) Reduced qwen3 and rwkv6, f32 activations, vocab 128: one (2, 2)
-    round on replicas (1, 2, 2), batch 8 x seq 32, KV chunks of 16, on
-    the card and on the CPU from the same weights; every leaf within
-    TRAIN_TOL, launches as the round implies on the card."""
+    """(a) Reduced qwen3, rwkv6 and olmoe (its loss carries the MoE aux
+    loss), f32 activations, vocab 128: one (2, 2) round on replicas (1,
+    2, 2), batch 8 x seq 32, KV chunks of 16, on the card and on the CPU
+    from the same weights; every leaf within TRAIN_TOL, launches as the
+    round implies on the card."""
     import dataclasses
-    for arch in ("qwen3-1.7b", "rwkv6-1.6b"):
+    for arch in TRAIN_MB:
         cfg = dataclasses.replace(configs.get_config(arch).reduce(),
                                   activ_dtype="float32", vocab=128)
         p0 = model_mod.build_model(cfg).init(torch.Generator().manual_seed(0),
@@ -1961,12 +1987,26 @@ FLASH_CASES = [("qwen3-prefill", 4, 16, 8, 1024, 1024, 128, True, 0, 0),
                ("decode-window", 1, 8, 2, 1, 300, 64, True, 64, 299),
                ("prefill-d64", 2, 8, 4, 512, 512, 64, True, 0, 0),
                ("rows-16-edge", 2, 16, 8, 8, 300, 128, True, 0, 292),
-               ("continuation-40", 2, 16, 8, 40, 1064, 128, True, 0, 1024)]
+               ("continuation-40", 2, 16, 8, 40, 1064, 128, True, 0, 1024),
+               # phase 3h: olmoe-1b-7b (MHA) prefill and decode, qwen3's
+               # windowed prefill past the window and its ring decode
+               # (non-causal over the full ring, attention.decode_attention)
+               ("olmoe-prefill", 4, 16, 16, 1024, 1024, 128, True, 0, 0),
+               ("olmoe-decode", 4, 16, 16, 1, 1056, 128, True, 0, 1055),
+               ("window-prefill", 1, 16, 8, 8704, 8704, 128, True, 8192, 0),
+               ("ring-decode", 1, 16, 8, 1, 8192, 128, False, 0, 0)]
 # (name, B, S, nh, chunk, decay range)
 WKV_CASES = [("rwkv6-prefill", 4, 1024, 32, 64, (0.3, 0.999)),
              ("ragged", 2, 1000, 8, 64, (0.3, 0.999)),
              ("hard-decay", 1, 256, 4, 32, (1e-4, 0.1))]
-MAIN_FLASH = ("qwen3-prefill", "qwen3-decode")
+# the serving shapes timed in phase 4b, each with the serve (and its
+# flash path) whose launches its JSON row reports
+MAIN_FLASH = {"qwen3-prefill": ("qwen3-1.7b", "wgmma"),
+              "qwen3-decode": ("qwen3-1.7b", "split_kv"),
+              "olmoe-prefill": ("olmoe-1b-7b", "wgmma"),
+              "olmoe-decode": ("olmoe-1b-7b", "split_kv"),
+              "window-prefill": ("qwen3-1.7b-window", "wgmma"),
+              "ring-decode": ("qwen3-1.7b-window", "split_kv")}
 
 
 def flash_inputs(torch, dev, b, h, hkv, sq, skv, d, dtype, seed=0):
@@ -2056,12 +2096,12 @@ def rel_err(torch, got, want) -> float:
 
 
 def small_serve_check(torch, configs, model_mod, dev) -> None:
-    """Reduced qwen3 and rwkv6 with f32 activations, the same weights and
-    tokens, prefill(16, max_new 4) + 4 teacher-forced decode steps on the
-    card (kernels) and on the CPU (plain versions)."""
+    """Reduced qwen3, rwkv6 and olmoe with f32 activations, the same
+    weights and tokens, prefill(16, max_new 4) + 4 teacher-forced decode
+    steps on the card (kernels) and on the CPU (plain versions)."""
     import dataclasses
     from repro_torch.data.synthetic import token_batch
-    for arch in ("qwen3-1.7b", "rwkv6-1.6b"):
+    for arch in ("qwen3-1.7b", "rwkv6-1.6b", "olmoe-1b-7b"):
         cfg = dataclasses.replace(configs.get_config(arch).reduce(),
                                   activ_dtype="float32")
         model = model_mod.build_model(cfg)
@@ -2171,17 +2211,18 @@ def serve_path(torch, ops, fa, configs, model_mod, serve, arch, dev,
     return out
 
 
-def logits_check(torch, ops, model, cfg, params, toks, res) -> float:
+def logits_check(torch, ops, model, cfg, params, toks, res,
+                 window: int = 0) -> float:
     """``Model.logits`` over prompt + fed tokens (one launch of the
-    path's kernel per layer) against every step's logits; returns the
-    largest per-step relative L2 error."""
+    path's kernel per layer; ``window`` its sliding window) against every
+    step's logits; returns the largest per-step relative L2 error."""
     prompt = toks.shape[1]
     seq = torch.cat([toks, res["tokens"]], dim=1)
     ops.reset_launches()
     with torch.no_grad():
-        full = model.logits(params, {"tokens": seq})
+        full = model.logits(params, {"tokens": seq}, window=window)
     counts = dict(ops.LAUNCHES)
-    kern = "flash_attention" if cfg.family == "dense" else "wkv6"
+    kern = "wkv6" if cfg.family == "ssm" else "flash_attention"
     check(counts[kern] == cfg.n_layers,
           f"{cfg.name}: Model.logits launched {counts}")
     errs, maxabs = [], 0.0
@@ -2196,13 +2237,15 @@ def logits_check(torch, ops, model, cfg, params, toks, res) -> float:
     agree = float((full[:, prompt - 1:-1].argmax(-1) == res["tokens"]
                    ).float().mean())
     tol = SERVE_REL[cfg.activ_dtype]
+    top = float(full.abs().max())
+    del full
     print(f"    Model.logits ({cfg.activ_dtype}) over {seq.shape[1]} tokens "
-          f"({counts[kern]} {kern} launches): per-step relative L2 error "
-          f"prefill {errs[0]:.3e}, decode max {max(errs[1:]):.3e}, mean "
+          f"({counts[kern]} {kern} launches"
+          f"{f', window {window}' if window else ''}): per-step relative L2 "
+          f"error prefill {errs[0]:.3e}, decode max {max(errs[1:]):.3e}, mean "
           f"{sum(errs[1:]) / len(errs[1:]):.3e} (tolerance {tol}); max abs "
-          f"err {maxabs:.3e}, logits max abs "
-          f"{float(full.float().abs().max()):.3f}; greedy tokens the full "
-          f"forward also picks: {agree:.4f}")
+          f"err {maxabs:.3e}, logits max abs {top:.3f}; greedy tokens the "
+          f"full forward also picks: {agree:.4f}")
     check(max(errs) <= tol, f"{cfg.name}: decode logits differ from "
           f"Model.logits by {max(errs)} ({cfg.activ_dtype})")
     return max(errs)
@@ -2254,6 +2297,256 @@ def profile_decode(torch, serve, cfg, params, toks) -> dict:
             "step_flash_ms": flash_ms, "step_launches": n_kern}
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: the MoE family and ring-buffer (sliding-window) serving
+# ---------------------------------------------------------------------------
+
+# (a) olmoe's prefill logits against Model.logits over the prompt: the
+# same T, so the same capacity and, up to the last GEMM's shape, the same
+# ops; a few bf16 ulps of the logits
+MOE_PREFILL_REL = 1e-2
+# 27.7 GB of f32 weights, one layer's bf16 expert copies (0.8 GB), the
+# cache and activations
+MOE_MEM_GB = 30.0
+# with f32 activations the two paths' router logits differ by ~1e-5, and
+# a top-8 boundary that close is rare: most (step, sequence) pairs come
+# before any routing flip, and at least half must
+MOE_F32_HELD = 0.5
+# (b) the reference's long_500k ring (cfg.sliding_window) and a prompt
+# past it, so the ring is full and wraps
+WINDOW_PROMPT = 8704
+SERVE_BUDGET_S = 120.0
+
+
+def _flash_want(cfg, new: int) -> tuple:
+    """A greedy serve's launches and flash paths: one wgmma prefill call
+    and ``new`` split-KV decode calls per layer."""
+    want = {"segment_agg": 0, "segment_broadcast": 0,
+            "flash_attention": cfg.n_layers * (1 + new), "wkv6": 0}
+    return want, {"split_kv": cfg.n_layers * new, "wgmma": cfg.n_layers,
+                  "f32_tile": 0}
+
+
+def _counted_serve(torch, ops, fa, serve, cfg, params, toks, new, label,
+                   window=0):
+    """``greedy_serve`` with the launch and path counts set to 0 just
+    before and held just after; prints its walls."""
+    ops.reset_launches()
+    fa.reset_paths()
+    res = serve.greedy_serve(cfg, params, toks, new, window=window)
+    counts, paths = dict(ops.LAUNCHES), dict(fa.PATH_CALLS)
+    want, want_paths = _flash_want(cfg, new)
+    b, s = toks.shape
+    print(f"    {label}: prefill {s} tokens x{b}: {res['prefill_s']:.4f} s; "
+          f"{new} decode steps x{b}: {res['decode_s']:.4f} s "
+          f"({res['tok_per_s']:.1f} tok/s); launches {counts}, flash paths "
+          f"{paths}")
+    check(counts == want, f"{label}: launch counts {counts} != {want}")
+    check(paths == want_paths, f"{label}: flash paths {paths} != "
+          f"{want_paths}")
+    return res, {"counts": counts, "paths": paths,
+                 "prefill_s": res["prefill_s"],
+                 "tok_per_s": res["tok_per_s"]}
+
+
+@contextlib.contextmanager
+def _routes(moe_mod):
+    """Records every ``moe._route`` call as (f32 router logits (T, E),
+    experts (T, k)), in call order; the call's own results are returned
+    unchanged."""
+    rec, route = [], moe_mod._route
+
+    def recorded(params, x_flat, n_experts, top_k):
+        out = route(params, x_flat, n_experts, top_k)
+        rec.append((x_flat.float() @ params["router"].float(), out[1]))
+        return out
+
+    moe_mod._route = recorded
+    try:
+        yield rec
+    finally:
+        moe_mod._route = route
+
+
+def routed_logits_check(torch, moe_mod, model, cfg, params, toks, res,
+                        dec_rec, min_held: float = 0.0) -> float:
+    """A dropless serve against ``Model.logits`` over the whole sequence,
+    with the routing of both paths compared token by token.
+
+    A decode step's hidden states differ from the forward's by roundings
+    (other attention kernels and GEMM shapes), and where a token's k-th
+    and (k+1)-th router logits lie closer than that, the two paths pick
+    different experts (a flip). The random weights' experts are large
+    (the reference's init takes E as the fan-in of the (E, d, f) stacks),
+    so one flip moves a token's output far and its sequence then
+    diverges. So each sequence is held to SERVE_REL at every step before
+    its first flip, and at least ``min_held`` of all (step, sequence)
+    pairs must be held; flips are printed with their margins beside the
+    router-logit difference between the paths at that token."""
+    b, prompt = toks.shape
+    n_layers, k, new = cfg.n_layers, cfg.moe.top_k, len(res["logits"]) - 1
+    seq = torch.cat([toks, res["tokens"]], dim=1)
+    with _routes(moe_mod) as fwd_rec, torch.no_grad():
+        full = model.logits(params, {"tokens": seq})
+    s_all = seq.shape[1]
+    flips, first = [], [new] * b
+    for i in range(new):                 # step i feeds position prompt + i
+        rows = torch.arange(b, device=seq.device) * s_all + prompt + i
+        for layer in range(n_layers):
+            lg_d, e_d = dec_rec[n_layers * (1 + i) + layer]
+            lg_f, e_f = (t[rows] for t in fwd_rec[layer])
+            for j in range(b):
+                if set(e_d[j].tolist()) == set(e_f[j].tolist()):
+                    continue
+                top = lg_f[j].sort(descending=True).values
+                flips.append((i, layer, j, float(top[k - 1] - top[k]),
+                              float((lg_d[j] - lg_f[j]).abs().max())))
+                first[j] = min(first[j], i)
+    tol = SERVE_REL[cfg.activ_dtype]
+    held, errs = 0, []
+    for i, lg in enumerate(res["logits"]):
+        ref_lg = full[:, prompt - 1 + i]
+        check(bool(torch.isfinite(lg.float()).all()),
+              f"{cfg.name}: step {i} logits not finite")
+        errs.append(rel_err(torch, lg, ref_lg))
+        for j in range(b):
+            if i == 0 or i - 1 < first[j]:         # before any flip
+                e = rel_err(torch, lg[j], ref_lg[j])
+                check(e <= tol, f"{cfg.name}: step {i}, sequence {j}, no "
+                      f"routing flip before it, relative L2 {e} > {tol}")
+                held += 1
+    del full
+    n_pairs = (new + 1) * b
+    check(held >= min_held * n_pairs, f"{cfg.name} ({cfg.activ_dtype}): "
+          f"only {held} of {n_pairs} (step, sequence) pairs precede their "
+          f"sequence's first routing flip (at least {min_held:.0%} asked)")
+    margins = sorted(f[3] for f in flips)
+    print(f"    Model.logits ({cfg.activ_dtype}) over {s_all} tokens: "
+          f"per-step relative L2 error prefill {errs[0]:.3e}, decode max "
+          f"{max(errs[1:]):.3e}, mean {sum(errs[1:]) / new:.3e}; routing "
+          f"flips between decode and forward: {len(flips)} of "
+          f"{new * n_layers * b} (step, layer, token) routes, first flip per "
+          f"sequence at step {first}; {held} of {n_pairs} (step, "
+          f"sequence) pairs before their sequence's first flip held within "
+          f"{tol}")
+    for f in flips[:8]:
+        print(f"      flip at step {f[0]}, layer {f[1]}, sequence {f[2]}: "
+              f"margin of the top-{k} boundary {f[3]:.3e}, router logits "
+              f"of the two paths differ by up to {f[4]:.3e}")
+    if flips:
+        print(f"      flip margins: min {margins[0]:.3e}, median "
+              f"{margins[len(margins) // 2]:.3e}, max {margins[-1]:.3e}")
+    return max(errs)
+
+
+def serve_moe_and_ring(torch, ops, fa, configs, model_mod, serve,
+                       dev) -> dict:
+    """Phase 3h. (a) olmoe-1b-7b at full width (random f32 weights from
+    seed 0, bf16 activations) through ``greedy_serve``: a (4, 1024)
+    prompt and 32 greedy steps, launches held; the prefill logits against
+    ``Model.logits`` over the prompt; then the dropless copy
+    (capacity_factor = E / k, capacity T at any T) served the same way
+    in bf16 and in f32 activations, every step held against
+    ``Model.logits`` over the sequence per sequence up to its first
+    routing flip (``routed_logits_check``); one profiled decode step of
+    the published config. (b) qwen3-1.7b from a ring of its sliding
+    window (8192): a (1, 8704)
+    prompt and 32 steps, the ring checked slot by slot and every step
+    held against ``Model.logits(window=8192)``. Returns each serve's
+    counts for the JSON rows."""
+    import dataclasses
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models import moe as moe_mod
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    batch, prompt, new = 4, 1024, 32
+    cfg = configs.get_config("olmoe-1b-7b")
+    model = model_mod.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    t_init = sync_time(torch) - t0
+    n_par = sum(int(t.numel()) for t in _leaves(params))
+    toks = token_batch(0, batch, prompt, cfg.vocab, dev)["tokens"]
+    mc = cfg.moe
+    print(f"  (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{mc.n_experts} experts top-{mc.top_k}, d_ff {cfg.d_ff}, "
+          f"{n_par / 1e9:.3f} B f32 params "
+          f"({torch.cuda.memory_allocated(dev) / 1e9:.2f} GB), init "
+          f"{t_init:.2f} s; capacity per expert: prefill "
+          f"{moe_mod.capacity(batch * prompt, mc)}, decode "
+          f"{moe_mod.capacity(batch, mc)} (capacity factor "
+          f"{mc.capacity_factor})")
+    serve.greedy_serve(cfg, params, toks[:1, :64], 2)        # warm-up
+    res, out[cfg.name] = _counted_serve(torch, ops, fa, serve, cfg, params,
+                                        toks, new, "published config")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    with torch.no_grad():
+        full = model.logits(params, {"tokens": toks})
+    e = rel_err(torch, res["logits"][0], full[:, -1])
+    same = float((res["logits"][0].argmax(-1) == full[:, -1].argmax(-1)
+                  ).float().mean())
+    del full, res
+    print(f"    prefill logits vs Model.logits over the prompt: relative L2 "
+          f"{e:.3e} (tolerance {MOE_PREFILL_REL}), same argmax {same:.2f}; "
+          f"peak memory {peak:.2f} GB (reckoned {MOE_MEM_GB:.0f} GB)")
+    check(e <= MOE_PREFILL_REL, f"olmoe prefill logits differ from "
+          f"Model.logits by {e}")
+    dl = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mc, capacity_factor=mc.n_experts / mc.top_k))
+    with _routes(moe_mod) as dec_rec:
+        res, _ = _counted_serve(torch, ops, fa, serve, dl, params, toks, new,
+                                f"dropless copy (capacity factor "
+                                f"{dl.moe.capacity_factor})")
+    out[cfg.name]["rel_err"] = routed_logits_check(
+        torch, moe_mod, model_mod.build_model(dl), dl, params, toks, res,
+        dec_rec)
+    del res, dec_rec
+    dl32 = dataclasses.replace(dl, activ_dtype="float32")
+    with _routes(moe_mod) as dec_rec:
+        res = serve.greedy_serve(dl32, params, toks, new)
+    print(f"    dropless copy, f32 activations: prefill "
+          f"{res['prefill_s']:.4f} s, {res['tok_per_s']:.1f} tok/s")
+    out[cfg.name]["rel_err_f32"] = routed_logits_check(
+        torch, moe_mod, model_mod.build_model(dl32), dl32, params, toks,
+        res, dec_rec, min_held=MOE_F32_HELD)
+    out[cfg.name]["peak_gb"] = peak
+    del res
+    out[cfg.name].update(profile_decode(torch, serve, cfg, params, toks))
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = configs.get_config("qwen3-1.7b")
+    win = cfg.sliding_window
+    model = model_mod.build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    toks = token_batch(1, 1, WINDOW_PROMPT, cfg.vocab, dev)["tokens"]
+    print(f"  (b) {cfg.name}, window {win}, prompt {WINDOW_PROMPT}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, out[cfg.name + "-window"] = _counted_serve(
+        torch, ops, fa, serve, cfg, params, toks, new, "ring buffer",
+        window=win)
+    cache, t = res["cache"], WINDOW_PROMPT + new
+    ring = torch.roll(torch.arange(t - win, t, dtype=torch.int32,
+                                   device=dev), t % win)
+    check(cache["t"] == t and cache["k"].shape[2] == win
+          and bool((cache["pos"] == ring).all()),
+          f"ring buffer: t {cache['t']}, {cache['k'].shape[2]} slots, "
+          f"positions not p at slot p % {win}")
+    print(f"    ring of {win} slots holds positions {t - win}..{t - 1}, "
+          f"position p at slot p % {win}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    del cache
+    out[cfg.name + "-window"]["rel_err"] = logits_check(
+        torch, ops, model, cfg, params, toks, res, window=win)
+    del params, res
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 3h took {wall:.1f} s (budget {SERVE_BUDGET_S:.0f} s)")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2293,10 +2586,16 @@ def time_llm(torch, ops, ref, dev) -> dict:
                                torch.bfloat16, seed=1)
         kw = dict(causal=causal, window=win, q_offset=off)
         # the yardstick: with q_offset = Skv - 1 a one-row decode sees
-        # every key, so SDPA without a mask computes the same function
-        lib_causal = causal and sq > 1
+        # every key, so SDPA without a mask computes the same function; a
+        # window takes an explicit boolean mask
+        lib_causal = causal and sq > 1 and not win
+        mask = None
+        if win:
+            qpos = off + torch.arange(sq, device=dev)[:, None]
+            kpos = torch.arange(skv, device=dev)[None, :]
+            mask = (kpos <= qpos) & (kpos > qpos - win)
         lib = lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=lib_causal, enable_gqa=True)
+            q, k, v, attn_mask=mask, is_causal=lib_causal, enable_gqa=True)
         check(torch.allclose(lib().float(), ops.flash_attention(
             q, k, v, **kw).float(), atol=2e-2, rtol=2e-2),
             f"SDPA yardstick disagrees at {name}")
@@ -2484,6 +2783,10 @@ def main() -> int:
     trained = llm_train(torch, ops, configs, model, train, mesh_lib,
                         device_mod, dev)
 
+    print(f"phase 3h: MoE and ring-buffer serving ({smi})")
+    served.update(serve_moe_and_ring(torch, ops, flash_attention, configs,
+                                     model, serve, dev))
+
     print("phase 4: times per call, CUDA events around a CUDA-graph "
           "replay of 50 calls (kernel and plain each twice, in turns); "
           "the eager wrapper call is 50 back-to-back calls")
@@ -2514,16 +2817,14 @@ def main() -> int:
           "twice, in turns); the eager wrapper call is 20 back-to-back calls")
     llm = time_llm(torch, ops, ref, dev)
     # flash_attention: one row per serving shape, each with the calls its
-    # path took in the qwen3 serve (prefill: wgmma, decode: split_kv)
-    qwen = served["qwen3-1.7b"]
-    for shape, path in (("qwen3-prefill", "wgmma"), ("qwen3-decode",
-                                                     "split_kv")):
+    # path took in its serve (prefill: wgmma, decode: split_kv)
+    for shape, (serve_name, path) in MAIN_FLASH.items():
         t = dict(llm[(shape, "flash_attention")])
         t.pop("call_ms")
         rows.append(dict(name="flash_attention", route="cuda",
                          source=KERNEL_SRC["flash_attention"],
                          replaces=REPLACES["flash_attention"],
-                         launches=qwen["paths"][path],
+                         launches=served[serve_name]["paths"][path],
                          max_abs_err=err["flash_attention"][shape],
                          shape=shape, path=path, **t))
     t = dict(llm[("rwkv6-prefill", "wkv6")])

@@ -14,8 +14,9 @@ recurrence chunk by chunk in log space. The kernel computes it in steps
 of 16 tokens with running products of the decay, one block per
 (batch, head) (``ref.wkv6_step_ref`` states that algorithm); the card
 tests hold it to the same tolerances at both chunk lengths. S need not
-be a multiple of anything: the kernel masks the ragged tail itself (r = k = v = 0, w = 1). r, k, v and w must start at
-16-byte aligned addresses (the kernel copies whole 16-byte pieces).
+be a multiple of anything: the kernel masks the ragged tail itself
+(r = k = v = 0, w = 1). r, k, v and w must start at 16-byte aligned
+addresses (the kernel copies whole 16-byte pieces).
 """
 from __future__ import annotations
 

@@ -3,6 +3,9 @@ single-device port of ``repro.launch.serve`` and of
 ``examples/serve_decode.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --window 32 --prompt-len 48
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --reduced --device cpu
 
@@ -11,8 +14,11 @@ reference's parameter and cache shardings (``serve_specs_for_params``,
 ``cache_specs``) have no counterpart yet (ROADMAP.md, "Modules still to
 port", item 10). ``main`` runs a model at full width by default, with
 random weights drawn from ``--seed``; ``--reduced`` serves
-``cfg.reduce()``. Attention runs through the ``flash_attention`` kernel
-and RWKV6's multi-token WKV through ``wkv6`` on the card.
+``cfg.reduce()``; ``--window N`` serves from a ring-buffer cache of the
+last N positions (sliding-window attention, the reference's
+``long_500k`` path). Attention runs through the ``flash_attention``
+kernel and RWKV6's multi-token WKV through ``wkv6`` on the card; an MoE
+model's experts are batched matmuls.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ from repro_torch.models.model import build_model
 def make_prefill_step(cfg, *, window: int = 0, max_new: int = 0):
     """Returns ``prefill_step(params, batch) -> (last logits (B, V),
     cache)``; ``batch`` is {"tokens": (B, S) int}, and the cache keeps
-    ``max_new`` free slots for the decode steps."""
+    ``max_new`` free slots for the decode steps (none with a ``window``:
+    the ring wraps)."""
     model = build_model(cfg)
 
     def prefill_step(params, batch_):
@@ -58,9 +65,12 @@ def _sync(dev: torch.device) -> float:
 
 
 @torch.no_grad()
-def greedy_serve(cfg, params, tokens, new_tokens: int) -> dict:
+def greedy_serve(cfg, params, tokens, new_tokens: int, *,
+                 window: int = 0) -> dict:
     """Prefill ``tokens`` (B, S), then ``new_tokens`` greedy decode steps,
-    each fed the argmax of the previous logits. Returns
+    each fed the argmax of the previous logits; with ``window`` > 0 from a
+    ring-buffer cache under a sliding window of that many positions.
+    Returns
 
         logits    -- [prefill logits, then each decode step's] (B, V) each
         tokens    -- (B, new_tokens) the greedy tokens fed to the decode
@@ -70,8 +80,8 @@ def greedy_serve(cfg, params, tokens, new_tokens: int) -> dict:
         tok_per_s -- new_tokens * B / decode_s
     """
     dev = tokens.device
-    prefill_step = make_prefill_step(cfg, max_new=new_tokens)
-    decode_step = make_decode_step(cfg)
+    prefill_step = make_prefill_step(cfg, window=window, max_new=new_tokens)
+    decode_step = make_decode_step(cfg, window=window)
     t0 = _sync(dev)
     logits, cache = prefill_step(params, {"tokens": tokens})
     t1 = _sync(dev)
@@ -100,6 +110,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--reduced", action="store_true",
                     help="serve cfg.reduce() (2 layers, d_model 256)")
+    ap.add_argument("--window", type=int, default=0,
+                    help="serve from a ring buffer of this many positions "
+                    "(sliding-window attention); 0: the whole sequence")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
@@ -113,10 +126,12 @@ def main(argv=None) -> dict:
                         dev)
     toks = token_batch(0, args.batch, args.prompt_len, cfg.vocab,
                        dev)["tokens"]
-    res = greedy_serve(cfg, params, toks, args.new_tokens)
+    res = greedy_serve(cfg, params, toks, args.new_tokens,
+                       window=args.window)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"{cfg.name}{' (reduced)' if args.reduced else ''} on {name}: "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}")
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}"
+          + (f", window {args.window}" if args.window else ""))
     print(f"prefill {args.prompt_len} tokens x{args.batch}: "
           f"{res['prefill_s']:.3f}s")
     print(f"decoded {args.new_tokens} tokens x{args.batch} in "

@@ -14,10 +14,10 @@ layout and reach the kernel as (B, H, S, D) transposed views (the
 kernel takes strides).
 
 Supported: GQA, qk_norm (qwen3), qkv bias (qwen2), causal and
-sliding-window masks on the full-sequence forward. Out of this slice, and
-raising ``NotImplementedError``: ring-buffer (sliding-window) prefill and
-decode, M-RoPE and cross-attention (ROADMAP.md, "Modules still to port",
-item 11).
+sliding-window masks, and ring-buffer (sliding-window) prefill and
+decode. Out of the port so far, and raising ``NotImplementedError``:
+M-RoPE and cross-attention (ROADMAP.md, "Modules still to port", item
+11).
 """
 from __future__ import annotations
 
@@ -178,16 +178,24 @@ def self_attention(params, cfg, x, positions=None, *, causal=True,
 
 
 def prefill_attention(params, cfg, x, *, window: int = 0):
-    """Prefill: returns (out, (k, v, kvpos)) with k/v (B, S, Hkv, D) and
-    kvpos (B, S) int32 absolute positions."""
-    if window:
-        raise NotImplementedError(f"ring-buffer (window > 0) prefill is "
-                                  f"not ported yet: see {ROADMAP_ITEM}")
+    """Prefill: returns (out, (k, v, kvpos)) with k/v (B, C, Hkv, D) and
+    kvpos (B, C) int32 absolute positions. The attention runs the
+    kernel's causal mask, with ``window`` its sliding window. C = S,
+    except with ``window`` and S > window: then the cache is a ring of
+    the last ``window`` positions, position p at slot ``p % window``
+    (the reference's ring buffer)."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = _attend(q, k, v) @ params["wo"].to(x.dtype)
-    return out, (k, v, positions.expand(b, s))
+    out = _attend(q, k, v, window=window) @ params["wo"].to(x.dtype)
+    pos = positions.expand(b, s).contiguous()
+    if window and s > window:
+        # position s - window + j goes to slot (s + j) % window: the tail
+        # rotated by s % window
+        r = s % window
+        k, v, pos = (torch.roll(t[:, -window:], r, dims=1)
+                     for t in (k, v, pos))
+    return out, (k, v, pos)
 
 
 def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0):
@@ -195,26 +203,44 @@ def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0):
     (B, C, Hkv, D) and kvpos (B, C) absolute positions (-1 = empty); pos:
     the new token's absolute position (a host int).
 
-    The new k/v/position are written into the cache tensors IN PLACE at
-    slot ``pos`` (the reference returns updated copies; the port saves
-    the copy of the whole cache per step), and the cache tuple is
-    returned. Without a window every slot holds its own position and the
-    empty slots lie above ``pos``, so causal attention with
-    ``q_offset = pos`` over the kernel's implicit positions is exactly the
-    reference's attention over ``kvpos``; the kernel reads only slots
-    0..pos."""
-    if window:
-        raise NotImplementedError(f"ring-buffer (window > 0) decode is not "
-                                  f"ported yet: see {ROADMAP_ITEM}")
+    The new k/v/position are written into the cache tensors IN PLACE (the
+    reference returns updated copies; the port saves the copy of the
+    whole cache per step), at slot ``pos``, or ``pos % C`` with a
+    ``window`` (the ring buffer), and the cache tuple is returned.
+
+    The kernel has implicit kv positions (slot u at position u), so the
+    call is chosen where they give the reference's attention over
+    ``kvpos``. Slots are filled in position order from 0 (by prefill and
+    the steps before), so:
+
+    - while ``pos < C`` every slot holds its own position and the empty
+      ones lie above ``pos``: causal attention with ``q_offset = pos``
+      (and the ``window`` mask) over the implicit positions is exact;
+    - once a ring has wrapped (``pos >= C``, window set) the new token's
+      write leaves every slot holding a position in ``(pos - C, pos]``,
+      all of them visible when ``C <= window`` (a full ring of ``window``
+      slots after a prompt longer than the window, or the ``s`` slots of
+      a shorter prompt's cache). The reference's mask then keeps every
+      slot, which is **non-causal** attention over all C slots; softmax
+      is order-free, so only the summation order differs. A wrapped ring
+      longer than the window would need explicit positions and raises."""
     b = x.shape[0]
     k_cache, v_cache, kvpos = cache
-    if not 0 <= pos < k_cache.shape[1]:
+    c = k_cache.shape[1]
+    if pos < 0 or (pos >= c and not window):
         raise ValueError(f"decode position {pos} outside the cache of "
-                         f"{k_cache.shape[1]} slots")
+                         f"{c} slots")
+    if window and pos >= c > window:
+        raise ValueError(f"a wrapped ring of {c} slots is longer than the "
+                         f"window {window}")
+    slot = pos % c
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, cfg, x, positions)
-    k_cache[:, pos] = k_new[:, 0]
-    v_cache[:, pos] = v_new[:, 0]
-    kvpos[:, pos] = pos
-    out = _attend(q, k_cache, v_cache, q_offset=pos)
+    k_cache[:, slot] = k_new[:, 0]
+    v_cache[:, slot] = v_new[:, 0]
+    kvpos[:, slot] = pos
+    if pos >= c:
+        out = _attend(q, k_cache, v_cache, causal=False)
+    else:
+        out = _attend(q, k_cache, v_cache, window=window, q_offset=pos)
     return out @ params["wo"].to(x.dtype), (k_cache, v_cache, kvpos)

@@ -1,20 +1,26 @@
-"""Serving paths of the slice: cache init, prefill, single-token decode
-for the ``dense`` and ``ssm`` (rwkv6) families; the port of
-``repro.models.decode``.
+"""Serving paths of the ported families: cache init, prefill,
+single-token decode for ``dense``, ``moe`` and ``ssm`` (rwkv6); the port
+of ``repro.models.decode``.
 
 Cache layout (leaves stacked over layers, as in the reference):
-  dense : {"k": (L, B, C, Hkv, D), "v": ..., "pos": (L, B, C) int32,
-           "t": int}
-  ssm   : {"ax": (L, B, d), "S": (L, B, nh, hd, hd) f32, "cx": (L, B, d),
-           "t": int}
+  dense/moe : {"k": (L, B, C, Hkv, D), "v": ..., "pos": (L, B, C) int32,
+               "t": int}; C = cache_len, the ring's length with a window
+  ssm       : {"ax": (L, B, d), "S": (L, B, nh, hd, hd) f32, "cx": (L, B, d),
+               "t": int}
 ``t``, the position of the next token, is a host int (the reference
 keeps a device scalar): the decode step needs it on the host to address
 the cache slot and the attention kernel's ``q_offset``.
 
+With a ``window`` (ring-buffer serving, the reference's ``long_500k``
+path) the prefill keeps ``window`` slots when the prompt is longer
+(position p at slot ``p % window``) and the prompt's ``s`` slots when it
+is not; either way there is no ``max_new`` headroom and decode wraps
+over the ring (``attention.decode_attention``).
+
 ``decode_step`` updates the cache tensors IN PLACE and returns the same
 dict (the reference returns an updated copy; the port saves a copy of
-the whole cache per generated token). Ring-buffer (``window`` > 0)
-serving and the other families raise ``NotImplementedError``.
+the whole cache per generated token). The other families raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,21 +32,15 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, rwkv, transformer
 
 
-def _check_window(window: int) -> None:
-    if window:
-        raise NotImplementedError(
-            f"ring-buffer (window > 0) serving is not ported yet: see "
-            f"{attention.ROADMAP_ITEM}")
-
-
 def init_cache(cfg, batch: int, cache_len: int, *, window: int = 0,
                device="cuda") -> dict[str, Any]:
-    """Zeroed cache on ``device`` (empty kv slots have position -1)."""
+    """Zeroed cache on ``device`` (empty kv slots have position -1).
+    ``cache_len`` already equals the ring's length for windowed decode;
+    ``window`` is the reference's argument and changes nothing here."""
     transformer.check_family(cfg)
-    _check_window(window)
     device = resolve_device(device)
     L, dt = cfg.n_layers, cfg.adtype
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         kv = (L, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(kv, dtype=dt, device=device),
                 "v": torch.zeros(kv, dtype=dt, device=device),
@@ -60,25 +60,29 @@ def init_cache(cfg, batch: int, cache_len: int, *, window: int = 0,
 def prefill(params, cfg, tokens, *, window: int = 0, max_new: int = 0):
     """Processes the prompt, returns (last-position logits (B, V), cache).
     ``max_new`` reserves cache headroom for subsequent decode steps: the
-    dense cache is allocated at S + max_new slots and each layer's k/v
-    are written into it (the cache the reference's prefill builds and
-    pads with ``_pad_kv``, without the copy)."""
+    attention cache is allocated at S + max_new slots and each layer's
+    k/v are written into it (the cache the reference's prefill builds and
+    pads with ``_pad_kv``, without the copy). With a ``window`` the cache
+    has ``window`` slots if S > window, else S, and no headroom (the
+    reference pads only without a window)."""
     transformer.check_family(cfg)
-    _check_window(window)
     b, s = tokens.shape
     x = transformer.embed(params, cfg, tokens)
-    if cfg.family == "dense":
-        cache = init_cache(cfg, b, s + max_new, device=x.device)
+    if cfg.family != "ssm":
+        n = min(s, window) if window else s
+        cache = init_cache(cfg, b, n if window else s + max_new,
+                           device=x.device)
         for i in range(cfg.n_layers):
             lp = transformer.layer(params["layers"], i)
             h = common.rms_norm(x, lp["ln1"])
-            out, (k, v, p) = attention.prefill_attention(lp["attn"], cfg, h)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
-            cache["pos"][i, :, :s] = p
+            out, (k, v, p) = attention.prefill_attention(lp["attn"], cfg, h,
+                                                         window=window)
+            cache["k"][i, :, :n] = k
+            cache["v"][i, :, :n] = v
+            cache["pos"][i, :, :n] = p
             x = x + out
-            h = common.rms_norm(x, lp["ln2"])
-            x = x + common.swiglu(lp["mlp"], h)
+            h, _ = transformer.ffn(lp, cfg, common.rms_norm(x, lp["ln2"]))
+            x = x + h
     else:
         cache = init_cache(cfg, b, 0, device=x.device)
         for i in range(cfg.n_layers):
@@ -101,19 +105,19 @@ def decode_step(params, cfg, cache, tokens, *, window: int = 0):
     """tokens: (B, 1) int. Returns (logits (B, V), cache), the cache
     updated in place and ``cache["t"]`` advanced by one."""
     transformer.check_family(cfg)
-    _check_window(window)
     pos = cache["t"]
     x = transformer.embed(params, cfg, tokens[:, :1])
     for i in range(cfg.n_layers):
         lp = transformer.layer(params["layers"], i)
         h = common.rms_norm(x, lp["ln1"])
-        if cfg.family == "dense":
+        if cfg.family != "ssm":
             out, _ = attention.decode_attention(
                 lp["attn"], cfg, h,
-                (cache["k"][i], cache["v"][i], cache["pos"][i]), pos)
+                (cache["k"][i], cache["v"][i], cache["pos"][i]), pos,
+                window=window)
             x = x + out
-            h = common.rms_norm(x, lp["ln2"])
-            x = x + common.swiglu(lp["mlp"], h)
+            h, _ = transformer.ffn(lp, cfg, common.rms_norm(x, lp["ln2"]))
+            x = x + h
         else:
             out, (ax, st) = rwkv.time_mix_forward(
                 lp["tmix"], cfg, h, state=(cache["ax"][i], cache["S"][i]),

@@ -1,7 +1,7 @@
 """Public model API: ``build_model(cfg)`` -> ``Model`` with init / loss /
 logits / prefill / decode for the families the port serves (``dense``,
-``ssm``), and the paper's testbed CNNs (Arena section 4.1); the port of
-``repro.models.model``. ``Model.loss`` trains through the reference's
+``moe``, ``ssm``), and the paper's testbed CNNs (Arena section 4.1); the
+port of ``repro.models.model``. ``Model.loss`` trains through the reference's
 plain tensor math under autograd (``chunked_attention``, ``wkv_scan`` /
 ``wkv_chunked``, ``chunked_softmax_xent``); ``Model.logits`` and serving
 run the kernels.
@@ -23,7 +23,7 @@ The numbers differ from JAX's threefry draws; tests that need the same
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,20 +46,22 @@ class Model:
 
     # ---- training ---------------------------------------------------------
     def loss(self, params, batch, *, remat: bool = False,
+             ep_axis: Optional[str] = None, ep_size: int = 1,
              attn_chunk: int = 1024, wkv_chunked: bool = False,
              act_spec=None):
         """batch: {"tokens", "labels"} (B, S) int. Returns the scalar f32
-        loss, ``xent + 0.01 * aux`` (aux is 0 without MoE),
-        differentiable in ``params`` by autograd. Attention runs
-        ``chunked_attention`` with KV chunks of ``attn_chunk``, the RWKV6
+        loss, ``xent + 0.01 * aux`` (aux the MoE load-balance loss, 0
+        without MoE), differentiable in ``params`` by autograd. Attention
+        runs ``chunked_attention`` with KV chunks of ``attn_chunk``, the RWKV6
         WKV ``wkv_chunked`` if ``wkv_chunked`` else ``wkv_scan``; no
-        kernel is reached. The families' ``extras`` (``enc_embed``,
+        kernel is reached. ``ep_axis`` (expert parallelism) raises in an
+        MoE model (item 10 (b)). The families' ``extras`` (``enc_embed``,
         ``vision_embed``) belong to families the port does not build."""
         cfg = self.cfg
         h, aux = transformer.forward_hidden(
-            params, cfg, batch["tokens"], remat=remat,
-            attn_chunk=attn_chunk, wkv_chunked=bool(wkv_chunked),
-            act_spec=act_spec)
+            params, cfg, batch["tokens"], remat=remat, ep_axis=ep_axis,
+            ep_size=ep_size, attn_chunk=attn_chunk,
+            wkv_chunked=bool(wkv_chunked), act_spec=act_spec)
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         xent = common.chunked_softmax_xent(h, w, batch["labels"])
         return xent + 0.01 * aux
@@ -67,7 +69,7 @@ class Model:
     # ---- forward ----------------------------------------------------------
     def logits(self, params, batch, *, window: int = 0):
         """batch: {"tokens": (B, S) int}. Returns (B, S, vocab) logits in
-        the activation dtype."""
+        the activation dtype; ``window`` > 0 is the sliding-window mask."""
         h, _ = transformer.forward_hidden(params, self.cfg, batch["tokens"],
                                           window=window)
         return transformer.logits_from_hidden(params, self.cfg, h)

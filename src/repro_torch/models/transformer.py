@@ -1,5 +1,6 @@
-"""Layer stacks of the serving slice: the ``dense`` family (pre-RMSNorm
-GQA decoder with a SwiGLU FFN; qwen3) and the ``ssm`` family (RWKV6
+"""Layer stacks of the ported families: ``dense`` (pre-RMSNorm GQA
+decoder with a SwiGLU FFN; qwen3), ``moe`` (the same decoder with a
+Mixture-of-Experts FFN, ``models.moe``; olmoe, grok-1) and ``ssm`` (RWKV6
 time-mix + channel-mix blocks); the port of ``repro.models.transformer``.
 
 Parameters keep the reference's layout leaf for leaf: each per-layer
@@ -19,7 +20,7 @@ reference's plain tensor math (``attention.chunked_attention``,
 recomputed in the backward when ``remat`` (``torch.utils.checkpoint``,
 the reference's ``jax.checkpoint``).
 
-The other families (``moe``, ``hybrid``, ``audio``, ``vlm``) raise
+The other families (``hybrid``, ``audio``, ``vlm``) raise
 ``NotImplementedError`` (ROADMAP.md, "Modules still to port", item 11).
 """
 from __future__ import annotations
@@ -30,17 +31,20 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, common, rwkv
+from repro_torch.models import attention, common, moe, rwkv
 
-SERVED_FAMILIES = ("dense", "ssm")
+SERVED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def check_family(cfg) -> None:
-    """Raise for a configuration this slice does not serve."""
-    if cfg.family not in SERVED_FAMILIES or cfg.moe is not None:
+    """Raise for a configuration the port does not serve: a family
+    outside ``SERVED_FAMILIES``, or an MoE FFN outside the ``moe``
+    family."""
+    if cfg.family not in SERVED_FAMILIES or (
+            (cfg.moe is not None) != (cfg.family == "moe")):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"serves {SERVED_FAMILIES} without MoE): see "
+            f"serves {SERVED_FAMILIES}, MoE only in 'moe'): see "
             f"{attention.ROADMAP_ITEM}")
     attention._check_supported(cfg)
 
@@ -80,8 +84,9 @@ def _dense_block_init(gen, cfg, device) -> dict:
         "ln1": ones(),
         "attn": attention.attn_init(gen, cfg, device),
         "ln2": ones(),
-        "mlp": common.swiglu_init(gen, cfg.d_model, cfg.d_ff, device,
-                                  cfg.dtype),
+        **({"moe": moe.moe_init(gen, cfg, device)} if cfg.moe is not None
+           else {"mlp": common.swiglu_init(gen, cfg.d_model, cfg.d_ff,
+                                           device, cfg.dtype)}),
     }
 
 
@@ -96,7 +101,8 @@ def _rwkv_block_init(gen, cfg, device) -> dict:
 
 
 def init_params(gen: torch.Generator, cfg, device) -> dict[str, Any]:
-    """Full parameter tree of a ``dense`` or ``ssm`` model on ``device``."""
+    """Full parameter tree of a ``dense``, ``moe`` or ``ssm`` model on
+    ``device``."""
     check_family(cfg)
     d, v = cfg.d_model, cfg.vocab
     params: dict[str, Any] = {
@@ -106,17 +112,28 @@ def init_params(gen: torch.Generator, cfg, device) -> dict[str, Any]:
     if not cfg.tie_embeddings:
         params["unembed"] = common.dense_init(gen, (d, v), device,
                                               scale=0.02, dtype=cfg.dtype)
-    block = _dense_block_init if cfg.family == "dense" else _rwkv_block_init
+    block = _rwkv_block_init if cfg.family == "ssm" else _dense_block_init
     params["layers"] = _stacked(block, gen, cfg.n_layers, cfg, device)
     return params
 
 
-def _dense_block_fwd(bp, cfg, x, *, window=0, chunk=None):
+def ffn(bp, cfg, h, *, ep_axis=None, ep_size=1):
+    """The block's FFN: (out, aux), aux the MoE load-balance loss or None
+    for a SwiGLU block."""
+    if cfg.moe is not None:
+        return moe.moe_ffn(bp["moe"], cfg, h, ep_axis=ep_axis,
+                           ep_size=ep_size)
+    return common.swiglu(bp["mlp"], h), None
+
+
+def _dense_block_fwd(bp, cfg, x, *, window=0, chunk=None, ep_axis=None,
+                     ep_size=1):
     h = common.rms_norm(x, bp["ln1"])
     x = x + attention.self_attention(bp["attn"], cfg, h, window=window,
                                      chunk=chunk)
-    h = common.rms_norm(x, bp["ln2"])
-    return x + common.swiglu(bp["mlp"], h)
+    h, aux = ffn(bp, cfg, common.rms_norm(x, bp["ln2"]), ep_axis=ep_axis,
+                 ep_size=ep_size)
+    return x + h, aux
 
 
 def _rwkv_block_fwd(bp, cfg, x, *, wkv_chunked=None):
@@ -124,7 +141,7 @@ def _rwkv_block_fwd(bp, cfg, x, *, wkv_chunked=None):
     x = x + rwkv.time_mix_forward(bp["tmix"], cfg, h,
                                   use_chunked=wkv_chunked)
     h = common.rms_norm(x, bp["ln2"])
-    return x + rwkv.channel_mix_forward(bp["cmix"], cfg, h)
+    return x + rwkv.channel_mix_forward(bp["cmix"], cfg, h), None
 
 
 def embed(params, cfg, tokens):
@@ -145,37 +162,45 @@ def unstack_layers(layers: dict) -> list:
 
 
 def forward_hidden(params, cfg, tokens, *, window: int = 0,
-                   remat: bool = False, attn_chunk=None, wkv_chunked=None,
-                   act_spec=None):
+                   remat: bool = False, ep_axis=None, ep_size: int = 1,
+                   attn_chunk=None, wkv_chunked=None, act_spec=None):
     """Embeds ``tokens`` and runs the stack. Returns (hidden (B, S, d),
-    aux_loss), aux_loss a zero f32 scalar (no MoE in this slice).
+    aux_loss): the layers' MoE load-balance losses summed in f32 (a zero
+    f32 scalar without MoE).
 
     ``attn_chunk`` None runs attention through the kernel, an int through
     ``chunked_attention`` with KV chunks of that size; ``wkv_chunked``
     None runs the ``wkv6`` kernel, False / True ``wkv_scan`` /
     ``wkv_chunked`` (module docstring). ``remat`` recomputes each layer
-    in the backward (``checkpoint(..., use_reentrant=False)``).
-    ``act_spec`` is the reference's activation sharding constraint, the
-    identity on one device; only None is accepted."""
+    in the backward (``checkpoint(..., use_reentrant=False)``; the
+    checkpointed body returns the pair (x, aux)). ``ep_axis`` set
+    (expert parallelism) raises in an MoE block (``moe.moe_ffn``) and is
+    ignored elsewhere, as in the reference. ``act_spec`` is the
+    reference's activation sharding constraint, the identity on one
+    device; only None is accepted."""
     if act_spec is not None:
         raise NotImplementedError(
             "act_spec (sequence-sharded activations) needs a multi-rank "
             "HFL mesh: see ROADMAP.md, 'Modules still to port', item 10 (b)")
     check_family(cfg)
     x = embed(params, cfg, tokens)
-    if cfg.family == "dense":
-        body = functools.partial(_dense_block_fwd, cfg=cfg, window=window,
-                                 chunk=attn_chunk)
-    else:
+    if cfg.family == "ssm":
         body = functools.partial(_rwkv_block_fwd, cfg=cfg,
                                  wkv_chunked=wkv_chunked)
+    else:
+        body = functools.partial(_dense_block_fwd, cfg=cfg, window=window,
+                                 chunk=attn_chunk, ep_axis=ep_axis,
+                                 ep_size=ep_size)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstack_layers(params["layers"]):
         if remat:
-            x = checkpoint(body, lp, x=x, use_reentrant=False)
+            x, aux = checkpoint(body, lp, x=x, use_reentrant=False)
         else:
-            x = body(lp, x=x)
+            x, aux = body(lp, x=x)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = common.rms_norm(x, params["final_norm"])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def logits_from_hidden(params, cfg, h):

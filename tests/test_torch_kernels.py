@@ -23,7 +23,6 @@ from repro.models import attention as jattn
 from repro.models import rwkv as jrwkv
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, flash_attention, hier_agg, ops, ref
-from repro_torch.models import decode
 from repro_torch.models.model import build_model
 
 # f32 sums of a few O(1) products: the two summation orders differ by a
@@ -170,16 +169,18 @@ def test_wrappers_reject_bad_inputs():
         ops.wkv6(x, x, x, x, torch.zeros(3, 64))
     with pytest.raises(TypeError, match="decay w must be f32"):
         ops.wkv6(x, x, x, x.bfloat16(), torch.zeros(2, 64))
-    # what the slice does not serve raises instead of computing something
-    # else: ring-buffer (window > 0) decode and the unported families
-    cfg = get_config("qwen3-1.7b").reduce()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode.init_cache(cfg, 1, 8, window=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode.decode_step({}, cfg, {"t": 0}, torch.zeros(1, 1), window=4)
-    for arch in ("olmoe-1b-7b", "zamba2-7b", "whisper-base", "qwen2-vl-7b"):
+    # what the port does not serve raises instead of computing something
+    # else: the unported families, and expert parallelism (an MoE FFN
+    # with ep_axis set)
+    for arch in ("zamba2-7b", "whisper-base", "qwen2-vl-7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(get_config(arch).reduce())
+    cfg = get_config("olmoe-1b-7b").reduce()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*10 \\(b\\)"):
+        build_model(cfg).loss(params, {"tokens": toks, "labels": toks},
+                              ep_axis="tp", ep_size=4)
 
 
 # ---------------------------------------------------------------------------

@@ -46,23 +46,40 @@ F32_TOL = 1e-4
 BF16_TOL = 0.05
 BF16_MODEL_REL = 3e-2
 ACTS = ["float32", "bfloat16"]
-ARCHS = ["qwen3-1.7b", "rwkv6-1.6b"]
+ARCHS = ["qwen3-1.7b", "rwkv6-1.6b", "olmoe-1b-7b"]
 
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's torch work: the suite runs in
+    several worker processes at once over the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
+def _params(arch: str):
+    """The reference's reduced parameters (``PRNGKey(0)``) and the port's
+    copy; the activation dtype does not enter the init."""
+    jp = jax.jit(j_build_model(j_get_config(arch).reduce()).init)(
+        jax.random.PRNGKey(0))
+    return jp, weights.tree_from_numpy(_np_tree(jp), "cpu")
+
+
 def _models(arch: str, act: str):
     """(reference cfg, model, params; port cfg, model, params), reduced,
     with the activation dtype ``act``; the port's params are the
     reference's."""
     jcfg = dataclasses.replace(j_get_config(arch).reduce(), activ_dtype=act)
     cfg = dataclasses.replace(get_config(arch).reduce(), activ_dtype=act)
-    jm, m = j_build_model(jcfg), build_model(cfg)
-    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
-    return jcfg, jm, jp, cfg, m, weights.tree_from_numpy(_np_tree(jp), "cpu")
+    jp, p = _params(arch)
+    return jcfg, j_build_model(jcfg), jp, cfg, build_model(cfg), p
 
 
 def _layer0(tree):
@@ -256,9 +273,11 @@ def _model_close(got, want, act):
 def test_forward_hidden_matches_reference(arch, act):
     jcfg, _, jp, cfg, _, p = _models(arch, act)
     jt, tt = _tokens(seed=0, s=40)
-    want, _ = jtransformer.forward_hidden(jp, jcfg, jt)
+    want, waux = jtransformer.forward_hidden(jp, jcfg, jt)
     got, aux = transformer.forward_hidden(p, cfg, tt)
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32
+    assert (float(aux) == 0.0) == (cfg.moe is None)
+    _model_close(aux, waux, act)
     _model_close(got, want, act)
 
 

@@ -51,8 +51,16 @@ F32_TOL = 1e-4
 BF16_TOL = 0.05
 BF16_MODEL_REL = 3e-2
 STEP_BF16_TOL = 5e-3
-ARCHS = ["qwen3-1.7b", "rwkv6-1.6b"]
+ARCHS = ["qwen3-1.7b", "rwkv6-1.6b", "olmoe-1b-7b"]
 ACTS = ["float32", "bfloat16"]
+# olmoe's loss is held in f32 only: with bf16 activations the two
+# packages' hidden states differ by bf16 roundings, which moves layer 1's
+# router logits by up to 3.3e-3 (batch of the loss test), and a token
+# whose 2nd and 3rd experts lie 1.0e-4 apart picks another expert in one
+# package than in the other: a step of the function, not a fault of
+# either (the f32 case holds every leaf at 1e-4)
+LOSS_CASES = [(a, act) for a in ARCHS for act in ACTS
+              if (a, act) != ("olmoe-1b-7b", "bfloat16")]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -298,8 +306,7 @@ def _loss_grads(m, p, batch, **kw):
     return loss, dict(zip(leaves, grads))
 
 
-@pytest.mark.parametrize("act", ACTS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,act", LOSS_CASES)
 def test_model_loss_and_grads_match_reference(arch, act):
     """``Model.loss`` (attention in KV chunks of 16 over 32 tokens; rwkv6
     through ``wkv_scan``) and its gradient in every leaf against
