@@ -12,7 +12,7 @@ Phases, each fatal on failure (the script exits non-zero):
    sm_90a (one nvcc per source, all at once), and count each
    ``flash_attention`` instantiation's tensor-core instructions in its
    SASS (``cuobjdump``): the bf16 tile path (``flash_wgmma_kernel``) must
-   have some;
+   have some at each head dim, 64, 112 and 128;
 2. hold each kernel against its plain PyTorch version on the card, on the
    same tensors, at the main path's shapes (MNIST and CIFAR banks, Eq. 1
    with 5 edges and Eq. 2 with 1, and the async flushes: one segment over
@@ -111,8 +111,9 @@ Phases, each fatal on failure (the script exits non-zero):
    on the card, in bf16 and f32, at the serving path's shapes (qwen3-1.7b
    prefill and decode, rwkv6-1.6b prefill; phase 3h's olmoe-1b-7b
    prefill and decode, qwen3's windowed prefill of 8704 tokens under a
-   window of 8192 and its ring decode, non-causal over 8192 slots) plus
-   ragged, windowed, MHA,
+   window of 8192 and its ring decode, non-causal over 8192 slots; phase
+   3i's zamba2-7b prefill and decode at head dim 112) plus ragged (also
+   at head dim 112), windowed, MHA,
    non-causal and hard-decay cases, and for ``flash_attention``'s
    split-KV decode path GQA groups of 1, 4 and 8, Skv 1, 65 and 4097, a
    causal end and an empty split inside the range, and both sides of the
@@ -135,7 +136,7 @@ Phases, each fatal on failure (the script exits non-zero):
    held; (d) one (1, 1) round at seq 4096 (train_4k), one sequence per
    replica; (e) full-width rwkv6-1.6b, one (1, 1) round through
    ``wkv_chunked``;
-3b. the LLM serving path: a reduced qwen3, rwkv6 and olmoe (f32
+3b. the LLM serving path: a reduced qwen3, rwkv6, olmoe and zamba2 (f32
    activations) served on the card against the CPU; then the main path,
    the full-width
    qwen3-1.7b and rwkv6-1.6b (random weights from seed 0) through
@@ -163,6 +164,16 @@ Phases, each fatal on failure (the script exits non-zero):
    (1, 8704) prompt and 32 steps, launches held to 28 + 28 x 32, the
    ring's positions checked slot by slot, and every step held against
    ``Model.logits(window=8192)`` over 8736 tokens;
+3i. the hybrid family (``models.ssm``, the shared-attention stack), on a
+   120 s budget: zamba2-7b at full width (81 Mamba2 layers, d_model
+   3584, one shared attention block applied 14 times; 6.60 B bf16
+   params from seed 0, bf16 activations): a (4, 1024) prompt and 32
+   greedy steps, ``flash_attention`` launches held to 14 wgmma + 14 x 32
+   split-KV calls (head dim 112), prefill seconds, decode tokens/s and
+   peak memory; the prefill and every decode step held against
+   ``Model.logits`` over the whole sequence by relative L2
+   (``SERVE_REL``), peak memory within ``HYBRID_MEM_GB``; one profiled
+   decode step;
 4. kernel times at the main path's shapes (CIFAR and MNIST, Eq. 1 with
    its resync and Eq. 2, and the flushes with ``torch.mv`` as the
    library call; the JSON line has CIFAR and MNIST Eq. 1 rows and the
@@ -174,8 +185,9 @@ Phases, each fatal on failure (the script exits non-zero):
    call's, the bound (bytes over 3.35 TB/s), and the eager wrapper's
    time per call as the round pays it (host dispatch included);
 4b. the same for ``flash_attention`` (qwen3 prefill and decode, olmoe
-   prefill and decode, qwen3's windowed prefill and ring decode, one JSON
-   row each, with ``scaled_dot_product_attention`` as the library
+   prefill and decode, qwen3's windowed prefill and ring decode, zamba2's
+   prefill and decode at head dim 112, one JSON row each, with
+   ``scaled_dot_product_attention`` as the library
    yardstick, a boolean mask for the window) and
    ``wkv6`` (rwkv6 prefill; no single library call computes it), with
    the bound the larger of bytes over 3.35 TB/s and the operations the
@@ -199,12 +211,14 @@ one card and host.
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1994,7 +2008,12 @@ FLASH_CASES = [("qwen3-prefill", 4, 16, 8, 1024, 1024, 128, True, 0, 0),
                ("olmoe-prefill", 4, 16, 16, 1024, 1024, 128, True, 0, 0),
                ("olmoe-decode", 4, 16, 16, 1, 1056, 128, True, 0, 1055),
                ("window-prefill", 1, 16, 8, 8704, 8704, 128, True, 8192, 0),
-               ("ring-decode", 1, 16, 8, 1, 8192, 128, False, 0, 0)]
+               ("ring-decode", 1, 16, 8, 1, 8192, 128, False, 0, 0),
+               # phase 3i: zamba2-7b (MHA, head dim 112) prefill and decode,
+               # and a ragged tile case at head dim 112
+               ("zamba2-prefill", 4, 32, 32, 1024, 1024, 112, True, 0, 0),
+               ("zamba2-decode", 4, 32, 32, 1, 1056, 112, True, 0, 1055),
+               ("ragged-d112", 2, 8, 8, 1000, 1000, 112, True, 0, 0)]
 # (name, B, S, nh, chunk, decay range)
 WKV_CASES = [("rwkv6-prefill", 4, 1024, 32, 64, (0.3, 0.999)),
              ("ragged", 2, 1000, 8, 64, (0.3, 0.999)),
@@ -2006,7 +2025,9 @@ MAIN_FLASH = {"qwen3-prefill": ("qwen3-1.7b", "wgmma"),
               "olmoe-prefill": ("olmoe-1b-7b", "wgmma"),
               "olmoe-decode": ("olmoe-1b-7b", "split_kv"),
               "window-prefill": ("qwen3-1.7b-window", "wgmma"),
-              "ring-decode": ("qwen3-1.7b-window", "split_kv")}
+              "ring-decode": ("qwen3-1.7b-window", "split_kv"),
+              "zamba2-prefill": ("zamba2-7b", "wgmma"),
+              "zamba2-decode": ("zamba2-7b", "split_kv")}
 
 
 def flash_inputs(torch, dev, b, h, hkv, sq, skv, d, dtype, seed=0):
@@ -2096,12 +2117,12 @@ def rel_err(torch, got, want) -> float:
 
 
 def small_serve_check(torch, configs, model_mod, dev) -> None:
-    """Reduced qwen3, rwkv6 and olmoe with f32 activations, the same
-    weights and tokens, prefill(16, max_new 4) + 4 teacher-forced decode
-    steps on the card (kernels) and on the CPU (plain versions)."""
+    """Reduced qwen3, rwkv6, olmoe and zamba2 with f32 activations, the
+    same weights and tokens, prefill(16, max_new 4) + 4 teacher-forced
+    decode steps on the card (kernels) and on the CPU (plain versions)."""
     import dataclasses
     from repro_torch.data.synthetic import token_batch
-    for arch in ("qwen3-1.7b", "rwkv6-1.6b", "olmoe-1b-7b"):
+    for arch in ("qwen3-1.7b", "rwkv6-1.6b", "olmoe-1b-7b", "zamba2-7b"):
         cfg = dataclasses.replace(configs.get_config(arch).reduce(),
                                   activ_dtype="float32")
         model = model_mod.build_model(cfg)
@@ -2211,11 +2232,22 @@ def serve_path(torch, ops, fa, configs, model_mod, serve, arch, dev,
     return out
 
 
+def attn_apps(cfg) -> int:
+    """Attention (or WKV) calls of one forward: one per layer, or in a
+    hybrid model one per application of its shared attention block (one
+    per group of ``attn_every`` layers)."""
+    if cfg.family == "hybrid":
+        return -(-cfg.n_layers // cfg.attn_every)
+    return cfg.n_layers
+
+
 def logits_check(torch, ops, model, cfg, params, toks, res,
                  window: int = 0) -> float:
     """``Model.logits`` over prompt + fed tokens (one launch of the
-    path's kernel per layer; ``window`` its sliding window) against every
-    step's logits; returns the largest per-step relative L2 error."""
+    path's kernel per layer or attention application; ``window`` its
+    sliding window) against every step's logits, within ``SERVE_REL`` of
+    the activation dtype; returns the largest per-step relative L2
+    error."""
     prompt = toks.shape[1]
     seq = torch.cat([toks, res["tokens"]], dim=1)
     ops.reset_launches()
@@ -2223,7 +2255,7 @@ def logits_check(torch, ops, model, cfg, params, toks, res,
         full = model.logits(params, {"tokens": seq}, window=window)
     counts = dict(ops.LAUNCHES)
     kern = "wkv6" if cfg.family == "ssm" else "flash_attention"
-    check(counts[kern] == cfg.n_layers,
+    check(counts[kern] == attn_apps(cfg),
           f"{cfg.name}: Model.logits launched {counts}")
     errs, maxabs = [], 0.0
     for i, lg in enumerate(res["logits"]):
@@ -2253,27 +2285,42 @@ def logits_check(torch, ops, model, cfg, params, toks, res,
 
 def profile_decode(torch, serve, cfg, params, toks) -> dict:
     """Decode steps after a 1024-token prefill: the wall of an unprofiled
-    step (mean of 4), then one step under torch.profiler for the device
-    time by kernel and the number of kernels launched. The device's busy
-    share is that device time over the unprofiled wall: the profiler's
-    own cost per launch inflates the wall of the step it traces. Returns
-    those numbers (and the flash kernels' share of the device time)."""
+    step (mean of 4), the same with Python's garbage collector off, one
+    step under torch.profiler for the device time by kernel and the
+    number of kernels launched, and the unprofiled wall again after it.
+    The device's busy share is that device time over the first
+    unprofiled wall: the profiler's own cost per launch inflates the wall
+    of the step it traces. The collector, the threads alive and the
+    profiler's after-effects are the host's state that earlier phases
+    leave behind. Returns those numbers (and the flash kernels' share of
+    the device time)."""
     from torch.profiler import ProfilerActivity, profile
     with torch.no_grad():
-        _, cache = serve.make_prefill_step(cfg, max_new=6)(
+        _, cache = serve.make_prefill_step(cfg, max_new=14)(
             params, {"tokens": toks})
         nxt = toks[:, -1:]
         step = serve.make_decode_step(cfg)
         step(params, cache, nxt)                              # warm-up
-        t0 = sync_time(torch)
-        for _ in range(4):
-            step(params, cache, nxt)
-        wall = (sync_time(torch) - t0) / 4
+
+        def wall_of_4():
+            t0 = sync_time(torch)
+            for _ in range(4):
+                step(params, cache, nxt)
+            return (sync_time(torch) - t0) / 4
+        wall = wall_of_4()
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            wall_nogc = wall_of_4()
+        finally:
+            if gc_was_on:
+                gc.enable()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(params, cache, nxt)
             wall_prof = sync_time(torch) - t0
+        wall_after = wall_of_4()
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) is not None
             and str(e.device_type).endswith("CUDA")]
@@ -2288,12 +2335,18 @@ def profile_decode(torch, serve, cfg, params, toks) -> dict:
           f"of 4), device busy {dev_ms:.2f} ms under torch.profiler "
           f"({dev_ms / (wall * 1e3) * 100:.1f}% of the unprofiled wall; "
           f"the profiled step's wall {wall_prof * 1e3:.2f} ms), {n_kern} "
-          f"kernel launches; top device time:")
+          f"kernel launches; unprofiled wall with the garbage collector "
+          f"off {wall_nogc * 1e3:.2f} ms, after the profiled step "
+          f"{wall_after * 1e3:.2f} ms (means of 4); "
+          f"{threading.active_count()} threads alive, "
+          f"{len(gc.get_objects())} objects tracked by the collector; top "
+          f"device time:")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"      {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:4d}"
               f"  {e.key[:90]}")
     del cache
-    return {"step_wall_ms": wall * 1e3, "step_device_ms": dev_ms,
+    return {"step_wall_ms": wall * 1e3, "step_wall_nogc_ms": wall_nogc * 1e3,
+            "step_wall_after_ms": wall_after * 1e3, "step_device_ms": dev_ms,
             "step_flash_ms": flash_ms, "step_launches": n_kern}
 
 
@@ -2320,11 +2373,12 @@ SERVE_BUDGET_S = 120.0
 
 def _flash_want(cfg, new: int) -> tuple:
     """A greedy serve's launches and flash paths: one wgmma prefill call
-    and ``new`` split-KV decode calls per layer."""
+    and ``new`` split-KV decode calls per layer (per attention
+    application in a hybrid model)."""
+    n = attn_apps(cfg)
     want = {"segment_agg": 0, "segment_broadcast": 0,
-            "flash_attention": cfg.n_layers * (1 + new), "wkv6": 0}
-    return want, {"split_kv": cfg.n_layers * new, "wgmma": cfg.n_layers,
-                  "f32_tile": 0}
+            "flash_attention": n * (1 + new), "wkv6": 0}
+    return want, {"split_kv": n * new, "wgmma": n, "f32_tile": 0}
 
 
 def _counted_serve(torch, ops, fa, serve, cfg, params, toks, new, label,
@@ -2547,6 +2601,60 @@ def serve_moe_and_ring(torch, ops, fa, configs, model_mod, serve,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: the hybrid family (zamba2-7b)
+# ---------------------------------------------------------------------------
+
+# the peak's bound: 13.2 GB of bf16 weights, the cache (Mamba2 states
+# 0.59 GB, 14 k/v caches 0.85 GB) and the chunked SSD's f32 transients
+# (0.24 GB each); a copy of the weights or the cache would cross it
+HYBRID_MEM_GB = 18.0
+
+
+def serve_hybrid(torch, ops, fa, configs, model_mod, serve, dev) -> dict:
+    """Phase 3i: zamba2-7b at full width (bf16 weights from seed 0, bf16
+    activations) through ``greedy_serve``: a (4, 1024) prompt and 32
+    greedy steps, the flash launches and paths held (14 wgmma, 14 x 32
+    split-KV), the prefill and every step against ``Model.logits`` over
+    the sequence within SERVE_REL, peak memory within HYBRID_MEM_GB, one
+    profiled decode step. Returns the
+    serve's counts and readings for the JSON rows."""
+    from repro_torch.data.synthetic import token_batch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    batch, prompt, new = 4, 1024, 32
+    cfg = configs.get_config("zamba2-7b")
+    model = model_mod.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    t_init = sync_time(torch) - t0
+    n_par = sum(int(t.numel()) for t in _leaves(params))
+    toks = token_batch(0, batch, prompt, cfg.vocab, dev)["tokens"]
+    print(f"  {cfg.name}: {cfg.n_layers} Mamba2 layers, d_model "
+          f"{cfg.d_model}, shared attention ({cfg.n_heads} heads of "
+          f"{cfg.head_dim}) applied {attn_apps(cfg)} times, "
+          f"{n_par / 1e9:.3f} B {cfg.param_dtype} params "
+          f"({torch.cuda.memory_allocated(dev) / 1e9:.2f} GB), init "
+          f"{t_init:.2f} s")
+    serve.greedy_serve(cfg, params, toks[:1, :64], 2)        # warm-up
+    res, out = _counted_serve(torch, ops, fa, serve, cfg, params, toks, new,
+                              "zamba2-7b")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"    peak memory {out['peak_gb']:.2f} GB (bound "
+          f"{HYBRID_MEM_GB:.0f} GB)")
+    check(out["peak_gb"] <= HYBRID_MEM_GB,
+          f"{cfg.name}: peak memory {out['peak_gb']:.2f} GB")
+    out["rel_err"] = logits_check(torch, ops, model, cfg, params, toks, res)
+    del res
+    out.update(profile_decode(torch, serve, cfg, params, toks))
+    del params
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 3i took {wall:.1f} s (budget {SERVE_BUDGET_S:.0f} s)")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2653,12 +2761,13 @@ def tensor_core_check(_build) -> None:
         print(f"  SASS {k}: {n} tensor-core instructions (HMMA/HGMMA)")
     tile = {k: n for k, n in counts.items()
             if k.startswith("flash_wgmma_kernel")}
-    check(len(tile) == 2 and all(n > 0 for n in tile.values()),
+    check(len(tile) == 3 and all(n > 0 for n in tile.values()),
           f"the bf16 tile path has no tensor-core instructions: {counts}")
 
 
-def serve_only(torch, root: str) -> int:
-    """The timed part of phase 3b for the package under ``root``/src."""
+def serve_only(torch, root: str, archs) -> int:
+    """The timed part of phase 3b for the package under ``root``/src, or
+    of phase 3i for zamba2-7b, each model in ``archs`` in turn."""
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch import configs
     from repro_torch.device import disable_tf32
@@ -2674,9 +2783,11 @@ def serve_only(torch, root: str) -> int:
           f"{torch.cuda.get_device_name(0)}")
     print(f"  kernels built in {_build.build_all():.2f} s")
     disable_tf32()
-    res = {arch: serve_path(torch, ops, fa, configs, model, serve, arch, dev,
-                            timed_only=True)
-           for arch in ("qwen3-1.7b", "rwkv6-1.6b")}
+    res = {arch: serve_hybrid(torch, ops, fa, configs, model, serve, dev)
+           if arch == "zamba2-7b" else
+           serve_path(torch, ops, fa, configs, model, serve, arch, dev,
+                      timed_only=True)
+           for arch in archs}
     print(json.dumps({"serve": {a: {k: v for k, v in r.items()
                                     if k not in ("counts", "paths")}
                                 for a, r in res.items()},
@@ -2688,7 +2799,11 @@ def main() -> int:
     import torch
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--serve-only", action="store_true",
-                        help="serve the two full-width models only")
+                        help="serve the full-width models only")
+    parser.add_argument("--arch", action="append",
+                        choices=("qwen3-1.7b", "rwkv6-1.6b", "zamba2-7b"),
+                        help="with --serve-only: the model to serve, "
+                        "repeatable (default: qwen3-1.7b and rwkv6-1.6b)")
     parser.add_argument("--root", default=ROOT,
                         help="with --serve-only: the checkout whose src/ "
                         "is imported (default: this one)")
@@ -2705,7 +2820,8 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 1
     if args.serve_only:
-        return serve_only(torch, root)
+        return serve_only(torch, root,
+                          args.arch or ("qwen3-1.7b", "rwkv6-1.6b"))
     sys.path.insert(0, SRC)
     from repro_torch import configs, runtime, telemetry
     from repro_torch.checkpoint import store
@@ -2786,6 +2902,10 @@ def main() -> int:
     print(f"phase 3h: MoE and ring-buffer serving ({smi})")
     served.update(serve_moe_and_ring(torch, ops, flash_attention, configs,
                                      model, serve, dev))
+
+    print(f"phase 3i: the hybrid family, zamba2-7b at full width ({smi})")
+    served["zamba2-7b"] = serve_hybrid(torch, ops, flash_attention, configs,
+                                       model, serve, dev)
 
     print("phase 4: times per call, CUDA events around a CUDA-graph "
           "replay of 50 calls (kernel and plain each twice, in turns); "

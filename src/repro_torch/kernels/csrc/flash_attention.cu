@@ -75,6 +75,16 @@
 //    f32 checks (the card-vs-CPU reduced serve, the f32 logits check), not
 //    the bf16 serving configurations. A bf16 call never reaches it.
 //
+// Head dims: 64, 128 and (zamba2-7b's) 112, each path instantiated for
+// all three. At D = 112 the wgmma path keeps its tiles 128 columns wide in
+// shared memory (two 64-column swizzle blocks): TMA zero-fills columns
+// 112..127, QK^T takes the 7 k-steps of the real columns, PV runs at
+// n = 128 (its last 16 output columns are P . 0 and are not written), so
+// the D = 112 kernel is the D = 128 kernel minus one QK^T k-step. The
+// split kernel's P.V threads 112..127 have no column and sit out; the
+// f32 tile's loads take a tail (16 rows x 28 vectors is no multiple of
+// the 128-thread block).
+//
 // Common to all paths: q, k, v and out are addressed through (batch, head,
 // position) strides with a contiguous head dim, so the model passes its
 // (B, S, H, D) projections as transposed views without a copy; rows must
@@ -193,6 +203,7 @@ flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int CH = D / VE;                   // 16-byte chunks per row
   constexpr int LDR = D + VE;                  // padded K/V row
   constexpr int KP = kSplitThreads / D;        // key parts in P.V (1 or 2)
+  static_assert(KP >= 1 && KP * D <= kSplitThreads, "head dim > block");
   constexpr int RH = (R + 1) / 2;              // score rows per thread
   extern __shared__ __align__(16) unsigned char smem_split[];
   T* k_s = reinterpret_cast<T*>(smem_split);   // kSplit x LDR
@@ -296,26 +307,31 @@ flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // P.V: thread (column c, key part kp) sums its kSplit / KP keys in order
-  // (rows past `rows` have zero weights: p_s is read only below rows)
+  // (rows past `rows` have zero weights: p_s is read only below rows);
+  // threads past KP * D (16 of them at D = 112) have no column
   const int c = tid % D, kp = tid / D;
   float acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0.f;
   constexpr int KU = kSplit / KP;
   const int nr = min(rows, R);
+  if (kp < KP) {
 #pragma unroll 8
-  for (int j = 0; j < KU; ++j) {
-    const int u = kp * KU + j;
-    const float vf = to_f32(v_s[u * LDR + c]);
+    for (int j = 0; j < KU; ++j) {
+      const int u = kp * KU + j;
+      const float vf = to_f32(v_s[u * LDR + c]);
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      acc[r] = fmaf(r < nr ? p_s[r * kSplit + u] : 0.f, vf, acc[r]);
+      for (int r = 0; r < R; ++r)
+        acc[r] = fmaf(r < nr ? p_s[r * kSplit + u] : 0.f, vf, acc[r]);
+    }
   }
   float* pa = part_acc + ((long long)bkv * nsplit + split) * rows * D;
   if (KP == 1) {
+    if (kp == 0) {
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (r < rows) pa[r * D + c] = acc[r];
+      for (int r = 0; r < R; ++r)
+        if (r < rows) pa[r * D + c] = acc[r];
+    }
   } else {                          // keys [0, 32) + keys [32, 64)
     float* red = q_s;               // q_s is free after the scores
     if (kp == 1) {
@@ -415,10 +431,17 @@ constexpr int kWgThreads = 128;          // one warpgroup
 constexpr int kWgBQ = 64;                // query rows per block (wgmma M)
 constexpr int kWgBK = 64;                // kv rows per tile
 
+// the head dim as the wgmma path lays it out in shared memory: whole
+// 64-column (128-byte) swizzle blocks, 128 at D = 112
+__host__ __device__ constexpr int padded_dim(int d) {
+  return (d + 63) / 64 * 64;
+}
+
 // Q, then K and V double-buffered, then three mbarriers
 template <int D>
 constexpr size_t wg_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(kWgBQ + 4 * kWgBK) * D +
+  return sizeof(__nv_bfloat16) * (size_t)(kWgBQ + 4 * kWgBK) *
+             padded_dim(D) +
          3 * sizeof(uint64_t);
 }
 
@@ -652,7 +675,8 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // S = Q K^T (64 x 64 per warpgroup), f32; k-step kk reads 32 bytes of
-// column block kk / 4 of Q and K
+// column block kk / 4 of Q and K; D / 16 k-steps, so the zero-filled
+// columns of a padded tile are never read
 template <int D>
 __device__ __forceinline__ void wgmma_qk(float (&s)[kWgBK / 8][4],
                                          uint64_t q_desc, uint64_t k_desc) {
@@ -691,14 +715,14 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 8][4],
 }
 
 // the rows [row, row + ROWS) of (batch, head) of a (D, S, H, B) tensor
-// map with (64, ROWS) boxes, all D / 64 column blocks, into a (ROWS, D)
-// tile
-template <int D, int ROWS>
+// map with (64, ROWS) boxes, all DP / 64 column blocks, into a (ROWS, DP)
+// tile (DP = padded_dim(D); columns past D land as zeros)
+template <int DP, int ROWS>
 __device__ __forceinline__ void tma_tile(__nv_bfloat16* dst,
                                          const CUtensorMap* map, int row,
                                          int head, int batch, uint64_t* bar) {
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c)
+  for (int c = 0; c < DP / 64; ++c)
     tma_box(dst + c * ROWS * 64, map, c * 64, row, head, batch, bar);
 }
 
@@ -711,14 +735,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    int hkv, int sq, int skv, int causal, int window,
                    int q_offset, float scale_log2) {
   constexpr int NS = kWgBK / 8;          // score n8 groups (8 keys each)
-  constexpr int NO = D / 8;              // output n8 groups
-  constexpr int TILE = kWgBK * D;
+  constexpr int DP = padded_dim(D);    // head dim in shared memory
+  constexpr int NO = D / 8;              // output n8 groups written
+  constexpr int NP = DP / 8;             // accumulator n8 groups
+  constexpr int TILE = kWgBK * DP;
   constexpr uint32_t kTileBytes = TILE * 2;
   constexpr uint32_t kTile16 = kTileBytes / 16;  // a tile in 16-byte units
   constexpr uint32_t kAtom = 1024;       // bytes of an 8-row atom
   extern __shared__ __align__(1024) unsigned char smem_wg[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_wg);
-  __nv_bfloat16* k_s = q_s + kWgBQ * D;    // 2 x TILE
+  __nv_bfloat16* k_s = q_s + kWgBQ * DP;   // 2 x TILE
   __nv_bfloat16* v_s = k_s + 2 * TILE;     // 2 x TILE
   uint64_t* bars = reinterpret_cast<uint64_t*>(v_s + 2 * TILE);
   uint64_t* q_bar = bars;                  // Q landed
@@ -755,15 +781,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (j < n) {
       uint64_t* bar = &kv_bar[j & 1];
       mbar_expect(bar, 2 * kTileBytes);
-      tma_tile<D, kWgBK>(k_s + (j & 1) * TILE, &tm_k, (t0 + j) * kWgBK, hk,
-                         b, bar);
-      tma_tile<D, kWgBK>(v_s + (j & 1) * TILE, &tm_v, (t0 + j) * kWgBK, hk,
-                         b, bar);
+      tma_tile<DP, kWgBK>(k_s + (j & 1) * TILE, &tm_k, (t0 + j) * kWgBK, hk,
+                          b, bar);
+      tma_tile<DP, kWgBK>(v_s + (j & 1) * TILE, &tm_v, (t0 + j) * kWgBK, hk,
+                          b, bar);
     }
   };
   if (tid == 0) {
-    mbar_expect(q_bar, kWgBQ * D * 2);
-    tma_tile<D, kWgBQ>(q_s, &tm_q, q0, hq, b, q_bar);
+    mbar_expect(q_bar, kWgBQ * DP * 2);   // zero-filled bytes count too
+    tma_tile<DP, kWgBQ>(q_s, &tm_q, q0, hq, b, q_bar);
     load_kv(0);
   }
 
@@ -776,9 +802,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int row_lo = warp * 16 + g;        // accumulator rows g and g + 8
   const int qpos_lo = q_offset + q0 + row_lo;
   const int qpos_hi = qpos_lo + 8;
-  float o[NO][4], s[NS][4];
+  float o[NP][4], s[NS][4];
 #pragma unroll
-  for (int i = 0; i < NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int i = 0; i < NP; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
 #pragma unroll
   for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
@@ -794,12 +820,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       (window <= 0 || k0 > qpos_last - window);
     uint32_t pa[kWgBK / 16][4];            // P as bf16 A fragments
     if (full)
-      softmax_tile<D, false>(s, o, pa, m_lo, m_hi, l_lo, l_hi, scale_log2,
-                             k0, qpos_lo, qpos_hi, tq, skv, causal, window);
+      softmax_tile<DP, false>(s, o, pa, m_lo, m_hi, l_lo, l_hi, scale_log2,
+                              k0, qpos_lo, qpos_hi, tq, skv, causal, window);
     else
-      softmax_tile<D, true>(s, o, pa, m_lo, m_hi, l_lo, l_hi, scale_log2,
-                            k0, qpos_lo, qpos_hi, tq, skv, causal, window);
-    wgmma_pv<D>(o, pa, v_desc + (j & 1) * kTile16);
+      softmax_tile<DP, true>(s, o, pa, m_lo, m_hi, l_lo, l_hi, scale_log2,
+                             k0, qpos_lo, qpos_hi, tq, skv, causal, window);
+    wgmma_pv<DP>(o, pa, v_desc + (j & 1) * kTile16);
     __syncthreads();                       // buffer j % 2 is refilled next
   }
 
@@ -908,25 +934,30 @@ constexpr int kBK = 64;              // kv rows per tile
 // stride `stride` into shared memory (leading dim LDS), times `scale`;
 // rows at or past `nrows` are zero. Every thread issues all of its
 // 16-byte loads before it stores any, so they are in flight together.
+// Where the tile is no multiple of the block (16 rows at D = 112: 448
+// vectors), the last round's threads past the tile load nothing.
 template <int D, int ROWS, int LDS>
 __device__ __forceinline__ void stage(float* dst, const float* src,
                                       long long stride, int row0, int nrows,
                                       float scale) {
   constexpr int VPR = D / 4;                  // vectors per row
-  constexpr int N = ROWS * VPR / kThreads;    // vectors per thread
-  static_assert(ROWS * VPR % kThreads == 0, "tile not a multiple of block");
+  constexpr int TOTAL = ROWS * VPR;
+  constexpr int N = (TOTAL + kThreads - 1) / kThreads;  // per thread
+  constexpr bool kWhole = TOTAL % kThreads == 0;
   uint4 raw[N];
 #pragma unroll
   for (int it = 0; it < N; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int r = i / VPR, c = (i % VPR) * 4;
-    raw[it] = r < nrows ? *reinterpret_cast<const uint4*>(
-                              src + (long long)(row0 + r) * stride + c)
-                        : make_uint4(0u, 0u, 0u, 0u);
+    raw[it] = r < nrows && (kWhole || i < TOTAL)
+                  ? *reinterpret_cast<const uint4*>(
+                        src + (long long)(row0 + r) * stride + c)
+                  : make_uint4(0u, 0u, 0u, 0u);
   }
 #pragma unroll
   for (int it = 0; it < N; ++it) {
     const int i = threadIdx.x + it * kThreads;
+    if (!kWhole && i >= TOTAL) break;
     const int r = i / VPR, c = (i % VPR) * 4;
     float f[4];
     widen(raw[it], f, static_cast<const float*>(nullptr));
@@ -1135,7 +1166,7 @@ int launch_decode(int dtype, const void* q, const void* k, const void* v,
 
 bool bad_common(int dtype, int b, int h, int hkv, int sq, int skv, int d) {
   return b < 1 || h < 1 || hkv < 1 || h % hkv != 0 || sq < 1 || skv < 1 ||
-         b * h > 65535 || (d != 64 && d != 128) ||
+         b * h > 65535 || (d != 64 && d != 112 && d != 128) ||
          (dtype != kF32 && dtype != kBF16);
 }
 
@@ -1161,6 +1192,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 128)
     return launch_tile<128>(dtype, q, k, v, out, st, b, h, hkv, sq, skv,
+                            causal, window, q_offset, sm_scale, s);
+  if (d == 112)
+    return launch_tile<112>(dtype, q, k, v, out, st, b, h, hkv, sq, skv,
                             causal, window, q_offset, sm_scale, s);
   return launch_tile<64>(dtype, q, k, v, out, st, b, h, hkv, sq, skv, causal,
                          window, q_offset, sm_scale, s);
@@ -1191,12 +1225,11 @@ extern "C" int repro_flash_decode(const void* q, const void* k,
     return launch_decode<128>(dtype, q, k, v, out, st, b, h, hkv, sq,
                               kv_begin, kv_end, nsplit, causal, window,
                               q_offset, sm_scale, pa, pm, s);
+  if (d == 112)
+    return launch_decode<112>(dtype, q, k, v, out, st, b, h, hkv, sq,
+                              kv_begin, kv_end, nsplit, causal, window,
+                              q_offset, sm_scale, pa, pm, s);
   return launch_decode<64>(dtype, q, k, v, out, st, b, h, hkv, sq, kv_begin,
                            kv_end, nsplit, causal, window, q_offset,
                            sm_scale, pa, pm, s);
 }
-
-
-
-
-

@@ -5,8 +5,8 @@
 hand-written kernels of ``csrc/flash_attention.cu`` for CUDA tensors and
 the plain version ``ref.flash_attention_ref`` for CPU tensors; a CUDA
 tensor never falls back. q: (B, H, Sq, D); k/v: (B, Hkv, Skv, D),
-H % Hkv == 0, D in (64, 128), f32 or bf16; the output is (B, H, Sq, D)
-in q's dtype. Rows must start on 16-byte boundaries (the model's tensors
+H % Hkv == 0, D in (64, 112, 128) (112: zamba2-7b), f32 or bf16; the
+output is (B, H, Sq, D) in q's dtype. Rows must start on 16-byte boundaries (the model's tensors
 do).
 
 ``plan`` picks the path from dtype and shape alone (no path gives way to
@@ -49,7 +49,7 @@ from repro_torch.kernels._common import (
     raise_on_error,
 )
 
-HEAD_DIMS = (64, 128)          # the head sizes the kernels are built for
+HEAD_DIMS = (64, 112, 128)     # the head sizes the kernels are built for
 MAX_BATCH_HEADS = 65535        # gridDim.y
 MAX_PACKED_ROWS = 16           # rep * Sq up to which split_kv runs
 SPLIT = 64                     # keys per split of the split_kv path

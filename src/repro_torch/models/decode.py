@@ -1,12 +1,17 @@
 """Serving paths of the ported families: cache init, prefill,
-single-token decode for ``dense``, ``moe`` and ``ssm`` (rwkv6); the port
-of ``repro.models.decode``.
+single-token decode for ``dense``, ``moe``, ``ssm`` (rwkv6) and
+``hybrid`` (zamba2); the port of ``repro.models.decode``.
 
 Cache layout (leaves stacked over layers, as in the reference):
   dense/moe : {"k": (L, B, C, Hkv, D), "v": ..., "pos": (L, B, C) int32,
                "t": int}; C = cache_len, the ring's length with a window
   ssm       : {"ax": (L, B, d), "S": (L, B, nh, hd, hd) f32, "cx": (L, B, d),
                "t": int}
+  hybrid    : {"h": (L, B, nh, hd, N) f32 (Mamba2 states), "tail":
+               (L, B, CONV_K - 1, din + 2N) (conv inputs), "ak"/"av":
+               (n_app, B, C, Hkv, D), "apos": (n_app, B, C) int32, "t": int};
+               n_app = ``_n_app(cfg)``, one k/v cache per application of
+               the shared attention block
 ``t``, the position of the next token, is a host int (the reference
 keeps a device scalar): the decode step needs it on the host to address
 the cache slot and the attention kernel's ``q_offset``.
@@ -19,8 +24,8 @@ over the ring (``attention.decode_attention``).
 
 ``decode_step`` updates the cache tensors IN PLACE and returns the same
 dict (the reference returns an updated copy; the port saves a copy of
-the whole cache per generated token). The other families raise
-``NotImplementedError``.
+the whole cache per generated token). The other families (``audio``,
+``vlm``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,13 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, rwkv, transformer
+from repro_torch.models import attention, common, rwkv, ssm, transformer
+
+
+def _n_app(cfg) -> int:
+    """Applications of a hybrid model's shared attention block: one per
+    group of ``attn_every`` layers, the remainder a group of its own."""
+    return len(transformer.groups(cfg))
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, window: int = 0,
@@ -40,6 +51,19 @@ def init_cache(cfg, batch: int, cache_len: int, *, window: int = 0,
     transformer.check_family(cfg)
     device = resolve_device(device)
     L, dt = cfg.n_layers, cfg.adtype
+    if cfg.family == "hybrid":
+        din, nh, hd, n = ssm.mamba2_dims(cfg)
+        na = _n_app(cfg)
+        kv = (na, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"h": torch.zeros((L, batch, nh, hd, n), dtype=torch.float32,
+                                 device=device),
+                "tail": torch.zeros((L, batch, ssm.CONV_K - 1, din + 2 * n),
+                                    dtype=dt, device=device),
+                "ak": torch.zeros(kv, dtype=dt, device=device),
+                "av": torch.zeros(kv, dtype=dt, device=device),
+                "apos": torch.full((na, batch, cache_len), -1,
+                                   dtype=torch.int32, device=device),
+                "t": 0}
     if cfg.family != "ssm":
         kv = (L, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(kv, dtype=dt, device=device),
@@ -68,7 +92,10 @@ def prefill(params, cfg, tokens, *, window: int = 0, max_new: int = 0):
     transformer.check_family(cfg)
     b, s = tokens.shape
     x = transformer.embed(params, cfg, tokens)
-    if cfg.family != "ssm":
+    if cfg.family == "hybrid":
+        x, cache = _hybrid_prefill(params, cfg, x, window=window,
+                                   max_new=max_new)
+    elif cfg.family != "ssm":
         n = min(s, window) if window else s
         cache = init_cache(cfg, b, n if window else s + max_new,
                            device=x.device)
@@ -101,12 +128,63 @@ def prefill(params, cfg, tokens, *, window: int = 0, max_new: int = 0):
     return transformer.logits_from_hidden(params, cfg, h)[:, 0], cache
 
 
+def _hybrid_prefill(params, cfg, x, *, window: int, max_new: int):
+    """The hybrid stack over the prompt, writing each layer's Mamba2
+    state and conv tail and each shared-attention application's k/v into
+    a preallocated cache (the reference concatenates and pads); with a
+    ``window`` the attention caches keep the ring's slots, as in the
+    dense branch."""
+    b, s = x.shape[:2]
+    n = min(s, window) if window else s
+    cache = init_cache(cfg, b, n if window else s + max_new,
+                       device=x.device)
+    sa = params["shared_attn"]
+    for a, g in enumerate(transformer.groups(cfg)):
+        h = common.rms_norm(x, sa["ln"])
+        out, (k, v, p) = attention.prefill_attention(sa["attn"], cfg, h,
+                                                     window=window)
+        cache["ak"][a, :, :n] = k
+        cache["av"][a, :, :n] = v
+        cache["apos"][a, :, :n] = p
+        x = x + out
+        for i in g:
+            lp = transformer.layer(params["layers"], i)
+            h = common.rms_norm(x, lp["ln1"])
+            out, (cache["h"][i], cache["tail"][i]) = ssm.mamba2_forward(
+                lp["mamba"], cfg, h, return_state=True)
+            x = x + out
+    return x, cache
+
+
+def _hybrid_decode(params, cfg, cache, x, pos: int, *, window: int):
+    """``decode_step``'s hybrid branch: one token through the hybrid
+    stack, every cache leaf updated in place. Returns (logits, cache)."""
+    sa = params["shared_attn"]
+    for a, g in enumerate(transformer.groups(cfg)):
+        h = common.rms_norm(x, sa["ln"])
+        out, _ = attention.decode_attention(
+            sa["attn"], cfg, h, (cache["ak"][a], cache["av"][a],
+                                 cache["apos"][a]), pos, window=window)
+        x = x + out
+        for i in g:
+            lp = transformer.layer(params["layers"], i)
+            h = common.rms_norm(x, lp["ln1"])
+            out, (cache["h"][i], cache["tail"][i]) = ssm.mamba2_step(
+                lp["mamba"], cfg, h, (cache["h"][i], cache["tail"][i]))
+            x = x + out
+    cache["t"] = pos + 1
+    h = common.rms_norm(x, params["final_norm"])
+    return transformer.logits_from_hidden(params, cfg, h)[:, 0], cache
+
+
 def decode_step(params, cfg, cache, tokens, *, window: int = 0):
     """tokens: (B, 1) int. Returns (logits (B, V), cache), the cache
     updated in place and ``cache["t"]`` advanced by one."""
     transformer.check_family(cfg)
     pos = cache["t"]
     x = transformer.embed(params, cfg, tokens[:, :1])
+    if cfg.family == "hybrid":
+        return _hybrid_decode(params, cfg, cache, x, pos, window=window)
     for i in range(cfg.n_layers):
         lp = transformer.layer(params["layers"], i)
         h = common.rms_norm(x, lp["ln1"])

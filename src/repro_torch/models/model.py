@@ -1,9 +1,10 @@
 """Public model API: ``build_model(cfg)`` -> ``Model`` with init / loss /
 logits / prefill / decode for the families the port serves (``dense``,
-``moe``, ``ssm``), and the paper's testbed CNNs (Arena section 4.1); the
-port of ``repro.models.model``. ``Model.loss`` trains through the reference's
-plain tensor math under autograd (``chunked_attention``, ``wkv_scan`` /
-``wkv_chunked``, ``chunked_softmax_xent``); ``Model.logits`` and serving
+``moe``, ``ssm``, ``hybrid``), and the paper's testbed CNNs (Arena
+section 4.1); the port of ``repro.models.model``. ``Model.loss`` trains
+through the reference's plain tensor math under autograd
+(``chunked_attention``, ``wkv_scan`` / ``wkv_chunked``, Mamba2's
+``ssd_chunked``, ``chunked_softmax_xent``); ``Model.logits`` and serving
 run the kernels.
 
 The CNNs' parameters are plain dicts of tensors in the reference layout:
@@ -53,9 +54,9 @@ class Model:
         loss, ``xent + 0.01 * aux`` (aux the MoE load-balance loss, 0
         without MoE), differentiable in ``params`` by autograd. Attention
         runs ``chunked_attention`` with KV chunks of ``attn_chunk``, the RWKV6
-        WKV ``wkv_chunked`` if ``wkv_chunked`` else ``wkv_scan``; no
-        kernel is reached. ``ep_axis`` (expert parallelism) raises in an
-        MoE model (item 10 (b)). The families' ``extras`` (``enc_embed``,
+        WKV ``wkv_chunked`` if ``wkv_chunked`` else ``wkv_scan``, Mamba2's
+        SSD ``ssd_chunked``; no kernel is reached. ``ep_axis`` (expert
+        parallelism) raises in an MoE model (item 10 (b)). The families' ``extras`` (``enc_embed``,
         ``vision_embed``) belong to families the port does not build."""
         cfg = self.cfg
         h, aux = transformer.forward_hidden(

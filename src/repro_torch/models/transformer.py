@@ -1,7 +1,10 @@
 """Layer stacks of the ported families: ``dense`` (pre-RMSNorm GQA
 decoder with a SwiGLU FFN; qwen3), ``moe`` (the same decoder with a
-Mixture-of-Experts FFN, ``models.moe``; olmoe, grok-1) and ``ssm`` (RWKV6
-time-mix + channel-mix blocks); the port of ``repro.models.transformer``.
+Mixture-of-Experts FFN, ``models.moe``; olmoe, grok-1), ``ssm`` (RWKV6
+time-mix + channel-mix blocks) and ``hybrid`` (zamba2: Mamba2 blocks,
+``models.ssm``, with ONE shared attention block, one set of weights,
+applied before each group of ``attn_every`` of them and once more before
+the remainder); the port of ``repro.models.transformer``.
 
 Parameters keep the reference's layout leaf for leaf: each per-layer
 leaf is stacked over layers with a leading ``n_layers`` axis, dense
@@ -18,10 +21,12 @@ the layers' gradients in one tensor).
 reference's plain tensor math (``attention.chunked_attention``,
 ``rwkv.wkv_scan`` / ``wkv_chunked``) under autograd, each layer body
 recomputed in the backward when ``remat`` (``torch.utils.checkpoint``,
-the reference's ``jax.checkpoint``).
+the reference's ``jax.checkpoint``; in ``hybrid`` the Mamba2 bodies, not
+the shared attention, as in the reference). Mamba2's SSD is plain
+tensor math on both routes (``ssm.ssd_chunked``).
 
-The other families (``hybrid``, ``audio``, ``vlm``) raise
-``NotImplementedError`` (ROADMAP.md, "Modules still to port", item 11).
+The other families (``audio``, ``vlm``) raise ``NotImplementedError``
+(ROADMAP.md, "Modules still to port", item 11).
 """
 from __future__ import annotations
 
@@ -31,9 +36,9 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, common, moe, rwkv
+from repro_torch.models import attention, common, moe, rwkv, ssm
 
-SERVED_FAMILIES = ("dense", "moe", "ssm")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg) -> None:
@@ -100,9 +105,17 @@ def _rwkv_block_init(gen, cfg, device) -> dict:
     }
 
 
+def _mamba_block_init(gen, cfg, device) -> dict:
+    return {
+        "ln1": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "mamba": ssm.mamba2_init(gen, cfg, device),
+    }
+
+
 def init_params(gen: torch.Generator, cfg, device) -> dict[str, Any]:
-    """Full parameter tree of a ``dense``, ``moe`` or ``ssm`` model on
-    ``device``."""
+    """Full parameter tree of a ``dense``, ``moe``, ``ssm`` or ``hybrid``
+    model on ``device``; a ``hybrid`` model adds ``shared_attn`` = {"ln",
+    "attn"}, the one attention block its groups share."""
     check_family(cfg)
     d, v = cfg.d_model, cfg.vocab
     params: dict[str, Any] = {
@@ -112,8 +125,14 @@ def init_params(gen: torch.Generator, cfg, device) -> dict[str, Any]:
     if not cfg.tie_embeddings:
         params["unembed"] = common.dense_init(gen, (d, v), device,
                                               scale=0.02, dtype=cfg.dtype)
-    block = _rwkv_block_init if cfg.family == "ssm" else _dense_block_init
+    block = {"ssm": _rwkv_block_init, "hybrid": _mamba_block_init}.get(
+        cfg.family, _dense_block_init)
     params["layers"] = _stacked(block, gen, cfg.n_layers, cfg, device)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = {
+            "ln": torch.ones((d,), dtype=cfg.dtype, device=device),
+            "attn": attention.attn_init(gen, cfg, device),
+        }
     return params
 
 
@@ -142,6 +161,25 @@ def _rwkv_block_fwd(bp, cfg, x, *, wkv_chunked=None):
                                   use_chunked=wkv_chunked)
     h = common.rms_norm(x, bp["ln2"])
     return x + rwkv.channel_mix_forward(bp["cmix"], cfg, h), None
+
+
+def _mamba_block_fwd(bp, cfg, x):
+    h = common.rms_norm(x, bp["ln1"])
+    return x + ssm.mamba2_forward(bp["mamba"], cfg, h), None
+
+
+def _shared_attn_fwd(sp, cfg, x, *, window=0, chunk=None):
+    h = common.rms_norm(x, sp["ln"])
+    return x + attention.self_attention(sp["attn"], cfg, h, window=window,
+                                        chunk=chunk)
+
+
+def groups(cfg) -> list:
+    """The hybrid stack's groups as layer ranges: the shared attention
+    block runs before each (``cfg.attn_every`` layers, the last group the
+    remainder); their number is the reference's ``decode._n_app``."""
+    per, n = cfg.attn_every, cfg.n_layers
+    return [range(g, min(g + per, n)) for g in range(0, n, per)]
 
 
 def embed(params, cfg, tokens):
@@ -184,6 +222,11 @@ def forward_hidden(params, cfg, tokens, *, window: int = 0,
             "HFL mesh: see ROADMAP.md, 'Modules still to port', item 10 (b)")
     check_family(cfg)
     x = embed(params, cfg, tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(params, cfg, x, remat=remat, window=window,
+                            attn_chunk=attn_chunk)
+        return common.rms_norm(x, params["final_norm"]), aux_total
     if cfg.family == "ssm":
         body = functools.partial(_rwkv_block_fwd, cfg=cfg,
                                  wkv_chunked=wkv_chunked)
@@ -191,7 +234,6 @@ def forward_hidden(params, cfg, tokens, *, window: int = 0,
         body = functools.partial(_dense_block_fwd, cfg=cfg, window=window,
                                  chunk=attn_chunk, ep_axis=ep_axis,
                                  ep_size=ep_size)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstack_layers(params["layers"]):
         if remat:
             x, aux = checkpoint(body, lp, x=x, use_reentrant=False)
@@ -201,6 +243,24 @@ def forward_hidden(params, cfg, tokens, *, window: int = 0,
             aux_total = aux_total + aux
     x = common.rms_norm(x, params["final_norm"])
     return x, aux_total
+
+
+def _hybrid_forward(params, cfg, x, *, remat, window, attn_chunk):
+    """zamba2: the shared attention block before each group of
+    ``attn_every`` Mamba2 blocks (``groups``); ``remat`` recomputes each
+    Mamba2 block in the backward, as the reference checkpoints its
+    scanned body."""
+    body = functools.partial(_mamba_block_fwd, cfg=cfg)
+    layers = unstack_layers(params["layers"])
+    for g in groups(cfg):
+        x = _shared_attn_fwd(params["shared_attn"], cfg, x, window=window,
+                             chunk=attn_chunk)
+        for i in g:
+            if remat:
+                x, _ = checkpoint(body, layers[i], x=x, use_reentrant=False)
+            else:
+                x, _ = body(layers[i], x=x)
+    return x
 
 
 def logits_from_hidden(params, cfg, h):

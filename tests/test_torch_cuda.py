@@ -554,12 +554,26 @@ FLASH_SHAPES = [(4, 16, 8, 1024, 1024, 128, True, 0, 0),
                 (1, 8, 2, 1, 300, 64, True, 64, 299),
                 (2, 8, 4, 512, 512, 64, True, 0, 0),
                 (2, 16, 8, 8, 300, 128, True, 0, 292),
-                (2, 16, 8, 40, 1064, 128, True, 0, 1024)]
+                (2, 16, 8, 40, 1064, 128, True, 0, 1024),
+                # D = 112 (zamba2-7b): its prefill and decode shapes (MHA),
+                # ragged Sq/Skv, a window, a 20-row tile (the f32 path's
+                # 16-row blocks, whose loads take a tail), non-causal
+                # prefill and a non-causal decode over a wrapped ring
+                (4, 32, 32, 1024, 1024, 112, True, 0, 0),
+                (4, 32, 32, 1, 1056, 112, True, 0, 1055),
+                (2, 8, 8, 1000, 1000, 112, True, 0, 0),
+                (1, 4, 2, 256, 256, 112, True, 64, 0),
+                (2, 8, 4, 20, 300, 112, True, 0, 280),
+                (2, 4, 4, 200, 200, 112, False, 0, 0),
+                (1, 32, 32, 1, 512, 112, False, 0, 0)]
 FLASH_IDS = ["qwen3-prefill", "qwen3-decode", "ragged", "window", "mha",
              "non-causal", "continuation", "decode-rep1", "decode-rep4",
              "decode-rep8", "skv-1", "skv-65", "skv-4097",
              "causal-end-mid-split", "split-emptied", "decode-window",
-             "prefill-d64", "rows-16-edge", "continuation-d128"]
+             "prefill-d64", "rows-16-edge", "continuation-d128",
+             "zamba2-prefill", "zamba2-decode", "ragged-d112",
+             "window-d112", "rows-20-d112", "non-causal-d112",
+             "ring-d112"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -588,13 +602,14 @@ def test_flash_attention_kernel_matches_plain(cuda_dev, b, h, hkv, sq, skv,
 
 
 def test_flash_attention_bf16_tile_path_uses_tensor_cores(cuda_dev):
-    """The SASS of the built library (cuobjdump): both instantiations of
-    the bf16 tile kernel (D 64 and 128) issue tensor-core instructions
-    (HGMMA for wgmma, HMMA for mma.sync)."""
+    """The SASS of the built library (cuobjdump): every instantiation of
+    the bf16 tile kernel (D 64, 112 and 128) issues tensor-core
+    instructions (HGMMA for wgmma, HMMA for mma.sync)."""
     counts = _build.tensor_core_ops("flash_attention")
     tile = {k: n for k, n in counts.items()
             if k.startswith("flash_wgmma_kernel")}
-    assert set(tile) == {"flash_wgmma_kernel<64>", "flash_wgmma_kernel<128>"}
+    assert set(tile) == {"flash_wgmma_kernel<64>", "flash_wgmma_kernel<112>",
+                         "flash_wgmma_kernel<128>"}
     assert all(n > 0 for n in tile.values()), counts
 
 
@@ -753,6 +768,40 @@ def test_reduced_serve_on_card_matches_cpu(cuda_dev, arch):
     assert outs[0][2][kern] == 0
     assert outs[1][2][kern] == (5 if kern == "flash_attention" else 1) \
         * cfg.n_layers
+    for a, b in zip(outs[0][0], outs[1][0]):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    for k, a in outs[0][1].items():
+        if k != "t":
+            torch.testing.assert_close(outs[1][1][k].cpu(), a, atol=1e-4,
+                                       rtol=1e-4)
+
+
+@pytest.mark.parametrize("window", [0, 8], ids=["full", "ring-8"])
+def test_reduced_hybrid_serve_on_card_matches_cpu(cuda_dev, window):
+    """Reduced zamba2 with 5 layers (the shared attention block applied 3
+    times) at its published head dim 112, f32 activations: prefill(16)
+    + 4 teacher-forced decode steps on the card (the flash kernel's D =
+    112 instantiations; with window 8 a ring of 8 slots, the steps
+    wrapping it) against the CPU; logits and every cache leaf within
+    1e-4, TF32 off; the flash calls per path held."""
+    disable_tf32()
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduce(), n_layers=5,
+                              d_head=112, activ_dtype="float32")
+    m = model.build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(5), "cpu")
+    toks = token_batch(4, 2, 20, cfg.vocab, "cpu")["tokens"]
+    outs = []
+    for d in ("cpu", cuda_dev):
+        p, t = _to(params, d), toks.to(d)
+        flash_attention.reset_paths()
+        lg, cache = m.prefill(p, t[:, :16], window=window, max_new=4)
+        steps = [lg]
+        for i in range(16, 20):
+            lg, cache = m.decode_step(p, cache, t[:, i:i + 1], window=window)
+            steps.append(lg)
+        outs.append((steps, cache, dict(flash_attention.PATH_CALLS)))
+    assert outs[1][2] == {"split_kv": 4 * 3, "wgmma": 0, "f32_tile": 3}
+    assert outs[1][1]["ak"].shape == (3, 2, 8 if window else 20, 2, 112)
     for a, b in zip(outs[0][0], outs[1][0]):
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
     for k, a in outs[0][1].items():
