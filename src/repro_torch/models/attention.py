@@ -1,10 +1,11 @@
 """GQA attention: full-sequence forward (serving and training), prefill
-(cache write) and one-token decode; the port of ``repro.models.attention``.
+(cache write), one-token decode and the whisper decoder's
+cross-attention; the port of ``repro.models.attention``.
 
-Two routes compute the same attention. Serving (``self_attention`` with
-``chunk=None``, prefill, decode) runs the ``flash_attention`` kernel
-(``repro_torch.kernels.ops``), which has no backward and refuses
-autograd. Training (``self_attention`` with an int ``chunk``, which
+Two routes compute the same attention. Serving (``self_attention`` and
+``cross_attention`` with ``chunk=None``, prefill, decode) runs the
+``flash_attention`` kernel (``repro_torch.kernels.ops``), which has no
+backward and refuses autograd. Training (an int ``chunk``, which
 ``transformer.forward_hidden(attn_chunk=)`` sets) runs
 ``chunked_attention``, the reference's online-softmax scan over KV
 chunks in plain tensor code, differentiated by autograd, as the
@@ -13,11 +14,12 @@ through its Pallas kernel. q/k/v stay in the reference's (B, S, H, D)
 layout and reach the kernel as (B, H, S, D) transposed views (the
 kernel takes strides).
 
-Supported: GQA, qk_norm (qwen3), qkv bias (qwen2), causal and
-sliding-window masks, and ring-buffer (sliding-window) prefill and
-decode. Out of the port so far, and raising ``NotImplementedError``:
-M-RoPE and cross-attention (ROADMAP.md, "Modules still to port", item
-11).
+Supported: GQA, qk_norm (qwen3), qkv bias (qwen2), causal, non-causal
+(the whisper encoder) and sliding-window masks, ring-buffer
+(sliding-window) prefill and decode, cross-attention over precomputed
+encoder K/V (whisper), and M-RoPE (qwen2-vl: ``mpos``, the three
+position streams; without them a model with ``m_rope`` falls back to
+standard RoPE, as the reference does).
 """
 from __future__ import annotations
 
@@ -26,7 +28,6 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import common
 
-ROADMAP_ITEM = "ROADMAP.md, 'Modules still to port', item 11"
 NEG_INF = -1e30
 
 
@@ -50,16 +51,12 @@ def attn_init(gen: torch.Generator, cfg, device, dtype=None) -> dict:
     return p
 
 
-def _check_supported(cfg) -> None:
-    if cfg.m_rope:
-        raise NotImplementedError(f"M-RoPE (qwen2-vl) is not ported yet: "
-                                  f"see {ROADMAP_ITEM}")
-
-
-def _project_qkv(params, cfg, x, positions):
+def _project_qkv(params, cfg, x, positions, mpos=None):
     """x: (B, S, d) -> q (B, S, H, D), k/v (B, S, Hkv, D): projections in
-    x's dtype, optional bias, per-head qk_norm, then interleaved RoPE."""
-    _check_supported(cfg)
+    x's dtype, optional bias, per-head qk_norm, then interleaved rotary:
+    M-RoPE over ``mpos`` (3, B, S) when the model has ``m_rope`` and
+    ``mpos`` is given, else standard RoPE at ``positions`` when
+    ``rope_theta`` > 0."""
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ params["wq"].to(x.dtype)
@@ -75,7 +72,10 @@ def _project_qkv(params, cfg, x, positions):
     if cfg.qk_norm:
         q = common.rms_norm(q, params["q_norm"])
         k = common.rms_norm(k, params["k_norm"])
-    if cfg.rope_theta > 0:
+    if cfg.m_rope and mpos is not None:
+        q = common.apply_m_rope(q, mpos, cfg.rope_theta)
+        k = common.apply_m_rope(k, mpos, cfg.rope_theta)
+    elif cfg.rope_theta > 0:
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -154,16 +154,17 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
 
 
 def self_attention(params, cfg, x, positions=None, *, causal=True,
-                   window: int = 0, chunk=None):
+                   window: int = 0, mpos=None, chunk=None):
     """Full-sequence self attention. ``chunk=None`` runs the
     ``flash_attention`` kernel (serving; no autograd); an int runs
     ``chunked_attention`` over KV chunks of that size (training, as the
     reference's train and forward compute), non-causal as the reference
-    does it: all-zero ``kv_positions``."""
+    does it: all-zero ``kv_positions``. ``mpos``: M-RoPE's position
+    streams (``_project_qkv``)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, positions, mpos)
     if chunk is None:
         out = _attend(q, k, v, causal=causal, window=window if causal else 0)
     elif causal:
@@ -177,16 +178,17 @@ def self_attention(params, cfg, x, positions=None, *, causal=True,
     return out @ params["wo"].to(x.dtype)
 
 
-def prefill_attention(params, cfg, x, *, window: int = 0):
+def prefill_attention(params, cfg, x, *, window: int = 0, mpos=None):
     """Prefill: returns (out, (k, v, kvpos)) with k/v (B, C, Hkv, D) and
     kvpos (B, C) int32 absolute positions. The attention runs the
     kernel's causal mask, with ``window`` its sliding window. C = S,
     except with ``window`` and S > window: then the cache is a ring of
     the last ``window`` positions, position p at slot ``p % window``
-    (the reference's ring buffer)."""
+    (the reference's ring buffer). ``mpos``: M-RoPE's position streams;
+    the cache positions stay the slots' 0 .. S - 1."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, positions, mpos)
     out = _attend(q, k, v, window=window) @ params["wo"].to(x.dtype)
     pos = positions.expand(b, s).contiguous()
     if window and s > window:
@@ -198,10 +200,13 @@ def prefill_attention(params, cfg, x, *, window: int = 0):
     return out, (k, v, pos)
 
 
-def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0):
+def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0,
+                     mpos=None):
     """One-token decode. x: (B, 1, d); cache: (k, v, kvpos) with k/v
     (B, C, Hkv, D) and kvpos (B, C) absolute positions (-1 = empty); pos:
-    the new token's absolute position (a host int).
+    the new token's absolute position (a host int). ``mpos`` (3, B, 1):
+    M-RoPE's position streams of the new token, which may differ from
+    ``pos`` (qwen2-vl's ``pos + dpos``); slots and masks go by ``pos``.
 
     The new k/v/position are written into the cache tensors IN PLACE (the
     reference returns updated copies; the port saves the copy of the
@@ -235,7 +240,7 @@ def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0):
                          f"window {window}")
     slot = pos % c
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions, mpos)
     k_cache[:, slot] = k_new[:, 0]
     v_cache[:, slot] = v_new[:, 0]
     kvpos[:, slot] = pos
@@ -244,3 +249,43 @@ def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0):
     else:
         out = _attend(q, k_cache, v_cache, window=window, q_offset=pos)
     return out @ params["wo"].to(x.dtype), (k_cache, v_cache, kvpos)
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(gen: torch.Generator, cfg, device, dtype=None) -> dict:
+    return attn_init(gen, cfg, device, dtype)
+
+
+def encode_cross_kv(params, cfg, enc_out):
+    """The encoder output (B, Senc, d) projected once into the decoder
+    layer's cross-attention k/v, each (B, Senc, Hkv, D), in its dtype."""
+    b, s, _ = enc_out.shape
+    nkv, hd = cfg.n_kv_heads, cfg.head_dim
+    k = enc_out @ params["wk"].to(enc_out.dtype)
+    v = enc_out @ params["wv"].to(enc_out.dtype)
+    return k.reshape(b, s, nkv, hd), v.reshape(b, s, nkv, hd)
+
+
+def cross_attention(params, cfg, x, enc_kv, *, chunk=None):
+    """x: (B, Sq, d) attends to every row of ``enc_kv`` = (k, v) from
+    ``encode_cross_kv``: the query projection (no bias, no rotary, as in
+    the reference), non-causal attention, the output projection.
+    ``chunk=None`` runs the ``flash_attention`` kernel; an int runs
+    ``chunked_attention`` with all-zero ``kv_positions`` and KV chunks of
+    ``min(chunk, Senc)``."""
+    b, sq, _ = x.shape
+    nh, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, sq, nh, hd)
+    k, v = enc_kv
+    if chunk is None:
+        out = _attend(q, k, v, causal=False)
+    else:
+        kvp = torch.zeros((b, k.shape[1]), dtype=torch.int32,
+                          device=x.device)
+        out = chunked_attention(q, k, v, causal=False, kv_positions=kvp,
+                                chunk=min(chunk, k.shape[1])).reshape(
+                                    b, sq, nh * hd)
+    return out @ params["wo"].to(x.dtype)

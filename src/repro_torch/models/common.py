@@ -1,5 +1,7 @@
-"""Shared model components the LLM serving slice needs; the port of
-``repro.models.common``.
+"""Shared model components of the LLM families: initializers, RMS and
+layer norms, the SwiGLU and GELU MLPs, standard and multimodal (M-RoPE)
+rotary embeddings, sinusoidal positions and the chunked cross-entropy;
+the port of ``repro.models.common``.
 
 Plain functions on tensors over plain-dict parameters. Initializers draw
 from an explicit ``torch.Generator`` with the laws of the reference (the
@@ -41,7 +43,7 @@ def embed_init(gen: torch.Generator, shape, device,
 
 
 # ---------------------------------------------------------------------------
-# norms, MLP
+# norms, MLPs
 # ---------------------------------------------------------------------------
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -50,6 +52,19 @@ def rms_norm(x, weight, eps: float = 1e-6):
     x = x.float()
     x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
     return (x * weight.float()).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """Layer norm over the last dim: statistics in f32, then ``y * weight
+    + bias`` with the weight and bias in their own dtype (an f32 y times
+    an f32 or bf16 weight stays f32, as in the reference), returned in
+    x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(dt)
 
 
 def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, device,
@@ -66,6 +81,24 @@ def swiglu(params, x):
     g = x @ params["w_gate"].to(x.dtype)
     u = x @ params["w_up"].to(x.dtype)
     return (F.silu(g) * u) @ params["w_down"].to(x.dtype)
+
+
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, device,
+                  dtype=torch.float32) -> dict:
+    return {
+        "w_up": dense_init(gen, (d_model, d_ff), device, dtype=dtype),
+        "b_up": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w_down": dense_init(gen, (d_ff, d_model), device, dtype=dtype),
+        "b_down": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(params, x):
+    """gelu(x W_up + b_up) W_down + b_down in x's dtype; the GELU is the
+    tanh form, ``jax.nn.gelu``'s default."""
+    h = x @ params["w_up"].to(x.dtype) + params["b_up"].to(x.dtype)
+    h = F.gelu(h, approximate="tanh")
+    return h @ params["w_down"].to(x.dtype) + params["b_down"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +129,55 @@ def apply_rope(x, positions, theta: float):
     y1 = x1 * cos - x2 * sin
     y2 = x1 * sin + x2 * cos
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def m_rope_bands(half: int, sections=(2, 1, 1)) -> list:
+    """The (lo, hi) frequency bands of M-RoPE's (temporal, height, width)
+    sections over the ``half`` rotary pairs, the last band taking the
+    remainder: (0, 32), (32, 48), (48, 64) at head dim 128."""
+    tot, acc, bounds = sum(sections), 0, []
+    for s in sections:
+        n = half * s // tot
+        bounds.append((acc, acc + n))
+        acc += n
+    bounds[-1] = (bounds[-1][0], half)
+    return bounds
+
+
+def apply_m_rope(x, mpos, theta: float, sections=(2, 1, 1)):
+    """Qwen2-VL's multimodal rotary embedding. x: (..., S, H, D); mpos:
+    (3, ..., S), the temporal, height and width position streams. The
+    rotary pairs are split into ``m_rope_bands``, each band rotated by
+    its own stream's position; pairs interleaved and angles in f32 as in
+    ``apply_rope``, returned in x's dtype."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = rope_freqs(d, theta, x.device)                    # (half,)
+    pos = torch.zeros(x.shape[:-2] + (half,), dtype=torch.float32,
+                      device=x.device)
+    for (lo, hi), p in zip(m_rope_bands(half, sections), mpos):
+        pos[..., lo:hi] = p[..., None].to(torch.float32)
+    ang = (pos * freqs)[..., None, :]                     # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xf = x.float()
+    x1, x2 = xf[..., ::2], xf[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int, device) -> torch.Tensor:
+    """(seq, d_model) f32 encoder positions: sin at the even columns, cos
+    at the odd ones, of ``pos / 10000 ** (2i / d_model)``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device),
+                          dim / d_model)
+    out = torch.zeros((seq, d_model), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out
 
 
 # ---------------------------------------------------------------------------

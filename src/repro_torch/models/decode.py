@@ -1,31 +1,37 @@
-"""Serving paths of the ported families: cache init, prefill,
-single-token decode for ``dense``, ``moe``, ``ssm`` (rwkv6) and
-``hybrid`` (zamba2); the port of ``repro.models.decode``.
+"""Serving paths of every family: cache init, prefill, single-token
+decode for ``dense``, ``moe``, ``vlm``, ``ssm`` (rwkv6), ``hybrid``
+(zamba2) and ``audio`` (whisper); the port of ``repro.models.decode``.
 
 Cache layout (leaves stacked over layers, as in the reference):
-  dense/moe : {"k": (L, B, C, Hkv, D), "v": ..., "pos": (L, B, C) int32,
-               "t": int}; C = cache_len, the ring's length with a window
-  ssm       : {"ax": (L, B, d), "S": (L, B, nh, hd, hd) f32, "cx": (L, B, d),
-               "t": int}
-  hybrid    : {"h": (L, B, nh, hd, N) f32 (Mamba2 states), "tail":
-               (L, B, CONV_K - 1, din + 2N) (conv inputs), "ak"/"av":
-               (n_app, B, C, Hkv, D), "apos": (n_app, B, C) int32, "t": int};
-               n_app = ``_n_app(cfg)``, one k/v cache per application of
-               the shared attention block
-``t``, the position of the next token, is a host int (the reference
-keeps a device scalar): the decode step needs it on the host to address
-the cache slot and the attention kernel's ``q_offset``.
+  dense/moe/vlm : {"k": (L, B, C, Hkv, D), "v": ..., "pos": (L, B, C)
+                  int32, "t": int}; C = cache_len, the ring's length with
+                  a window; a vlm adds "dpos": int, the M-RoPE position of
+                  a decode step minus its cache position
+  ssm           : {"ax": (L, B, d), "S": (L, B, nh, hd, hd) f32,
+                  "cx": (L, B, d), "t": int}
+  hybrid        : {"h": (L, B, nh, hd, N) f32 (Mamba2 states), "tail":
+                  (L, B, CONV_K - 1, din + 2N) (conv inputs), "ak"/"av":
+                  (n_app, B, C, Hkv, D), "apos": (n_app, B, C) int32,
+                  "t": int}; n_app = ``_n_app(cfg)``, one k/v cache per
+                  application of the shared attention block
+  audio         : the dense cache of the decoder's self-attention plus
+                  "ck"/"cv": (L, B, Senc, Hkv, D), each layer's
+                  cross-attention k/v, computed once at prefill
+``t``, the position of the next token, and ``dpos`` are host ints (the
+reference keeps device scalars): the decode step needs them on the host
+to address the cache slot and the attention kernel's ``q_offset``.
 
 With a ``window`` (ring-buffer serving, the reference's ``long_500k``
 path) the prefill keeps ``window`` slots when the prompt is longer
 (position p at slot ``p % window``) and the prompt's ``s`` slots when it
 is not; either way there is no ``max_new`` headroom and decode wraps
-over the ring (``attention.decode_attention``).
+over the ring (``attention.decode_attention``). As in the reference, an
+``audio`` prefill attends without the window and keeps the prompt's
+``s`` slots (no headroom).
 
 ``decode_step`` updates the cache tensors IN PLACE and returns the same
 dict (the reference returns an updated copy; the port saves a copy of
-the whole cache per generated token). The other families (``audio``,
-``vlm``) raise ``NotImplementedError``.
+the whole cache per generated token).
 """
 from __future__ import annotations
 
@@ -44,10 +50,12 @@ def _n_app(cfg) -> int:
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, window: int = 0,
-               device="cuda") -> dict[str, Any]:
+               enc_seq=None, device="cuda") -> dict[str, Any]:
     """Zeroed cache on ``device`` (empty kv slots have position -1).
     ``cache_len`` already equals the ring's length for windowed decode;
-    ``window`` is the reference's argument and changes nothing here."""
+    ``window`` is the reference's argument and changes nothing here.
+    ``enc_seq``: an audio model's encoder length (default
+    ``cfg.enc_seq``)."""
     transformer.check_family(cfg)
     device = resolve_device(device)
     L, dt = cfg.n_layers, cfg.adtype
@@ -66,11 +74,19 @@ def init_cache(cfg, batch: int, cache_len: int, *, window: int = 0,
                 "t": 0}
     if cfg.family != "ssm":
         kv = (L, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(kv, dtype=dt, device=device),
-                "v": torch.zeros(kv, dtype=dt, device=device),
-                "pos": torch.full((L, batch, cache_len), -1,
-                                  dtype=torch.int32, device=device),
-                "t": 0}
+        out = {"k": torch.zeros(kv, dtype=dt, device=device),
+               "v": torch.zeros(kv, dtype=dt, device=device),
+               "pos": torch.full((L, batch, cache_len), -1,
+                                 dtype=torch.int32, device=device),
+               "t": 0}
+        if cfg.family == "audio":
+            ckv = (L, batch, enc_seq or cfg.enc_seq, cfg.n_kv_heads,
+                   cfg.head_dim)
+            out["ck"] = torch.zeros(ckv, dtype=dt, device=device)
+            out["cv"] = torch.zeros(ckv, dtype=dt, device=device)
+        if cfg.m_rope:
+            out["dpos"] = 0
+        return out
     nh, hd = rwkv.rwkv_dims(cfg)
     return {"ax": torch.zeros((L, batch, cfg.d_model), dtype=dt,
                               device=device),
@@ -81,35 +97,54 @@ def init_cache(cfg, batch: int, cache_len: int, *, window: int = 0,
             "t": 0}
 
 
-def prefill(params, cfg, tokens, *, window: int = 0, max_new: int = 0):
+def prefill(params, cfg, tokens, *, extras=None, window: int = 0,
+            max_new: int = 0):
     """Processes the prompt, returns (last-position logits (B, V), cache).
     ``max_new`` reserves cache headroom for subsequent decode steps: the
     attention cache is allocated at S + max_new slots and each layer's
     k/v are written into it (the cache the reference's prefill builds and
     pads with ``_pad_kv``, without the copy). With a ``window`` the cache
     has ``window`` slots if S > window, else S, and no headroom (the
-    reference pads only without a window)."""
+    reference pads only without a window).
+
+    ``extras``: ``enc_embed`` (audio: the encoder runs once, and each
+    decoder layer's cross k/v go into the cache's ``ck``/``cv``) or
+    ``vision_embed`` (vlm: the projected vision embeddings precede the
+    prompt, so S counts them, and ``dpos`` = the last text position's
+    M-RoPE position + 1 - S)."""
     transformer.check_family(cfg)
     b, s = tokens.shape
-    x = transformer.embed(params, cfg, tokens)
+    x, mpos = transformer.embed_inputs(params, cfg, tokens, extras)
     if cfg.family == "hybrid":
         x, cache = _hybrid_prefill(params, cfg, x, window=window,
                                    max_new=max_new)
+    elif cfg.family == "audio":
+        x, cache = _audio_prefill(params, cfg, x, extras["enc_embed"],
+                                  window=window, max_new=max_new)
+        h = common.layer_norm(x[:, -1:], params["final_norm"],
+                              params["final_norm_b"])
+        return transformer.logits_from_hidden(params, cfg, h)[:, 0], cache
     elif cfg.family != "ssm":
+        s = x.shape[1]
         n = min(s, window) if window else s
         cache = init_cache(cfg, b, n if window else s + max_new,
                            device=x.device)
         for i in range(cfg.n_layers):
             lp = transformer.layer(params["layers"], i)
             h = common.rms_norm(x, lp["ln1"])
-            out, (k, v, p) = attention.prefill_attention(lp["attn"], cfg, h,
-                                                         window=window)
+            out, (k, v, p) = attention.prefill_attention(
+                lp["attn"], cfg, h, window=window, mpos=mpos)
             cache["k"][i, :, :n] = k
             cache["v"][i, :, :n] = v
             cache["pos"][i, :, :n] = p
             x = x + out
             h, _ = transformer.ffn(lp, cfg, common.rms_norm(x, lp["ln2"]))
             x = x + h
+        if mpos is not None:
+            # the last text token sits at M-RoPE position g + n_text - 1
+            # (g the vision grid's width) and at slot n_vis + n_text - 1
+            n_vis = s - tokens.shape[1]
+            cache["dpos"] = transformer.mrope_grid(n_vis) - n_vis
     else:
         cache = init_cache(cfg, b, 0, device=x.device)
         for i in range(cfg.n_layers):
@@ -156,6 +191,59 @@ def _hybrid_prefill(params, cfg, x, *, window: int, max_new: int):
     return x, cache
 
 
+def _audio_prefill(params, cfg, x, enc_embed, *, window: int,
+                   max_new: int):
+    """The whisper encoder over ``enc_embed``, then the decoder over the
+    prompt (``dec_pos`` added), each layer's self-attention k/v and
+    cross-attention k/v written into a preallocated cache. As in the
+    reference the self-attention ignores ``window`` and a ``window``
+    leaves no ``max_new`` headroom."""
+    b, s = x.shape[:2]
+    enc = transformer.encode(params, cfg, enc_embed)
+    cache = init_cache(cfg, b, s if window else s + max_new,
+                       enc_seq=enc.shape[1], device=x.device)
+    x = x + params["dec_pos"][:s].to(cfg.adtype)
+    for i in range(cfg.n_layers):
+        lp = transformer.layer(params["layers"], i)
+        ck, cv = attention.encode_cross_kv(lp["cross_attn"], cfg, enc)
+        cache["ck"][i], cache["cv"][i] = ck, cv
+        h = common.layer_norm(x, lp["ln1_w"], lp["ln1_b"])
+        out, (k, v, p) = attention.prefill_attention(lp["self_attn"], cfg, h)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+        cache["pos"][i, :, :s] = p
+        x = x + out
+        h = common.layer_norm(x, lp["ln2_w"], lp["ln2_b"])
+        x = x + attention.cross_attention(lp["cross_attn"], cfg, h, (ck, cv))
+        h = common.layer_norm(x, lp["ln3_w"], lp["ln3_b"])
+        x = x + common.gelu_mlp(lp["mlp"], h)
+    cache["t"] = s
+    return x, cache
+
+
+def _audio_decode(params, cfg, cache, x, pos: int, *, window: int):
+    """``decode_step``'s audio branch: ``dec_pos[pos]`` added, each
+    layer's self-attention against its cache (updated in place) and its
+    cross-attention against ``ck``/``cv``. Returns (logits, cache)."""
+    x = x + params["dec_pos"][pos][None, None, :].to(cfg.adtype)
+    for i in range(cfg.n_layers):
+        lp = transformer.layer(params["layers"], i)
+        h = common.layer_norm(x, lp["ln1_w"], lp["ln1_b"])
+        out, _ = attention.decode_attention(
+            lp["self_attn"], cfg, h,
+            (cache["k"][i], cache["v"][i], cache["pos"][i]), pos,
+            window=window)
+        x = x + out
+        h = common.layer_norm(x, lp["ln2_w"], lp["ln2_b"])
+        x = x + attention.cross_attention(lp["cross_attn"], cfg, h,
+                                          (cache["ck"][i], cache["cv"][i]))
+        h = common.layer_norm(x, lp["ln3_w"], lp["ln3_b"])
+        x = x + common.gelu_mlp(lp["mlp"], h)
+    cache["t"] = pos + 1
+    h = common.layer_norm(x, params["final_norm"], params["final_norm_b"])
+    return transformer.logits_from_hidden(params, cfg, h)[:, 0], cache
+
+
 def _hybrid_decode(params, cfg, cache, x, pos: int, *, window: int):
     """``decode_step``'s hybrid branch: one token through the hybrid
     stack, every cache leaf updated in place. Returns (logits, cache)."""
@@ -185,6 +273,13 @@ def decode_step(params, cfg, cache, tokens, *, window: int = 0):
     x = transformer.embed(params, cfg, tokens[:, :1])
     if cfg.family == "hybrid":
         return _hybrid_decode(params, cfg, cache, x, pos, window=window)
+    if cfg.family == "audio":
+        return _audio_decode(params, cfg, cache, x, pos, window=window)
+    mpos = None
+    if cfg.m_rope:
+        # M-RoPE position pos + dpos on all three streams; slot pos
+        mpos = torch.full((3, x.shape[0], 1), pos + cache.get("dpos", 0),
+                          dtype=torch.int32, device=x.device)
     for i in range(cfg.n_layers):
         lp = transformer.layer(params["layers"], i)
         h = common.rms_norm(x, lp["ln1"])
@@ -192,7 +287,7 @@ def decode_step(params, cfg, cache, tokens, *, window: int = 0):
             out, _ = attention.decode_attention(
                 lp["attn"], cfg, h,
                 (cache["k"][i], cache["v"][i], cache["pos"][i]), pos,
-                window=window)
+                window=window, mpos=mpos)
             x = x + out
             h, _ = transformer.ffn(lp, cfg, common.rms_norm(x, lp["ln2"]))
             x = x + h

@@ -1,7 +1,10 @@
 """Public model API: ``build_model(cfg)`` -> ``Model`` with init / loss /
-logits / prefill / decode for the families the port serves (``dense``,
-``moe``, ``ssm``, ``hybrid``), and the paper's testbed CNNs (Arena
-section 4.1); the port of ``repro.models.model``. ``Model.loss`` trains
+logits / prefill / decode, uniform across every family (``dense``,
+``moe``, ``vlm``, ``ssm``, ``hybrid``, ``audio``), and the paper's
+testbed CNNs (Arena section 4.1); the port of ``repro.models.model``.
+The stub front ends' inputs ride in the batch (``enc_embed`` for
+``audio``, ``vision_embed`` for ``vlm``) and in prefill's ``extras``.
+``Model.loss`` trains
 through the reference's plain tensor math under autograd
 (``chunked_attention``, ``wkv_scan`` / ``wkv_chunked``, Mamba2's
 ``ssd_chunked``, ``chunked_softmax_xent``); ``Model.logits`` and serving
@@ -50,49 +53,64 @@ class Model:
              ep_axis: Optional[str] = None, ep_size: int = 1,
              attn_chunk: int = 1024, wkv_chunked: bool = False,
              act_spec=None):
-        """batch: {"tokens", "labels"} (B, S) int. Returns the scalar f32
-        loss, ``xent + 0.01 * aux`` (aux the MoE load-balance loss, 0
-        without MoE), differentiable in ``params`` by autograd. Attention
-        runs ``chunked_attention`` with KV chunks of ``attn_chunk``, the RWKV6
-        WKV ``wkv_chunked`` if ``wkv_chunked`` else ``wkv_scan``, Mamba2's
-        SSD ``ssd_chunked``; no kernel is reached. ``ep_axis`` (expert
-        parallelism) raises in an MoE model (item 10 (b)). The families' ``extras`` (``enc_embed``,
-        ``vision_embed``) belong to families the port does not build."""
+        """batch: {"tokens", "labels"} (B, S) int, plus ``enc_embed`` (audio)
+        or ``vision_embed`` (vlm). Returns the scalar f32 loss, ``xent +
+        0.01 * aux`` (aux the MoE load-balance loss, 0 without MoE),
+        differentiable in ``params`` by autograd; a vlm's loss runs over
+        the text positions only. Attention runs ``chunked_attention``
+        with KV chunks of ``attn_chunk`` (whisper's blocks: ``min(1024,
+        S)``, the reference's), the RWKV6 WKV ``wkv_chunked`` if
+        ``wkv_chunked`` else ``wkv_scan``, Mamba2's SSD ``ssd_chunked``;
+        no kernel is reached. ``ep_axis`` (expert parallelism) raises in
+        an MoE model (item 10 (b))."""
         cfg = self.cfg
         h, aux = transformer.forward_hidden(
-            params, cfg, batch["tokens"], remat=remat, ep_axis=ep_axis,
-            ep_size=ep_size, attn_chunk=attn_chunk,
-            wkv_chunked=bool(wkv_chunked), act_spec=act_spec)
+            params, cfg, batch["tokens"], extras=_extras(batch),
+            remat=remat, ep_axis=ep_axis, ep_size=ep_size,
+            attn_chunk=attn_chunk, wkv_chunked=bool(wkv_chunked),
+            act_spec=act_spec)
+        labels = batch["labels"]
+        if cfg.family == "vlm" and "vision_embed" in batch:
+            h = h[:, -labels.shape[1]:]     # loss over text positions only
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-        xent = common.chunked_softmax_xent(h, w, batch["labels"])
+        xent = common.chunked_softmax_xent(h, w, labels)
         return xent + 0.01 * aux
 
     # ---- forward ----------------------------------------------------------
     def logits(self, params, batch, *, window: int = 0):
-        """batch: {"tokens": (B, S) int}. Returns (B, S, vocab) logits in
-        the activation dtype; ``window`` > 0 is the sliding-window mask."""
+        """batch: {"tokens": (B, S) int} plus ``enc_embed`` (audio) or
+        ``vision_embed`` (vlm). Returns (B, S', vocab) logits in the
+        activation dtype, S' = S, or n_vis + S for a vlm given
+        ``vision_embed``; ``window`` > 0 is the sliding-window mask."""
         h, _ = transformer.forward_hidden(params, self.cfg, batch["tokens"],
+                                          extras=_extras(batch),
                                           window=window)
         return transformer.logits_from_hidden(params, self.cfg, h)
 
     # ---- serving ----------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, *, window: int = 0,
-                   device="cuda"):
+                   enc_seq=None, device="cuda"):
         return decode.init_cache(self.cfg, batch, cache_len, window=window,
-                                 device=device)
+                                 enc_seq=enc_seq, device=device)
 
-    def prefill(self, params, tokens, *, window: int = 0, max_new: int = 0):
-        return decode.prefill(params, self.cfg, tokens, window=window,
-                              max_new=max_new)
+    def prefill(self, params, tokens, *, extras=None, window: int = 0,
+                max_new: int = 0):
+        return decode.prefill(params, self.cfg, tokens, extras=extras,
+                              window=window, max_new=max_new)
 
     def decode_step(self, params, cache, tokens, *, window: int = 0):
         return decode.decode_step(params, self.cfg, cache, tokens,
                                   window=window)
 
 
+def _extras(batch: dict) -> dict:
+    """The stub front ends' inputs of a batch."""
+    return {k: batch[k] for k in transformer.EXTRAS if k in batch}
+
+
 def build_model(cfg: ArchConfig) -> Model:
-    """The model of ``cfg``; raises ``NotImplementedError`` for a family
-    the port does not serve yet."""
+    """The model of ``cfg``; raises ``ValueError`` for a family the
+    reference does not have (``transformer.check_family``)."""
     transformer.check_family(cfg)
     return Model(cfg)
 

@@ -1,10 +1,13 @@
-"""Layer stacks of the ported families: ``dense`` (pre-RMSNorm GQA
-decoder with a SwiGLU FFN; qwen3), ``moe`` (the same decoder with a
-Mixture-of-Experts FFN, ``models.moe``; olmoe, grok-1), ``ssm`` (RWKV6
-time-mix + channel-mix blocks) and ``hybrid`` (zamba2: Mamba2 blocks,
-``models.ssm``, with ONE shared attention block, one set of weights,
-applied before each group of ``attn_every`` of them and once more before
-the remainder); the port of ``repro.models.transformer``.
+"""Layer stacks of every family: ``dense`` (pre-RMSNorm GQA decoder with
+a SwiGLU FFN; qwen3), ``moe`` (the same decoder with a Mixture-of-Experts
+FFN, ``models.moe``; olmoe, grok-1), ``vlm`` (the dense decoder under
+M-RoPE, with projected vision embeddings before the text; qwen2-vl),
+``ssm`` (RWKV6 time-mix + channel-mix blocks), ``hybrid`` (zamba2:
+Mamba2 blocks, ``models.ssm``, with ONE shared attention block, one set
+of weights, applied before each group of ``attn_every`` of them and once
+more before the remainder) and ``audio`` (whisper: a LayerNorm / GELU
+encoder-decoder, the decoder cross-attending to the encoder); the port
+of ``repro.models.transformer``.
 
 Parameters keep the reference's layout leaf for leaf: each per-layer
 leaf is stacked over layers with a leading ``n_layers`` axis, dense
@@ -23,10 +26,13 @@ reference's plain tensor math (``attention.chunked_attention``,
 recomputed in the backward when ``remat`` (``torch.utils.checkpoint``,
 the reference's ``jax.checkpoint``; in ``hybrid`` the Mamba2 bodies, not
 the shared attention, as in the reference). Mamba2's SSD is plain
-tensor math on both routes (``ssm.ssd_chunked``).
+tensor math on both routes (``ssm.ssd_chunked``). The whisper blocks
+take KV chunks of ``min(1024, S)`` on the training route, the
+reference's own chunk, whatever ``attn_chunk`` says.
 
-The other families (``audio``, ``vlm``) raise ``NotImplementedError``
-(ROADMAP.md, "Modules still to port", item 11).
+The stub front ends are inputs, as in the reference: ``extras``
+carries whisper's frame embeddings ``enc_embed`` (B, enc_seq, d) and
+qwen2-vl's patch embeddings ``vision_embed`` (B, n_vis, d).
 """
 from __future__ import annotations
 
@@ -38,20 +44,18 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, moe, rwkv, ssm
 
-SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+EXTRAS = ("enc_embed", "vision_embed")     # the stub front ends' inputs
 
 
 def check_family(cfg) -> None:
-    """Raise for a configuration the port does not serve: a family
-    outside ``SERVED_FAMILIES``, or an MoE FFN outside the ``moe``
-    family."""
-    if cfg.family not in SERVED_FAMILIES or (
-            (cfg.moe is not None) != (cfg.family == "moe")):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"serves {SERVED_FAMILIES}, MoE only in 'moe'): see "
-            f"{attention.ROADMAP_ITEM}")
-    attention._check_supported(cfg)
+    """Raise ``ValueError`` for a family the reference does not have, or
+    an MoE FFN outside the ``moe`` family (no configuration has one)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if (cfg.moe is not None) != (cfg.family == "moe"):
+        raise ValueError(f"{cfg.name}: an MoE FFN is built only in the "
+                         f"'moe' family, not {cfg.family!r}")
 
 
 def layer(layers: dict, i: int) -> dict:
@@ -112,10 +116,41 @@ def _mamba_block_init(gen, cfg, device) -> dict:
     }
 
 
+def _layer_norms(cfg, device, *names) -> dict:
+    """Layer norms' weights (ones) and biases (zeros): ``<name>_w`` and
+    ``<name>_b`` for each name."""
+    out = {}
+    for n in names:
+        out[n + "_w"] = torch.ones((cfg.d_model,), dtype=cfg.dtype,
+                                   device=device)
+        out[n + "_b"] = torch.zeros((cfg.d_model,), dtype=cfg.dtype,
+                                    device=device)
+    return out
+
+
+def _whisper_enc_block_init(gen, cfg, device) -> dict:
+    return {**_layer_norms(cfg, device, "ln1", "ln2"),
+            "attn": attention.attn_init(gen, cfg, device),
+            "mlp": common.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, device,
+                                        cfg.dtype)}
+
+
+def _whisper_dec_block_init(gen, cfg, device) -> dict:
+    return {**_layer_norms(cfg, device, "ln1", "ln2", "ln3"),
+            "self_attn": attention.attn_init(gen, cfg, device),
+            "cross_attn": attention.cross_attn_init(gen, cfg, device),
+            "mlp": common.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, device,
+                                        cfg.dtype)}
+
+
 def init_params(gen: torch.Generator, cfg, device) -> dict[str, Any]:
-    """Full parameter tree of a ``dense``, ``moe``, ``ssm`` or ``hybrid``
-    model on ``device``; a ``hybrid`` model adds ``shared_attn`` = {"ln",
-    "attn"}, the one attention block its groups share."""
+    """Full parameter tree of a model on ``device``. A ``hybrid`` model
+    adds ``shared_attn`` = {"ln", "attn"}, the one attention block its
+    groups share; a ``vlm`` model ``vis_proj`` (d, d), the vision
+    embeddings' projection; an ``audio`` model ``enc_layers`` (the
+    encoder blocks), ``enc_norm_w``/``enc_norm_b``, ``final_norm_b`` (its
+    final norm is a layer norm) and ``dec_pos`` (dec_ctx, d), the learned
+    decoder positions."""
     check_family(cfg)
     d, v = cfg.d_model, cfg.vocab
     params: dict[str, Any] = {
@@ -125,14 +160,26 @@ def init_params(gen: torch.Generator, cfg, device) -> dict[str, Any]:
     if not cfg.tie_embeddings:
         params["unembed"] = common.dense_init(gen, (d, v), device,
                                               scale=0.02, dtype=cfg.dtype)
-    block = {"ssm": _rwkv_block_init, "hybrid": _mamba_block_init}.get(
-        cfg.family, _dense_block_init)
+    block = {"ssm": _rwkv_block_init, "hybrid": _mamba_block_init,
+             "audio": _whisper_dec_block_init}.get(cfg.family,
+                                                   _dense_block_init)
     params["layers"] = _stacked(block, gen, cfg.n_layers, cfg, device)
     if cfg.family == "hybrid":
         params["shared_attn"] = {
             "ln": torch.ones((d,), dtype=cfg.dtype, device=device),
             "attn": attention.attn_init(gen, cfg, device),
         }
+    elif cfg.family == "vlm":
+        params["vis_proj"] = common.dense_init(gen, (d, d), device,
+                                               dtype=cfg.dtype)
+    elif cfg.family == "audio":
+        params["enc_layers"] = _stacked(_whisper_enc_block_init, gen,
+                                        cfg.enc_layers, cfg, device)
+        params.update(_layer_norms(cfg, device, "enc_norm"))
+        params["final_norm_b"] = torch.zeros((d,), dtype=cfg.dtype,
+                                             device=device)
+        params["dec_pos"] = common.embed_init(gen, (cfg.dec_ctx, d), device,
+                                              cfg.dtype)
     return params
 
 
@@ -145,11 +192,11 @@ def ffn(bp, cfg, h, *, ep_axis=None, ep_size=1):
     return common.swiglu(bp["mlp"], h), None
 
 
-def _dense_block_fwd(bp, cfg, x, *, window=0, chunk=None, ep_axis=None,
-                     ep_size=1):
+def _dense_block_fwd(bp, cfg, x, *, window=0, mpos=None, chunk=None,
+                     ep_axis=None, ep_size=1):
     h = common.rms_norm(x, bp["ln1"])
     x = x + attention.self_attention(bp["attn"], cfg, h, window=window,
-                                     chunk=chunk)
+                                     mpos=mpos, chunk=chunk)
     h, aux = ffn(bp, cfg, common.rms_norm(x, bp["ln2"]), ep_axis=ep_axis,
                  ep_size=ep_size)
     return x + h, aux
@@ -172,6 +219,88 @@ def _shared_attn_fwd(sp, cfg, x, *, window=0, chunk=None):
     h = common.rms_norm(x, sp["ln"])
     return x + attention.self_attention(sp["attn"], cfg, h, window=window,
                                         chunk=chunk)
+
+
+def _whisper_chunk(attn_chunk, s: int):
+    """The whisper blocks' route: None (the kernel) when serving, else
+    the reference's own KV chunk ``min(1024, s)``."""
+    return None if attn_chunk is None else min(1024, s)
+
+
+def _whisper_enc_block_fwd(bp, cfg, x, *, attn_chunk=None):
+    h = common.layer_norm(x, bp["ln1_w"], bp["ln1_b"])
+    x = x + attention.self_attention(
+        bp["attn"], cfg, h, causal=False,
+        chunk=_whisper_chunk(attn_chunk, x.shape[1]))
+    h = common.layer_norm(x, bp["ln2_w"], bp["ln2_b"])
+    return x + common.gelu_mlp(bp["mlp"], h), None
+
+
+def _whisper_dec_block_fwd(bp, cfg, x, enc, *, attn_chunk=None):
+    """One decoder block over the whole sequence; ``enc`` is the
+    encoder's output, projected here into the layer's cross k/v (inside
+    the checkpointed body under ``remat``, as in the reference)."""
+    enc_kv = attention.encode_cross_kv(bp["cross_attn"], cfg, enc)
+    h = common.layer_norm(x, bp["ln1_w"], bp["ln1_b"])
+    x = x + attention.self_attention(
+        bp["self_attn"], cfg, h, chunk=_whisper_chunk(attn_chunk,
+                                                      x.shape[1]))
+    h = common.layer_norm(x, bp["ln2_w"], bp["ln2_b"])
+    x = x + attention.cross_attention(
+        bp["cross_attn"], cfg, h, enc_kv,
+        chunk=_whisper_chunk(attn_chunk, enc.shape[1]))
+    h = common.layer_norm(x, bp["ln3_w"], bp["ln3_b"])
+    return x + common.gelu_mlp(bp["mlp"], h), None
+
+
+def encode(params, cfg, enc_embed, *, remat: bool = False, attn_chunk=None):
+    """The whisper encoder: the stub frame embeddings (B, Senc, d) cast to
+    ``cfg.adtype`` plus the sinusoidal positions (cast before the add),
+    the encoder blocks (non-causal self-attention), then its layer norm;
+    returns (B, Senc, d) in ``cfg.adtype``."""
+    enc = enc_embed.to(cfg.adtype)
+    enc = enc + common.sinusoidal_positions(
+        enc.shape[1], cfg.d_model, enc.device).to(cfg.adtype)
+    body = functools.partial(_whisper_enc_block_fwd, cfg=cfg,
+                             attn_chunk=attn_chunk)
+    for lp in unstack_layers(params["enc_layers"]):
+        enc, _ = (checkpoint(body, lp, x=enc, use_reentrant=False) if remat
+                  else body(lp, x=enc))
+    return common.layer_norm(enc, params["enc_norm_w"], params["enc_norm_b"])
+
+
+def build_mrope_positions(cfg, batch: int, n_vis: int, n_text: int,
+                          device) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE position streams (3, B, n_vis + n_text) int32:
+    the vision tokens on a (t = 0, h, w) grid of width g = int(sqrt(n_vis))
+    (at least 1), the text tokens from g on, all three streams advancing
+    together."""
+    g = mrope_grid(n_vis)
+    i = torch.arange(n_vis, dtype=torch.int32, device=device)
+    text = g + torch.arange(n_text, dtype=torch.int32, device=device)
+    pos = torch.stack([torch.cat([torch.zeros_like(i), text]),
+                       torch.cat([i // g, text]), torch.cat([i % g, text])])
+    return pos[:, None, :].expand(3, batch, n_vis + n_text)
+
+
+def mrope_grid(n_vis: int) -> int:
+    """The vision grid's width g, where the text positions start."""
+    return int(n_vis ** 0.5) or 1
+
+
+def embed_inputs(params, cfg, tokens, extras=None):
+    """(B, S) tokens -> (x (B, S', d) in ``cfg.adtype``, mpos): for a
+    ``vlm`` with ``vision_embed`` in ``extras`` the projected vision
+    embeddings come first (S' = n_vis + S) and ``mpos`` holds their
+    M-RoPE streams; otherwise S' = S and mpos is None."""
+    x = embed(params, cfg, tokens)
+    vis = (extras or {}).get("vision_embed")
+    if cfg.family != "vlm" or vis is None:
+        return x, None
+    vis = vis.to(cfg.adtype) @ params["vis_proj"].to(cfg.adtype)
+    mpos = build_mrope_positions(cfg, x.shape[0], vis.shape[1],
+                                 tokens.shape[1], x.device)
+    return torch.cat([vis, x], dim=1), mpos
 
 
 def groups(cfg) -> list:
@@ -199,12 +328,14 @@ def unstack_layers(layers: dict) -> list:
     return split(layers)
 
 
-def forward_hidden(params, cfg, tokens, *, window: int = 0,
+def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
                    remat: bool = False, ep_axis=None, ep_size: int = 1,
                    attn_chunk=None, wkv_chunked=None, act_spec=None):
     """Embeds ``tokens`` and runs the stack. Returns (hidden (B, S, d),
     aux_loss): the layers' MoE load-balance losses summed in f32 (a zero
-    f32 scalar without MoE).
+    f32 scalar without MoE). ``extras``: ``enc_embed`` (audio, required)
+    and ``vision_embed`` (vlm, optional; its n_vis positions then come
+    first in the hidden states, S = n_vis + the tokens).
 
     ``attn_chunk`` None runs attention through the kernel, an int through
     ``chunked_attention`` with KV chunks of that size; ``wkv_chunked``
@@ -221,8 +352,19 @@ def forward_hidden(params, cfg, tokens, *, window: int = 0,
             "act_spec (sequence-sharded activations) needs a multi-rank "
             "HFL mesh: see ROADMAP.md, 'Modules still to port', item 10 (b)")
     check_family(cfg)
-    x = embed(params, cfg, tokens)
+    x, mpos = embed_inputs(params, cfg, tokens, extras)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "audio":
+        enc = encode(params, cfg, extras["enc_embed"], remat=remat,
+                     attn_chunk=attn_chunk)
+        x = x + params["dec_pos"][:x.shape[1]].to(cfg.adtype)
+        body = functools.partial(_whisper_dec_block_fwd, cfg=cfg,
+                                 attn_chunk=attn_chunk)
+        for lp in unstack_layers(params["layers"]):
+            x, _ = (checkpoint(body, lp, x=x, enc=enc, use_reentrant=False)
+                    if remat else body(lp, x=x, enc=enc))
+        return common.layer_norm(x, params["final_norm"],
+                                 params["final_norm_b"]), aux_total
     if cfg.family == "hybrid":
         x = _hybrid_forward(params, cfg, x, remat=remat, window=window,
                             attn_chunk=attn_chunk)
@@ -232,8 +374,8 @@ def forward_hidden(params, cfg, tokens, *, window: int = 0,
                                  wkv_chunked=wkv_chunked)
     else:
         body = functools.partial(_dense_block_fwd, cfg=cfg, window=window,
-                                 chunk=attn_chunk, ep_axis=ep_axis,
-                                 ep_size=ep_size)
+                                 mpos=mpos, chunk=attn_chunk,
+                                 ep_axis=ep_axis, ep_size=ep_size)
     for lp in unstack_layers(params["layers"]):
         if remat:
             x, aux = checkpoint(body, lp, x=x, use_reentrant=False)

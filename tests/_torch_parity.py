@@ -4,7 +4,10 @@ The same numpy inputs go through the JAX reference and the PyTorch port;
 these helpers move data between the two and compare the results with a
 tolerance stated at each call.
 """
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -49,6 +52,99 @@ def assert_tree_close(got: dict, want: dict, *, atol: float,
     assert sorted(got) == sorted(want)
     return max(assert_close(got[k], want[k], atol=atol, rtol=rtol)
                for k in want)
+
+
+def numpy_model_params(jmodel, seed: int, draw):
+    """A reference model's parameters drawn with numpy in its own tree
+    (shapes and dtypes from ``jax.eval_shape`` of its init, so no JAX
+    init is compiled): ``draw(rng, leaf_name, shape, dtype)`` per leaf,
+    in the tree's sorted-key order from ``default_rng(seed)``. Returns
+    (the tree as JAX arrays, the same tree as the port's CPU tensors,
+    loaded with ``weights.tree_from_numpy``)."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map_with_path(
+        lambda path, leaf: draw(rng, path[-1].key, leaf.shape, leaf.dtype),
+        shapes)
+    return jax.tree.map(jnp.asarray, tree), weights.tree_from_numpy(tree,
+                                                                    "cpu")
+
+
+def serve_both(jm, jp, m, p, toks, s: int, steps: int, *, extras=None,
+               window: int = 0):
+    """One model in both packages: ``logits`` of the whole sequence
+    ``toks`` (with ``extras``, numpy arrays of the stub front ends),
+    ``prefill`` of its first ``s`` tokens (``max_new`` = ``steps``
+    without a window) and ``steps`` teacher-forced decode steps. Returns
+    per package (full logits, [prefill logits, step logits...], [cache
+    after prefill, cache after the last step]); the reference's caches as
+    numpy, the port's prefill cache a copy."""
+    extras = extras or {}
+    max_new = 0 if window else steps
+    jx = {k: jnp.asarray(v) for k, v in extras.items()}
+    tx = {k: torch.from_numpy(v) for k, v in extras.items()}
+    jfull = jax.jit(functools.partial(jm.logits, window=window))(
+        jp, {"tokens": jnp.asarray(toks), **jx})
+    jl, jc = jax.jit(functools.partial(jm.prefill, window=window,
+                                       max_new=max_new))(
+        jp, jnp.asarray(toks[:, :s]), extras=jx)
+    jcaches, jlogits = [jax.tree.map(np.asarray, jc)], [jl]
+    jdecode = jax.jit(functools.partial(jm.decode_step, window=window))
+    for i in range(s, s + steps):
+        jl, jc = jdecode(jp, jc, jnp.asarray(toks[:, i:i + 1]))
+        jlogits.append(jl)
+    jcaches.append(jax.tree.map(np.asarray, jc))
+    tt = torch.from_numpy(toks)
+    full = m.logits(p, {"tokens": tt, **tx}, window=window)
+    lg, cache = m.prefill(p, tt[:, :s], extras=tx, window=window,
+                          max_new=max_new)
+    caches = [{k: v.clone() if torch.is_tensor(v) else v
+               for k, v in cache.items()}]
+    logits = [lg]
+    for i in range(s, s + steps):
+        lg, cache = m.decode_step(p, cache, tt[:, i:i + 1], window=window)
+        logits.append(lg)
+    caches.append(cache)
+    return (jfull, jlogits, jcaches), (full, logits, caches)
+
+
+def flat_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested dict as {"a/b/c": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(flat_tree(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def nest_tree(flat: dict) -> dict:
+    """``flat_tree``'s inverse."""
+    out = {}
+    for key, v in flat.items():
+        d = out
+        *head, last = key.split("/")
+        for part in head:
+            d = d.setdefault(part, {})
+        d[last] = v
+    return out
+
+
+def loss_grads_both(jm, jp, m, p, batch: dict, **kw):
+    """``Model.loss(**kw)`` and its gradient in every leaf, in both
+    packages, on the numpy ``batch``: (reference value, {leaf path:
+    reference gradient as numpy}, port value, {leaf path: port
+    gradient})."""
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    jval, jg = jax.jit(jax.value_and_grad(lambda q: jm.loss(q, jb, **kw)))(
+        jp)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in flat_tree(p).items()}
+    val = m.loss(nest_tree(leaves), tb, **kw)
+    g = dict(zip(leaves, torch.autograd.grad(val, list(leaves.values()))))
+    jg = {"/".join(k.key for k in path): np.asarray(leaf)
+          for path, leaf in jax.tree_util.tree_flatten_with_path(jg)[0]}
+    return jval, jg, val, g
 
 
 def jax_fedavg_perms(key, max_g1: int, n: int,

@@ -565,7 +565,25 @@ FLASH_SHAPES = [(4, 16, 8, 1024, 1024, 128, True, 0, 0),
                 (1, 4, 2, 256, 256, 112, True, 64, 0),
                 (2, 8, 4, 20, 300, 112, True, 0, 280),
                 (2, 4, 4, 200, 200, 112, False, 0, 0),
-                (1, 32, 32, 1, 512, 112, False, 0, 0)]
+                (1, 32, 32, 1, 512, 112, False, 0, 0),
+                # whisper-base (MHA, D = 64): the encoder (non-causal over
+                # 1500 frames, ragged against the 64-row kv tile), the
+                # cross-attention's prefill (224 decoder rows over 1500
+                # encoder rows) and decode, the decoder's self decode;
+                # qwen2-vl-7b (28 heads over 4: GQA rep 7, D = 128): its
+                # prefill over 256 vision + 1024 text positions and decode,
+                # a ragged rep-7 prefill, a non-causal Sq != Skv case that
+                # takes the f32 path in f32, and a rep-7 split-KV decode
+                # of 2 rows per head (14 packed rows)
+                (4, 8, 8, 1500, 1500, 64, False, 0, 0),
+                (4, 8, 8, 224, 1500, 64, False, 0, 0),
+                (4, 8, 8, 1, 1500, 64, False, 0, 0),
+                (4, 8, 8, 1, 256, 64, True, 0, 255),
+                (4, 28, 4, 1280, 1280, 128, True, 0, 0),
+                (4, 28, 4, 1, 1312, 128, True, 0, 1311),
+                (2, 28, 4, 300, 300, 128, True, 0, 0),
+                (2, 8, 8, 40, 300, 64, False, 0, 0),
+                (2, 28, 4, 2, 300, 128, True, 0, 298)]
 FLASH_IDS = ["qwen3-prefill", "qwen3-decode", "ragged", "window", "mha",
              "non-causal", "continuation", "decode-rep1", "decode-rep4",
              "decode-rep8", "skv-1", "skv-65", "skv-4097",
@@ -573,7 +591,10 @@ FLASH_IDS = ["qwen3-prefill", "qwen3-decode", "ragged", "window", "mha",
              "prefill-d64", "rows-16-edge", "continuation-d128",
              "zamba2-prefill", "zamba2-decode", "ragged-d112",
              "window-d112", "rows-20-d112", "non-causal-d112",
-             "ring-d112"]
+             "ring-d112", "whisper-encoder", "whisper-cross-prefill",
+             "whisper-cross-decode", "whisper-self-decode",
+             "qwen2vl-prefill", "qwen2vl-decode", "ragged-rep7",
+             "non-causal-sq40-skv300", "split-rep7-sq2"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -808,6 +829,55 @@ def test_reduced_hybrid_serve_on_card_matches_cpu(cuda_dev, window):
         if k != "t":
             torch.testing.assert_close(outs[1][1][k].cpu(), a, atol=1e-4,
                                        rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("whisper-base", {}), ("qwen2-vl-7b", {}),
+    ("qwen2-vl-7b", {"n_heads": 28, "n_kv_heads": 4})],
+    ids=["whisper", "qwen2-vl", "qwen2-vl-rep7"])
+def test_reduced_audio_vlm_serve_on_card_matches_cpu(cuda_dev, arch, kw):
+    """Reduced whisper (``enc_embed`` (2, 32, 256)) and qwen2-vl
+    (``vision_embed`` (2, 16, 256); also at the published GQA rep 7, 28
+    heads over 4), f32 activations, the same weights, stub inputs and
+    tokens: prefill(16, max_new 4) + 4 teacher-forced decode steps on the
+    card (the flash kernel: encoder, cross and M-RoPE attention) and on
+    the CPU (plain versions); logits and every cache leaf within 1e-4,
+    TF32 off; the flash calls per path held (whisper: 2 encoder + 2 x 2
+    decoder prefill calls and 2 x 2 per step; qwen2-vl: 2 and 2 per
+    step)."""
+    disable_tf32()
+    cfg = dataclasses.replace(get_config(arch).reduce(),
+                              activ_dtype="float32", **kw)
+    m = model.build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(6), "cpu")
+    toks = token_batch(5, 2, 20, cfg.vocab, "cpu")["tokens"]
+    name, n = (("enc_embed", cfg.enc_seq) if cfg.family == "audio"
+               else ("vision_embed", cfg.vision_tokens))
+    extra = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(2, n, cfg.d_model)).astype(np.float32))
+    outs = []
+    for d in ("cpu", cuda_dev):
+        p, t = _to(params, d), toks.to(d)
+        flash_attention.reset_paths()
+        lg, cache = m.prefill(p, t[:, :16], extras={name: extra.to(d)},
+                              max_new=4)
+        steps = [lg]
+        for i in range(16, 20):
+            lg, cache = m.decode_step(p, cache, t[:, i:i + 1])
+            steps.append(lg)
+        outs.append((steps, cache, dict(flash_attention.PATH_CALLS)))
+    per_layer = 2 if cfg.family == "audio" else 1
+    assert outs[1][2] == {"split_kv": 4 * 2 * per_layer, "wgmma": 0,
+                          "f32_tile": cfg.enc_layers + 2 * per_layer}
+    for a, b in zip(outs[0][0], outs[1][0]):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    assert sorted(outs[1][1]) == sorted(outs[0][1])
+    for k, a in outs[0][1].items():
+        if torch.is_tensor(a):
+            torch.testing.assert_close(outs[1][1][k].cpu(), a, atol=1e-4,
+                                       rtol=1e-4)
+        else:
+            assert outs[1][1][k] == a
 
 
 @pytest.mark.parametrize("s", [20, 6], ids=["prompt-20", "prompt-6"])

@@ -24,7 +24,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import assert_close, rel_err, to_torch
+from _torch_parity import (
+    assert_close,
+    loss_grads_both,
+    numpy_model_params,
+    rel_err,
+    serve_both,
+    to_torch,
+)
 
 from repro.configs import get_config as j_get_config
 from repro.models import build_model as j_build_model
@@ -87,14 +94,7 @@ def _params(seed: int, **kw):
     """A reduced model's parameters in the reference's layout (shapes and
     dtypes from ``jax.eval_shape`` of its init, no compile) drawn with
     numpy; as JAX arrays and as the port's tensors."""
-    jcfg, _ = _cfgs(**kw)
-    rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(j_build_model(jcfg).init, jax.random.PRNGKey(0))
-    tree = jax.tree_util.tree_map_with_path(
-        lambda path, leaf: _draw(rng, path[-1].key, leaf.shape, leaf.dtype),
-        shapes)
-    return jax.tree.map(jnp.asarray, tree), weights.tree_from_numpy(tree,
-                                                                    "cpu")
+    return numpy_model_params(j_build_model(_cfgs(**kw)[0]), seed, _draw)
 
 
 def _block(seed: int):
@@ -263,37 +263,14 @@ def test_init_tree_is_the_references():
 
 
 def _serve_both(act, toks, s, steps, *, seed=3, window=0, **kw):
-    """Reference and port: logits of the whole sequence (the window's mask
-    with a window), prefill of the first ``s`` tokens (max_new ``steps``
-    without a window) and ``steps`` decode steps. Returns per package
-    (full logits, [prefill logits, step logits...], caches after prefill
-    and after the last step)."""
+    """``serve_both`` of reduced zamba2 (5 layers) with ``_params(seed)``:
+    logits of the whole sequence (the window's mask with a window),
+    prefill of the first ``s`` tokens and ``steps`` decode steps, in
+    both packages."""
     jcfg, cfg = _cfgs(act, **kw)
     jp, p = _params(seed, **kw)
-    jm, m = j_build_model(jcfg), build_model(cfg)
-    max_new = 0 if window else steps
-    jfull = jax.jit(functools.partial(jm.logits, window=window))(
-        jp, {"tokens": jnp.asarray(toks)})
-    jl, jc = jax.jit(functools.partial(jm.prefill, window=window,
-                                       max_new=max_new))(
-        jp, jnp.asarray(toks[:, :s]))
-    jcaches, jlogits = [jax.tree.map(np.asarray, jc)], [jl]
-    jdecode = jax.jit(functools.partial(jm.decode_step, window=window))
-    for i in range(s, s + steps):
-        jl, jc = jdecode(jp, jc, jnp.asarray(toks[:, i:i + 1]))
-        jlogits.append(jl)
-    jcaches.append(jc)
-    tt = torch.from_numpy(toks)
-    full = m.logits(p, {"tokens": tt}, window=window)
-    lg, cache = m.prefill(p, tt[:, :s], window=window, max_new=max_new)
-    caches = [{k: v.clone() if torch.is_tensor(v) else v
-               for k, v in cache.items()}]
-    logits = [lg]
-    for i in range(s, s + steps):
-        lg, cache = m.decode_step(p, cache, tt[:, i:i + 1], window=window)
-        logits.append(lg)
-    caches.append(cache)
-    return (jfull, jlogits, jcaches), (full, logits, caches)
+    return serve_both(j_build_model(jcfg), jp, build_model(cfg), p, toks, s,
+                      steps, window=window)
 
 
 def _hold(jres, res, act):
@@ -345,25 +322,6 @@ def test_hybrid_window_serving_matches_reference():
     _hold(jres, res, "float32")
 
 
-def _flat(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        key = f"{prefix}/{k}" if prefix else k
-        out.update(_flat(v, key) if isinstance(v, dict) else {key: v})
-    return out
-
-
-def _nest(flat):
-    out = {}
-    for key, v in flat.items():
-        d = out
-        *head, last = key.split("/")
-        for part in head:
-            d = d.setdefault(part, {})
-        d[last] = v
-    return out
-
-
 def test_hybrid_loss_and_grads_match_reference():
     """``Model.loss`` (attention in KV chunks of 8 over 16 tokens, the
     SSD chunked, remat) and its gradient in every leaf against
@@ -371,19 +329,12 @@ def test_hybrid_loss_and_grads_match_reference():
     jcfg, cfg = _cfgs()
     jp, p = _params(6)
     rng = np.random.default_rng(7)
-    jb = {k: jnp.asarray(rng.integers(0, 512, (2, 16)), jnp.int32)
-          for k in ("tokens", "labels")}
-    batch = {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
-    jm, m = j_build_model(jcfg), build_model(cfg)
-    jval, jg = jax.jit(jax.value_and_grad(
-        lambda q: jm.loss(q, jb, attn_chunk=8, remat=True)))(jp)
-    leaves = {k: v.detach().clone().requires_grad_(True)
-              for k, v in _flat(p).items()}
-    val = m.loss(_nest(leaves), batch, attn_chunk=8, remat=True)
-    g = dict(zip(leaves, torch.autograd.grad(val, list(leaves.values()))))
+    batch = {k: rng.integers(0, 512, (2, 16)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    jval, jg, val, g = loss_grads_both(j_build_model(jcfg), jp,
+                                       build_model(cfg), p, batch,
+                                       attn_chunk=8, remat=True)
     assert_close(val, jval, atol=F32_TOL, rtol=F32_TOL)
-    jg = {"/".join(k.key for k in path): np.asarray(leaf)
-          for path, leaf in jax.tree_util.tree_flatten_with_path(jg)[0]}
     assert sorted(g) == sorted(jg)
     for k in g:
         assert_close(g[k], jg[k], atol=F32_TOL, rtol=F32_TOL)

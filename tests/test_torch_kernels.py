@@ -8,6 +8,7 @@ the Pallas versions of those two do not run on the installed jax
 ``tests/test_kernels.py`` plus ragged and decode cases. Also: a CUDA
 tensor never takes the plain path on a host without a card.
 """
+import dataclasses
 import functools
 
 import jax
@@ -169,13 +170,16 @@ def test_wrappers_reject_bad_inputs():
         ops.wkv6(x, x, x, x, torch.zeros(3, 64))
     with pytest.raises(TypeError, match="decay w must be f32"):
         ops.wkv6(x, x, x, x.bfloat16(), torch.zeros(2, 64))
-    # what the port does not serve raises instead of computing something
-    # else: the unported families, and expert parallelism (an MoE FFN
-    # with ep_axis set); zamba2-7b (hybrid) is served and builds
-    build_model(get_config("zamba2-7b"))
-    for arch in ("whisper-base", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(arch).reduce())
+    # every family the reference has builds (zamba2-7b hybrid,
+    # whisper-base audio, qwen2-vl-7b vlm among them); one it does not
+    # have raises, and so does what the port does not serve instead of
+    # computing something else: expert parallelism (an MoE FFN with
+    # ep_axis set)
+    for arch in ("zamba2-7b", "whisper-base", "qwen2-vl-7b"):
+        assert build_model(get_config(arch)).cfg.name == arch
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(get_config("qwen3-1.7b").reduce(),
+                                        family="cnn"))
     cfg = get_config("olmoe-1b-7b").reduce()
     params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
