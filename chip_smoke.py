@@ -18,7 +18,9 @@ Phases, each fatal on failure (the script exits non-zero):
    with 5 edges and Eq. 2 with 1, and the async flushes: one segment over
    K = 3 CIFAR or K = 2 MNIST updates) in f32 and with a bf16 bank, plus
    a ragged case with an empty segment, and at the LLM train step's
-   largest edge mean (4 x 352,321,536 f32, 2 edges): ``segment_agg`` within atol = rtol
+   largest edge mean (4 x 352,321,536 f32, 2 edges) and phase 3k's
+   per-rank partial of it (2 x 352,321,536, ``segment_sum_partial``):
+   ``segment_agg`` and the partial within atol = rtol
    = 1e-5 (the kernel sums rows in order with fmaf, the plain version
    with ``index_add_``; the orders differ), ``segment_broadcast``
    bitwise, and two runs of each kernel bitwise equal;
@@ -34,7 +36,7 @@ Phases, each fatal on failure (the script exits non-zero):
    update on the CPU (same seed, so the same init; a seeded 40-step
    rollout at the CIFAR state shape (6, 9), 10 actions; the same
    shuffle seed) within atol 1e-4, and its wall; (b) ``HFLEnv`` real
-   mode at the paper's CIFAR width with T cut to 500 s:
+   mode at the paper's CIFAR width with T cut to 300 s:
    ``sync.train_agent`` for 2 episodes, then ``run_scheme("arena")``;
    (c) at the MNIST defaults with T cut to 100 s: every synchronous
    scheme (vanilla-fl, vanilla-hfl, var-freq-a, var-freq-b, favor,
@@ -89,24 +91,23 @@ Phases, each fatal on failure (the script exits non-zero):
    this process: the paper's CIFAR ``HFLEnv`` (5 edges of 10 contiguous
    devices) in deterministic mode, its warmup cloud round at (2, 2)
    under ``make_bank_context(1)`` bitwise the one-device round, launches
-   as the round implies; (b) gloo, 5 and then 2 ranks spawned on the one
-   card (NCCL refuses two ranks on one device): CIFAR Eq. 1 (50 x
-   456,906) through ``segment_agg_sharded`` on each rank's rows bitwise
-   the single launch on the whole bank at 5 ranks (one edge per rank);
-   at 2 ranks edge 2 spans the ranks and is held within 1e-5, the others
-   bitwise; every rank within 1e-5 of the plain version
+   as the round implies; (b) gloo, 2 ranks spawned on the one card
+   (NCCL refuses two ranks on one device; the 5-rank world went when
+   phase 3k came): CIFAR Eq. 1 (50 x 456,906) through
+   ``segment_agg_sharded`` on each rank's rows, edge 2 spanning the
+   ranks and held within 1e-5, the others bitwise the single launch on
+   the whole bank; every rank within 1e-5 of the plain version
    (``ref.segment_agg_sharded_ref``) with one launch;
    ``ops.segment_agg_ordered`` (the ranks chained in row order) bitwise
-   the single launch at both; the shard-local
-   ``masked_resync`` of one alive edge bitwise the one-device resync
-   and the plain gather (``ref.segment_broadcast_ref``) at 10 and 25
-   rows; at 5 and at 2 ranks (edge 2 and so its training call spanning
-   ranks 0 and 1) the deterministic CIFAR warmup round bitwise
-   (a)'s one-device round (ROADMAP fault 3, closed), each rank holding N/k
-   bank rows. It prints the per-rank graph-timed
-   ``segment_sum_partial`` at 10 and 25 rows beside its bound and the
-   gloo ``all_reduce`` time: ranks sharing one card, which says nothing
-   of multi-GPU scaling;
+   the single launch; the shard-local ``masked_resync`` of one alive
+   edge bitwise the one-device resync and the plain gather
+   (``ref.segment_broadcast_ref``) at 25 rows; the deterministic CIFAR
+   warmup round (edge 2 and so its training call spanning ranks 0 and
+   1) bitwise (a)'s one-device round (ROADMAP fault 3, closed), each
+   rank holding N/2 bank rows. It prints the per-rank graph-timed
+   ``segment_sum_partial`` at 25 rows beside its bound and the gloo
+   ``all_reduce`` time: ranks sharing one card, which says nothing of
+   multi-GPU scaling;
 2b. hold ``flash_attention`` and ``wkv6`` against their plain versions
    on the card, in bf16 and f32, at the serving path's shapes (qwen3-1.7b
    prefill and decode, rwkv6-1.6b prefill; phase 3h's olmoe-1b-7b
@@ -140,6 +141,31 @@ Phases, each fatal on failure (the script exits non-zero):
    held; (d) one (1, 1) round at seq 4096 (train_4k), one sequence per
    replica; (e) full-width rwkv6-1.6b, one (1, 1) round through
    ``wkv_chunked``;
+3k. the replica plane over ``torch.distributed`` (``checkpoint.store`` on
+   a sharded env, ``sync.share_topology``, the multi-rank ``HFLMesh`` of
+   ``launch.mesh`` and ``launch.train``), on a 120 s budget, gloo ranks
+   spawned on the one card (4, then 2) against one-device references
+   computed in this process first: (a) phase 3d (c)'s faulty CIFAR
+   ``AsyncHFLEnv`` in deterministic mode at action (1, 1) on 2 ranks,
+   ``save_runtime`` after 20 events, ``load_runtime`` into a fresh
+   sharded env, events 21-40 bitwise the uninterrupted 2-rank run and
+   the one-device run (events, global vector, bank), the sharded
+   snapshot's arrays bitwise the one-device snapshot's, its MB and save
+   and load seconds; (b) ``share_topology`` at the MNIST defaults on 2
+   ranks equal to the one-device assignment and the deterministic round
+   after it bitwise the one-device round; (c) reduced qwen3 (f32
+   activations, vocab 128) on replicas (1, 2, 2) over rank grids (1, 2,
+   2) at 4 ranks and (1, 1, 2) at 2, one deterministic (2, 2) round
+   bitwise the one-device card round with (g2 + 1) launches of each
+   kernel per leaf on every rank; then full-width qwen3-1.7b (f32
+   weights from seed 0, bf16 activations) at phase 3g (b)'s settings on
+   2 ranks of 2 replicas each, so both Eq. 1 and Eq. 2 cross the ranks:
+   one static (2, 2) round, launches held, every replica bitwise rank
+   0's replica (0, 0, 0), replica 0's loss, per-leaf sums of squares and
+   sums within 1e-4 of 3g (b)'s round, seconds per round and per SGD
+   step, the gloo ``all_reduce`` milliseconds of one Eq. 1 and one
+   Eq. 2, each rank's peak memory within ``REPLICA_MEM_GB``; it prints
+   its wall;
 3b. the LLM serving path: a reduced qwen3, rwkv6, olmoe, zamba2,
    whisper and qwen2-vl (f32 activations; the last two with their stub
    inputs) served on the card against the CPU; then the main path,
@@ -198,10 +224,12 @@ Phases, each fatal on failure (the script exits non-zero):
    its resync and Eq. 2, and the flushes with ``torch.mv`` as the
    library call; the JSON line has CIFAR and MNIST Eq. 1 rows and the
    CIFAR flush row for ``segment_agg``, and phase 3f's sharded Eq. 1
-   row), and at phase 3g's LLM edge mean (both kernels, ``torch.mean``
+   row), at phase 3g's LLM edge mean (both kernels, ``torch.mean``
    over the replica axis and a ``copy_`` of the expanded means as the
-   library calls, CUDA events around 10 calls): device time per launch from CUDA events around
-   a CUDA-graph replay, beside the plain version's, one PyTorch library
+   library calls, CUDA events around 10 calls) and at phase 3k's
+   per-rank partial of the full-width Eq. 1 (2 x 352,321,536 -> 2,
+   ``torch.sum`` over each edge's rows as the library call): device
+   time per launch from CUDA events around a CUDA-graph replay, beside the plain version's, one PyTorch library
    call's, the bound (bytes over 3.35 TB/s), and the eager wrapper's
    time per call as the round pays it (host dispatch included);
 4b. the same for ``flash_attention`` (qwen3 prefill and decode, olmoe
@@ -406,6 +434,9 @@ def kernel_checks(torch, ops, ref, dev) -> dict:
 # layers/mlp/w_gate (28 x 2048 x 6144 elements) over replicas (1, 2, 2),
 # viewed as a (4, P) f32 bank with 2 segments (the edges), weights 1
 LLM_AGG = ("llm-edge-mean", 4, 28 * 2048 * 6144, 2)
+# phase 3k's full-width Eq. 1 on 2 ranks: a rank's partial launch
+# (segment_sum_partial) over its 2 replicas of that leaf, one per edge
+LLM_PARTIAL = ("llm-eq1-partial-k2", 2, 28 * 2048 * 6144, 2)
 
 
 def llm_agg_check(torch, ops, ref, dev) -> dict:
@@ -432,9 +463,22 @@ def llm_agg_check(torch, ops, ref, dev) -> dict:
           f"segment_broadcast {name}: two runs differ")
     print(f"  {name:13s} torch.float32  N={n:3d} P={p:,} E={e}  segment_agg "
           f"max|err| {d:.3e}  broadcast bitwise")
-    del bank, got, out
+    name, n, p, e = LLM_PARTIAL
+    part, pw, pseg = bank[:n], w[:n], torch.arange(e, dtype=torch.int32,
+                                                   device=dev)
+    sums, wsum = ops.segment_sum_partial(part, pw, pseg, e)
+    want = ref.segment_scaled_sum_ref(part, pw, pseg,
+                                      torch.ones(e, device=dev), e)
+    dp = float((sums - want).abs().max())
+    check(torch.allclose(sums, want, atol=AGG_TOL, rtol=AGG_TOL)
+          and torch.equal(wsum, ref.segment_weight_sums(pw, pseg, e)),
+          f"segment_sum_partial {name}: max abs err {dp}")
+    print(f"  {name:13s} torch.float32  N={n:3d} P={p:,} E={e}  "
+          f"segment_sum_partial max|err| {dp:.3e}, weight sums bitwise")
+    del bank, got, out, sums, want
     torch.cuda.empty_cache()
-    return {"segment_agg": d, "segment_broadcast": 0.0}
+    return {"segment_agg": d, "segment_broadcast": 0.0,
+            "segment_sum_partial": dp}
 
 
 # ---------------------------------------------------------------------------
@@ -561,9 +605,10 @@ AGENT_TOL = 1e-4
 # after reset (CIFAR: reset about 60 s, a (5, 4) round about 240 s;
 # MNIST: about 20 s and 70 s); MNIST's 100 s (160 s until the whole
 # script passed 800 s on a slower host) still gives every scheme a
-# round after its reset
+# round after its reset, and CIFAR's 300 s (500 s until phase 3k came)
+# the agent's episodes theirs
 CIFAR_ARENA = dict(task="cifar", mode="real", n_local=1000, lr=0.01,
-                   epsilon=0.004, threshold_time=500.0)
+                   epsilon=0.004, threshold_time=300.0)
 MNIST_SCHEMES = dict(task="mnist", mode="real", threshold_time=100.0)
 STATIC_SCHEMES = ("vanilla-fl", "vanilla-hfl", "var-freq-a", "var-freq-b",
                   "favor", "share")
@@ -1367,7 +1412,7 @@ def observability(torch, ops, env_mod, runtime, sync, telemetry, store,
 # ranks in row order and is held bitwise)
 SHARD_SPAN_TOL = 1e-5
 SHARD_EDGES = 5                 # the CIFAR default: 5 edges of 10 devices
-SHARD_WORLDS = (5, 2)           # one edge per rank; edge 2 spans ranks
+SHARD_WORLD = 2                 # edge 2 (rows 20-29) spans ranks 0 and 1
 SHARD_BUDGET_S = 90.0
 
 
@@ -1380,8 +1425,8 @@ def _free_port() -> int:
 
 def _cifar_shard_env(env_mod, ctx):
     """The paper's CIFAR ``HFLEnv`` in deterministic mode under ``ctx``
-    (None: one device), its 50 devices on 5 edges of 10 contiguous rows:
-    one edge per rank at 5 ranks."""
+    (None: one device), its 50 devices on 5 edges of 10 contiguous
+    rows."""
     env = env_mod.HFLEnv(env_mod.EnvConfig(task="cifar", mode="real",
                                            deterministic=True, agg=ctx))
     n = env.cfg.n_devices
@@ -1414,8 +1459,8 @@ def _shard_aggregation(torch, dist, hfl, hier_agg, ops, ref, ctx,
     """On every rank of a gloo group sharing the card: CIFAR Eq. 1 (50 x
     456,906, 5 contiguous edges, random weights) through
     ``segment_agg_sharded`` on this rank's rows against the single launch
-    on the whole bank (bitwise at 5 ranks; at 2, edge 2 within
-    SHARD_SPAN_TOL and the others bitwise) and against the plain version,
+    on the whole bank (edge 2, spanning the ranks, within SHARD_SPAN_TOL
+    and the others bitwise) and against the plain version,
     one launch per call; the shard-local ``masked_resync`` with one alive
     edge bitwise the one-device resync and the plain gather
     (``ref.segment_broadcast_ref``) at this rank's rows; rank 0 graph-times the partial
@@ -1440,17 +1485,13 @@ def _shard_aggregation(torch, dist, hfl, hier_agg, ops, ref, ctx,
     check(torch.allclose(got, plain, atol=AGG_TOL, rtol=AGG_TOL),
           f"phase 3f: {world} ranks, kernel vs plain max|err| {err:.3e}")
     gap = float((got - single).abs().max())
-    if world == e:
-        check(torch.equal(got, single), f"phase 3f: {world} ranks, sharded "
-              f"Eq. 1 is not bitwise the single launch ({gap:.3e})")
-    else:
-        span = 2                    # rows 20-29 on ranks 0 and 1 of 2
-        keep = [j for j in range(e) if j != span]
-        check(torch.equal(got[keep], single[keep]), "phase 3f: an edge on "
-              "one rank is not bitwise the single launch")
-        check(torch.allclose(got[span], single[span], atol=SHARD_SPAN_TOL,
-                             rtol=SHARD_SPAN_TOL), f"phase 3f: the spanning "
-              f"edge is {gap:.3e} off the single launch")
+    span = 2                        # rows 20-29 on ranks 0 and 1 of 2
+    keep = [j for j in range(e) if j != span]
+    check(torch.equal(got[keep], single[keep]), "phase 3f: an edge on "
+          "one rank is not bitwise the single launch")
+    check(torch.allclose(got[span], single[span], atol=SHARD_SPAN_TOL,
+                         rtol=SHARD_SPAN_TOL), f"phase 3f: the spanning "
+          f"edge is {gap:.3e} off the single launch")
     ops.reset_launches()
     ordered = ops.segment_agg_ordered(lb, lw, ls, e, ctx.mesh.group)
     check(ops.LAUNCHES["segment_agg"] == 1, "phase 3f: segment_agg_ordered "
@@ -1522,8 +1563,8 @@ def _shard_rank(rank: int, world: int, port: int, outdir: str) -> None:
 
 
 def sharded_bank(torch, ops, env_mod, flatbank, mesh_lib) -> dict:
-    """Phase 3f: (a) NCCL, one rank, in this process; (b) gloo, 5 and 2
-    ranks spawned on the one card. The ranks share the card with this
+    """Phase 3f: (a) NCCL, one rank, in this process; (b) gloo, 2 ranks
+    spawned on the one card. The ranks share the card with this
     process, so it runs before the LLM phases (3b, 3g), returns its
     cached blocks to the driver first and prints the card's free memory.
     Returns the JSON row's numbers."""
@@ -1555,7 +1596,7 @@ def sharded_bank(torch, ops, env_mod, flatbank, mesh_lib) -> dict:
           f"{total / 2**30:.1f} GiB (this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)")
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
-        for world in SHARD_WORLDS:
+        for world in (SHARD_WORLD,):
             t0 = time.perf_counter()
             mp.spawn(_shard_rank, args=(world, _free_port(), d),
                      nprocs=world, join=True)
@@ -1565,8 +1606,7 @@ def sharded_bank(torch, ops, env_mod, flatbank, mesh_lib) -> dict:
                   f"ran in {time.perf_counter() - t0:.1f} s")
     for world, res in ranks.items():
         r0 = res[0]
-        held = "bitwise" if world == SHARD_EDGES else \
-            f"edge 2 within {SHARD_SPAN_TOL}, the others bitwise"
+        held = f"edge 2 within {SHARD_SPAN_TOL}, the others bitwise"
         print(f"    {world} ranks: Eq. 1 sharded vs single launch max|diff| "
               f"{max(r['gap'] for r in res):.3e} ({held}), vs plain "
               f"{max(r['err'] for r in res):.3e}; per-rank "
@@ -1603,10 +1643,10 @@ def sharded_bank(torch, ops, env_mod, flatbank, mesh_lib) -> dict:
     wall = time.perf_counter() - t_phase
     print(f"  phase 3f took {wall:.1f} s (budget {SHARD_BUDGET_S:.0f} s); "
           f"ranks sharing one card say nothing of multi-GPU scaling")
-    r0 = ranks[SHARD_EDGES][0]
+    r0 = ranks[SHARD_WORLD][0]
     return {"launches": sum(r["env"]["counts"]["segment_agg"]
-                            for r in ranks[SHARD_EDGES]),
-            "max_abs_err": max(r["err"] for r in ranks[SHARD_EDGES]),
+                            for r in ranks[SHARD_WORLD]),
+            "max_abs_err": max(r["err"] for r in ranks[SHARD_WORLD]),
             "ms": r0["ms"], "plain_ms": r0["plain_ms"],
             "bound_ms": r0["bound_ms"], "bound_by": "bytes",
             "library_ms": r0["library_ms"]}
@@ -1745,6 +1785,9 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
     loss1 = loss_of(params, evalb)
     check(np.isfinite(loss0) and np.isfinite(loss1),
           f"phase 3g (b): loss {loss0} -> {loss1}")
+    # phase 3k's full-width round on 2 ranks is held against these
+    full = {"loss": loss1, "stats": [_leaf_stats(torch, a[0, 0, 0])
+                                     for a in train._leaves(params)]}
     n_sgd = 2 * 2 * reps * TRAIN_KW["mb_per_epoch"]
     print(f"  (b) qwen3-1.7b full width ({cfg.n_params():,} parameters, f32 "
           f"weights, bf16 activations), replicas {TRAIN_REPS}, batch 8 x "
@@ -1848,7 +1891,391 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     print(f"  phase 3g took {wall:.1f} s (budget {TRAIN_BUDGET_S:.0f} s)")
-    return {"launches": counts}
+    return {"launches": counts, "full": full}
+
+
+# ---------------------------------------------------------------------------
+# phase 3k: the replica plane over gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# (a) phase 3d (c)'s faulty CIFAR AsyncHFLEnv in deterministic mode at phase
+# 3e's action (1, 1) (an event trains its edge's rows for one epoch, a
+# quarter of 3d's (2, 2)), saved after SNAP_EVENTS of REPLICA_EVENTS
+REPLICA_EVENTS = 40
+SNAP_EVENTS = 20
+# (c) the reduced round's rank grids at 4 and 2 ranks (mesh.rank_grid), and
+# the full-width round's at 2: replicas (1, 2, 2) as blocks of (1, 2, 1),
+# so both Eq. 1 and Eq. 2 cross the ranks
+REPLICA_WORLDS = (4, 2)
+# full width against phase 3g (b)'s one-device round: replica 0's loss, and
+# per leaf the f64 sum of squares relative to itself and the f64 sum
+# relative to the leaf's L1 norm (a sum near 0 has no relative scale of
+# its own); 3g's card-vs-CPU bound
+REPLICA_REL = 1e-4
+# per rank at full width: two f32 replicas of qwen3-1.7b (16.2 GB), one
+# replica's gradients (8.1 GB), remat's activations and bf16 casts (2-4 GB),
+# and Eq. 1's partial sums and means of the largest leaf (2 x 2.8 GB)
+REPLICA_MEM_GB = 32.0
+REPLICA_BUDGET_S = 120.0
+
+
+def _replica_round(torch, ops, train, cfg, hm, kw, init, batch,
+                   deterministic: bool):
+    """One static (2, 2) round of ``cfg`` on ``hm`` from ``init()`` (one
+    replica's tree), the launch counts set to 0 just before and read
+    just after; returns (this rank's params, wall s, launches)."""
+    from repro_torch import device as device_mod
+    step, _, _ = train.make_hfl_train_step(cfg, hm, g1=2, g2=2, **kw)
+    p1 = init()
+    params = train.lift_params(p1, *hm.block)
+    del p1
+    mode = device_mod.deterministic_algorithms() if deterministic else \
+        contextlib.nullcontext()
+    ops.reset_launches()
+    t0 = sync_time(torch)
+    with mode:
+        params = step(params, batch)
+    return params, sync_time(torch) - t0, dict(ops.LAUNCHES)
+
+
+def _small_train_setup(torch, configs, model_mod, token_batch, dev):
+    """Phase 3g (a)'s reduced qwen3 (f32 activations, vocab 128), its
+    seed-0 weights moved to ``dev``, batch and step settings."""
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b").reduce(),
+                              activ_dtype="float32", vocab=128)
+    init = lambda: _tree_to(model_mod.build_model(cfg).init(
+        torch.Generator().manual_seed(0), "cpu"), dev)
+    kw = dict(lr=3e-3, mb_per_epoch=TRAIN_MB["qwen3-1.7b"], remat=False,
+              attn_chunk=16)
+    return cfg, init, token_batch(0, 8, 32, cfg.vocab, device=dev), kw
+
+
+class _AllReduceTimer:
+    """Wraps ``torch.distributed.all_reduce`` while on: each call
+    synchronised and timed, keyed by its group (None: the world)."""
+
+    def __init__(self, torch, dist):
+        self.torch, self.dist, self.ms = torch, dist, {}
+
+    def __enter__(self):
+        self.saved = fn = self.dist.all_reduce
+
+        def timed(tensor, *args, group=None, **kw):
+            t0 = sync_time(self.torch)
+            out = fn(tensor, *args, group=group, **kw)
+            self.ms.setdefault(group, []).append(
+                (sync_time(self.torch) - t0) * 1e3)
+            return out
+
+        self.dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.saved
+
+
+def _replica_full(torch, dist, ops, configs, model_mod, train, mesh_lib,
+                  token_batch, hm) -> dict:
+    """(c) full width on this rank: qwen3-1.7b (f32 weights from seed 0,
+    bf16 activations) at phase 3g (b)'s settings, one static (2, 2)
+    round of this rank's block; its wall, peak memory, launches, the
+    all_reduce milliseconds of Eq. 1 (the fl group) and Eq. 2 (the
+    world), whether every leaf of every replica equals rank 0's replica
+    (0, 0, 0) bitwise (broadcast leaf by leaf), and on rank 0 replica 0's
+    loss and per-leaf f64 sum, L1 norm and sum of squares."""
+    dev = hm.device
+    cfg = configs.get_config("qwen3-1.7b")
+    model = model_mod.build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    init = lambda: model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    with _AllReduceTimer(torch, dist) as timer:
+        params, wall, counts = _replica_round(
+            torch, ops, train, cfg, hm, dict(TRAIN_KW, attn_chunk=128), init,
+            token_batch(0, 8, 128, cfg.vocab, device=dev), False)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    leaves = train._leaves(params)
+    same = True
+    for leaf in leaves:
+        r0 = leaf[0, 0, 0].contiguous() if hm.rank == 0 else \
+            torch.empty_like(leaf[0, 0, 0])
+        dist.broadcast(r0, src=0)
+        rows = leaf.view((-1,) + tuple(leaf.shape[3:]))
+        same = same and all(torch.equal(r, r0) for r in rows)
+        del r0
+    out = {"wall": wall, "peak": peak, "counts": counts, "same": same,
+           "n_leaves": len(leaves), "block": hm.block,
+           "eq1_ms": float(np.sum(timer.ms.get(hm.fl_group, [0.0]))) / 2,
+           "eq2_ms": float(np.sum(timer.ms.get(None, [0.0])))}
+    if hm.rank == 0:
+        with torch.no_grad():
+            out["loss"] = float(model.loss(
+                train._map(lambda a: a[0, 0, 0], params),
+                token_batch(9999, 8, 128, cfg.vocab, device=dev)))
+        out["stats"] = [_leaf_stats(torch, a[0, 0, 0]) for a in leaves]
+    del params, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_stats(torch, a) -> tuple:
+    """(sum, L1 norm, sum of squares) of one leaf, in f64."""
+    d = a.double()
+    return float(d.sum()), float(d.abs().sum()), float((d * d).sum())
+
+
+def _replica_rank(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of phase 3k, a ``torch.multiprocessing.spawn`` target: a
+    gloo group of ``world`` ranks on the one card. At 4 ranks (c)'s
+    reduced round; at 2 ranks (a), (b), (c)'s reduced round and the
+    full-width round. Writes its results to ``outdir/rank<r>-<world>.pt``."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, runtime
+    from repro_torch.checkpoint import store
+    from repro_torch.core import flatbank, sync
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.models import model as model_mod
+    from repro_torch.sim import env as env_mod
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        res = {}
+        if world == 2:
+            ctx = mesh_lib.make_bank_context(2)
+            # (a) snapshots
+            env = _obs_env(torch, env_mod, runtime, env_mod.EnvConfig(
+                task="cifar", mode="real", agg=ctx), False)
+            env.reset()
+            head = _obs_steps(torch, env, SNAP_EVENTS, [])
+            path = os.path.join(outdir, "snap-k2")
+            t0 = sync_time(torch)
+            store.save_runtime(env, path)
+            t_save = sync_time(torch) - t0
+            tail = _obs_steps(torch, env, REPLICA_EVENTS - SNAP_EVENTS, [])
+            whole = (env._global_vec.cpu(),
+                     env._spec.flatten(env.bank).cpu())
+            del env
+            env = _obs_env(torch, env_mod, runtime, env_mod.EnvConfig(
+                task="cifar", mode="real", agg=ctx), False)
+            t0 = sync_time(torch)
+            store.load_runtime(env, path)
+            t_load = sync_time(torch) - t0
+            resumed = _obs_steps(torch, env, REPLICA_EVENTS - SNAP_EVENTS,
+                                 [])
+            res["snap"] = {
+                "traj": head + tail, "resumed": resumed, "gvec": whole[0],
+                "bank": whole[1], "save_s": t_save, "load_s": t_load,
+                "resumed_gvec": env._global_vec.cpu(),
+                "resumed_bank": env._spec.flatten(env.bank).cpu(),
+                "rows": sorted({int(v.shape[0]) for v in env.bank.values()})}
+            del env
+            # (b) share
+            env = env_mod.HFLEnv(env_mod.EnvConfig(
+                task="mnist", mode="real", deterministic=True, agg=ctx))
+            assign = sync.share_topology(env)
+            env.set_topology(assign)
+            env.reset()
+            spec = flatbank.model_spec(env.global_model)
+            res["share"] = {"assign": assign, "acc": env.acc,
+                            "gvec": spec.flatten_model(
+                                env.global_model).cpu(),
+                            "bank": flatbank.bank_spec(env.bank).flatten(
+                                env.bank).cpu()}
+            del env
+        # (c) the reduced round in deterministic mode
+        grid = mesh_lib.rank_grid(TRAIN_REPS, world)
+        hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, ranks=grid)
+        cfg, init, batch, kw = _small_train_setup(torch, configs, model_mod,
+                                                  token_batch, hm.device)
+        params, wall, counts = _replica_round(torch, ops, train, cfg, hm, kw,
+                                              init, batch, True)
+        whole = mesh_lib.gather_params(params, hm)
+        res["small"] = {"grid": grid, "wall": wall, "counts": counts,
+                        "n_leaves": len(train._leaves(params)),
+                        "round": [a.cpu() for a in train._leaves(whole)]
+                        if rank == 0 else None}
+        del params, whole
+        if world == 2:
+            res["full"] = _replica_full(torch, dist, ops, configs, model_mod,
+                                        train, mesh_lib, token_batch, hm)
+        torch.save(res, os.path.join(outdir, f"rank{rank}-{world}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def replica_plane(torch, ops, env_mod, runtime, sync, flatbank, store,
+                  configs, model_mod, train, mesh_lib, trained, dev) -> dict:
+    """Phase 3k: gloo ranks spawned on the one card, 4 (the reduced
+    round) and 2 (all of (a)-(c), the full-width round last), both
+    worlds at once; meanwhile, in this process, the one-device
+    references: (a)'s deterministic faulty CIFAR run with its snapshot
+    at SNAP_EVENTS, (b)'s ``share_topology`` and round at the MNIST
+    defaults, (c)'s reduced round on the card in deterministic mode.
+    Then each world is held against its reference. Returns the JSON
+    rows' launches of the full-width round."""
+    from repro_torch.data.synthetic import token_batch
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_3k_", dir=os.path.join(
+        ROOT, "build"))
+    try:
+        torch.cuda.empty_cache()
+        worlds = {world: mp.spawn(_replica_rank, args=(
+            world, _free_port(), tmp), nprocs=world, join=False)
+            for world in REPLICA_WORLDS}
+        env = _obs_env(torch, env_mod, runtime, env_mod.EnvConfig(
+            task="cifar", mode="real"), False)
+        env.reset()
+        traj = _obs_steps(torch, env, SNAP_EVENTS, [])
+        store.save_runtime(env, os.path.join(tmp, "snap-one"))
+        traj += _obs_steps(torch, env, REPLICA_EVENTS - SNAP_EVENTS, [])
+        one = {"gvec": env._global_vec.cpu(),
+               "bank": env._spec.flatten(env.bank).cpu()}
+        del env
+        env = env_mod.HFLEnv(env_mod.EnvConfig(task="mnist", mode="real",
+                                               deterministic=True))
+        assign = sync.share_topology(env)
+        env.set_topology(assign)
+        env.reset()
+        share = {"assign": assign, "acc": env.acc,
+                 "gvec": flatbank.model_spec(env.global_model).flatten_model(
+                     env.global_model).cpu(),
+                 "bank": flatbank.bank_spec(env.bank).flatten(
+                     env.bank).cpu()}
+        del env
+        hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, device=dev)
+        cfg, init, batch, kw = _small_train_setup(torch, configs, model_mod,
+                                                  token_batch, dev)
+        params, _, _ = _replica_round(torch, ops, train, cfg, hm, kw, init,
+                                      batch, True)
+        small = [a.cpu() for a in train._leaves(params)]
+        del params
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_phase
+        ranks = {}
+        for world, spawned in worlds.items():
+            while not spawned.join():
+                pass
+            ranks[world] = [torch.load(os.path.join(
+                tmp, f"rank{r}-{world}.pt"), weights_only=False)
+                for r in range(world)]
+            print(f"  gloo, {world} ranks sharing the card: done "
+                  f"{time.perf_counter() - t_phase:.1f} s into the phase")
+        print(f"  the one-device references in this process, beside the "
+              f"ranks, took {t_ref:.1f} s")
+        # (a)
+        res = [r["snap"] for r in ranks[2]]
+        for r in res:
+            check(r["traj"] == traj and r["resumed"] == traj[SNAP_EVENTS:],
+                  "phase 3k (a): the 2-rank events differ from one device")
+            check(torch.equal(r["gvec"], one["gvec"]) and torch.equal(
+                r["resumed_gvec"], one["gvec"]), "phase 3k (a): the "
+                "global model differs")
+            check(r["rows"] == [25], f"phase 3k (a): rows {r['rows']}")
+        for key in ("bank", "resumed_bank"):
+            check(torch.equal(torch.cat([r[key] for r in res]), one["bank"]),
+                  f"phase 3k (a): the 2-rank {key} differs from one device")
+        with np.load(os.path.join(tmp, "snap-one.npz")) as a, \
+                np.load(os.path.join(tmp, "snap-k2.npz")) as b:
+            check(a.files == b.files and all(
+                a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                for k in a.files), "phase 3k (a): the sharded snapshot's "
+                "arrays are not the one-device snapshot's")
+        size_mb = sum(os.path.getsize(os.path.join(tmp, f"snap-k2.{x}"))
+                      for x in ("npz", "json")) / 1e6
+        print(f"  (a) CIFAR AsyncHFLEnv, phase 3d (c)'s faults, "
+              f"deterministic, action {OBS_ACTION.tolist()}, 2 ranks of 25 "
+              f"rows: save_runtime after {SNAP_EVENTS} events, "
+              f"load_runtime into a fresh sharded env, events "
+              f"{SNAP_EVENTS + 1}-{REPLICA_EVENTS} bitwise the uninterrupted"
+              f" 2-rank run and the one-device run (events, global vector, "
+              f"bank); the snapshot's arrays bitwise the one-device "
+              f"snapshot's; {size_mb:.1f} MB, save {res[0]['save_s']:.3f} s"
+              f" (the gather included), load {res[0]['load_s']:.3f} s (its "
+              f"warmup round included)")
+        # (b)
+        for r in ranks[2]:
+            sh = r["share"]
+            check(np.array_equal(sh["assign"], share["assign"]),
+                  "phase 3k (b): the 2-rank share assignment differs")
+            check(sh["acc"] == share["acc"] and torch.equal(
+                sh["gvec"], share["gvec"]), "phase 3k (b): the round after "
+                "share differs from one device")
+        check(torch.equal(torch.cat([r["share"]["bank"] for r in ranks[2]]),
+                          share["bank"]), "phase 3k (b): the bank differs")
+        print(f"  (b) share_topology at the MNIST defaults on 2 ranks: the "
+              f"one-device assignment ({np.bincount(share['assign']).tolist()}"
+              f" devices per edge); the deterministic (2, 2) round after it "
+              f"bitwise the one-device round (acc {share['acc']:.4f})")
+        # (c) reduced
+        for world in REPLICA_WORLDS:
+            res = [r["small"] for r in ranks[world]]
+            want = _agg_launches(res[0]["n_leaves"], 2)
+            for r in res:
+                got = {k: r["counts"][k] for k in want}
+                check(got == want, f"phase 3k (c) {world} ranks: launches "
+                      f"{got} != {want}")
+            check(all(torch.equal(a, b) for a, b in zip(res[0]["round"],
+                                                        small)),
+                  f"phase 3k (c): the {world}-rank reduced round is not "
+                  f"bitwise the one-device card round")
+            print(f"  (c) reduced qwen3 (f32 activations), replicas "
+                  f"{TRAIN_REPS} over rank grid {res[0]['grid']} on {world} "
+                  f"ranks, deterministic (2, 2) round: bitwise the one-device"
+                  f" card round; launches per rank {res[0]['counts']}; wall "
+                  f"{max(r['wall'] for r in res):.3f} s")
+        # (c) full width
+        full = [r["full"] for r in ranks[2]]
+        ref = trained["full"]
+        n = full[0]["n_leaves"]
+        want = _agg_launches(n, 2)
+        for r in full:
+            got = {k: r["counts"][k] for k in want}
+            check(got == want, f"phase 3k (c) full width: launches {got} "
+                  f"!= {want}")
+            check(r["same"], "phase 3k (c) full width: a replica differs "
+                  "from rank 0's replica (0, 0, 0)")
+        rel_loss = abs(full[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+        rel_sq = max(abs(a[2] - b[2]) / b[2]
+                     for a, b in zip(full[0]["stats"], ref["stats"]))
+        rel_sum = max(abs(a[0] - b[0]) / b[1]
+                      for a, b in zip(full[0]["stats"], ref["stats"]))
+        check(max(rel_loss, rel_sq, rel_sum) <= REPLICA_REL,
+              f"phase 3k (c) full width: vs 3g (b) loss {rel_loss:.3e}, sum "
+              f"of squares {rel_sq:.3e}, sum {rel_sum:.3e} > {REPLICA_REL}")
+        wall = max(r["wall"] for r in full)
+        n_sgd = 2 * 2 * int(np.prod(full[0]["block"])) * TRAIN_KW[
+            "mb_per_epoch"]
+        print(f"  (c) qwen3-1.7b full width (f32 weights, bf16 activations),"
+              f" replicas {TRAIN_REPS} as blocks of {full[0]['block']} on 2 "
+              f"ranks, batch 8 x seq 128, (2, 2), remat, KV chunks of 128, "
+              f"plain mode: round {wall:.3f} s, {n_sgd} SGD steps per rank "
+              f"({wall / n_sgd:.4f} s per step, the ranks sharing the card); "
+              f"gloo all_reduce per Eq. 1 {full[0]['eq1_ms']:.1f} / "
+              f"{full[1]['eq1_ms']:.1f} ms, per Eq. 2 "
+              f"{full[0]['eq2_ms']:.1f} / {full[1]['eq2_ms']:.1f} ms (rank 0"
+              f" / 1); peak memory {full[0]['peak']:.2f} / "
+              f"{full[1]['peak']:.2f} GB (reckoned {REPLICA_MEM_GB:.0f} GB); "
+              f"launches per rank {full[0]['counts']}; every replica "
+              f"bitwise rank 0's replica (0, 0, 0); vs 3g (b)'s one-device "
+              f"round: loss {full[0]['loss']:.6f} vs {ref['loss']:.6f} "
+              f"(relative {rel_loss:.3e}), per leaf sum of squares "
+              f"{rel_sq:.3e}, sum over L1 {rel_sum:.3e} (bound "
+              f"{REPLICA_REL})")
+        check(max(r["peak"] for r in full) <= REPLICA_MEM_GB,
+              f"phase 3k (c): peak memory over {REPLICA_MEM_GB} GB")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 3k took {wall:.1f} s (budget {REPLICA_BUDGET_S:.0f} s); "
+          f"ranks sharing one card say nothing of multi-GPU scaling")
+    return {k: sum(r["counts"][k] for r in full)
+            for k in ("segment_agg", "segment_broadcast")}
 
 
 # ---------------------------------------------------------------------------
@@ -1986,9 +2413,22 @@ def time_llm_agg(torch, hier_agg, ops, ref, dev) -> dict:
              ("segment_broadcast", bcast,
               lambda: ref.segment_broadcast_ref(models, seg), copy,
               4 * (e * p + n * p + n))]
+    # phase 3k's per-rank partial: the first 2 rows, one per edge, and
+    # torch.sum over each edge's rows as the library call
+    _, n2, _, e2 = LLM_PARTIAL
+    part, pseg = bank[:n2], torch.arange(e2, dtype=torch.int32, device=dev)
+    ones2 = torch.ones((e2,), device=dev)
+    cases.append(("segment_sum_partial", lambda: hier_agg._launch_segment_agg(
+        part, w[:n2], pseg, e2, normalize=False, with_wsum=True),
+        lambda: (ref.segment_weight_sums(w[:n2], pseg, e2),
+                 ref.segment_scaled_sum_ref(part, w[:n2], pseg, ones2, e2)),
+        lambda: part.view(e2, n2 // e2, p).sum(dim=1),
+        4 * (n2 * p + e2 * p + 2 * n2 + e2)))
     res = {}
     before = dict(hier_agg.LAUNCHES)
     for k, kern, plain, lib, nbytes in cases:
+        if k == "segment_sum_partial":
+            name, n, p, e = LLM_PARTIAL
         ms = lambda fn: event_ms(torch, fn, iters=10, warmup=2)
         t_k1, t_p1, t_k2, t_p2 = ms(kern), ms(plain), ms(kern), ms(plain)
         t_lib = ms(lib)
@@ -3087,6 +3527,12 @@ def main() -> int:
     trained = llm_train(torch, ops, configs, model, train, mesh_lib,
                         device_mod, dev)
 
+    print(f"phase 3k: the replica plane over gloo ranks on the one card "
+          f"({smi})")
+    replicas = replica_plane(torch, ops, env_mod, runtime, sync, flatbank,
+                             store, configs, model, train, mesh_lib, trained,
+                             dev)
+
     print(f"phase 3h: MoE and ring-buffer serving ({smi})")
     served.update(serve_moe_and_ring(torch, ops, flash_attention, configs,
                                      model, serve, dev))
@@ -3105,19 +3551,26 @@ def main() -> int:
           "replay of 50 calls (kernel and plain each twice, in turns); "
           "the eager wrapper call is 50 back-to-back calls")
     rows = timings(torch, hier_agg, ops, ref, dev, runs, err)
-    # the sharded Eq. 1: one rank's partial launch (10 of 50 rows) in
-    # phase 3f (b), its launches those of the 5 ranks' warmup rounds
+    # the sharded Eq. 1: one rank's partial launch (25 of 50 rows) in
+    # phase 3f (b), its launches those of the 2 ranks' warmup rounds
     rows.append(dict(name="segment_agg", route="cuda",
                      source=KERNEL_SRC["segment_agg"],
                      replaces=REPLACES["segment_agg"],
-                     shape="cifar-eq1-sharded-k5", **sharded))
+                     shape="cifar-eq1-sharded-k2", **sharded))
     # the LLM edge mean: the largest leaf of phase 3g (b)'s round, its
-    # launches those of that round (every leaf, Eq. 1 and Eq. 2)
+    # launches those of that round (every leaf, Eq. 1 and Eq. 2); a rank's
+    # partial of phase 3k's full-width Eq. 1, its launches those of both
+    # ranks' round
     for k, t in time_llm_agg(torch, hier_agg, ops, ref, dev).items():
-        rows.append(dict(name=k, route="cuda", source=KERNEL_SRC[k],
-                         replaces=REPLACES[k],
-                         launches=trained["launches"][k],
-                         max_abs_err=llm_err[k], shape=LLM_AGG[0], **t))
+        partial = k == "segment_sum_partial"
+        kern = "segment_agg" if partial else k
+        rows.append(dict(name=kern, route="cuda", source=KERNEL_SRC[kern],
+                         replaces=REPLACES[kern],
+                         launches=(replicas if partial else
+                                   trained["launches"])[kern],
+                         max_abs_err=llm_err[k],
+                         shape=(LLM_PARTIAL if partial else LLM_AGG)[0],
+                         **t))
     cifar_eq1 = {r["name"]: r["ms"] for r in rows
                  if r["shape"] == "cifar-eq1"}
     print(f"  phase 3e's in-program ktime medians (CUDA events around each "

@@ -27,6 +27,15 @@ injector, numpy generator); in real mode its key chain cannot seed a
 ``torch.Generator``, so the load refuses it unless the env was built
 with injected sources (which then replay the chain); in analytic mode
 no draw uses it and it is ignored.
+
+A sharded env (``EnvConfig.agg`` with a mesh) writes the one-device
+snapshot: the bank is its only row-sharded state, so every rank
+gathers the bank's rows (``AggContext.gather_rows``) and rank 0 writes
+the files, taking the replicated state (queue payloads, buffer slots,
+edge matrix, global vector, PCA state, draws, telemetry, health) from
+its own copy. A load keeps each rank's rows of the saved bank
+(``AggContext.place_rows``), so either layout loads the other's
+snapshot.
 """
 from __future__ import annotations
 
@@ -158,14 +167,6 @@ def _dec_map(d: dict, data, device: torch.device) -> dict:
     return {k: _dec_val(v, data, device) for k, v in d.items()}
 
 
-def _refuse_sharded(env, where: str) -> None:
-    if env.agg_ctx.sharded:
-        raise NotImplementedError(
-            f"{where}: a sharded env holds only this rank's rows of the "
-            f"bank; gathering them into one snapshot and placing them back "
-            f"is ROADMAP item 10 (b)")
-
-
 def save_runtime(env, path: str) -> None:
     """Snapshot the complete state of a running ``AsyncHFLEnv`` so a
     killed process can resume mid-stream (``load_runtime``) and reach
@@ -179,12 +180,12 @@ def save_runtime(env, path: str) -> None:
     base (real mode), the fault injector's full state, and telemetry,
     health and the ledger run id.
 
-    A sharded env (``EnvConfig.agg`` with a mesh) raises
-    ``NotImplementedError``: each rank holds only its rows of the bank
-    (ROADMAP item 10 (b)).
+    On a sharded env every rank of the mesh calls it: the bank's rows
+    are gathered, rank 0 writes the files, the one-device env's files at
+    the same event, and a barrier holds every rank until they exist.
     """
-    _refuse_sharded(env, "save_runtime")
     cfg = env.cfg
+    ctx = env.agg_ctx
     arrays: dict = {}
     meta: dict = {
         "cfg": {k: getattr(cfg, k) for k in _CFG_KEYS},
@@ -249,15 +250,19 @@ def save_runtime(env, path: str) -> None:
         arrays["global_vec"] = _to_np(env._global_vec)
         arrays["edge_mat"] = _to_np(env._edge_mat)
         for p, v in _flatten_with_path(env.bank):
-            arrays[f"bank/{_key_str(p)}"] = _to_np(v)
+            arrays[f"bank/{_key_str(p)}"] = _to_np(ctx.gather_rows(v))
     else:
         arrays["edge_acc"] = np.asarray(env._edge_acc)
     for p, v in _flatten_with_path(env.pca_state):
         arrays[f"pca/{_key_str(p)}"] = _to_np(v)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez(path + ".npz", **arrays)
-    with open(path + ".json", "w") as f:
-        json.dump(meta, f)
+    if not ctx.sharded or ctx.mesh.rank == 0:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path + ".npz", **arrays)
+        with open(path + ".json", "w") as f:
+            json.dump(meta, f)
+    if ctx.sharded:
+        import torch.distributed as dist
+        dist.barrier(group=ctx.mesh.group)
 
 
 def load_runtime(env, path: str) -> None:
@@ -271,9 +276,13 @@ def load_runtime(env, path: str) -> None:
     Raises ``ValueError`` on a config mismatch, and for a real-mode
     reference snapshot (a ``jax.random`` key chain in place of the
     port's generator state) unless the env was built with injected
-    ``perm_source`` / ``edge_perm_source``; ``NotImplementedError`` for
-    a sharded env, as ``save_runtime`` does."""
-    _refuse_sharded(env, "load_runtime")
+    ``perm_source`` / ``edge_perm_source``.
+
+    On a sharded env every rank reads the files and keeps its rows of
+    the bank and of the edge assignment (``AggContext.place_rows``), so
+    a sharded env loads a one-device snapshot and the other way round;
+    a bank whose N does not split over the mesh raises ``ValueError``."""
+    ctx = env.agg_ctx
     with open(path + ".json") as f:
         meta = json.load(f)
     data = np.load(path + ".npz")
@@ -327,8 +336,8 @@ def load_runtime(env, path: str) -> None:
         env._ledger_run_id = meta["ledger_run_id"]
     # --- topology / hardware -------------------------------------------
     env.edge_assign = np.asarray(data["edge_assign"], np.int64)
-    env._edge_assign_t = torch.as_tensor(
-        env.edge_assign.astype(np.int32), device=dev)
+    env._edge_assign_t = ctx.place_rows(torch.as_tensor(
+        env.edge_assign.astype(np.int32), device=dev))
     env._edge_sizes = np.asarray(data["edge_sizes"])
     env._edge_w = np.asarray(data["edge_w"])
     env.profiles.cpu_usage = np.asarray(data["cpu_usage"])
@@ -344,8 +353,9 @@ def load_runtime(env, path: str) -> None:
         env._edge_mat = _like(data["edge_mat"], env._edge_mat)
         env.global_model = env._spec.unflatten_model(env._global_vec)
         env.edge_models = env._spec.unflatten(env._edge_mat)
-        for p, v in _flatten_with_path(env.bank):
-            v.copy_(_like(data[f"bank/{_key_str(p)}"], v))   # in place
+        for p, v in _flatten_with_path(env.bank):       # in place
+            v.copy_(ctx.place_rows(torch.from_numpy(
+                np.array(data[f"bank/{_key_str(p)}"]))))
     else:
         env._edge_acc = np.asarray(data["edge_acc"])
     env.pca_state = _rebuild(env.pca_state, iter(

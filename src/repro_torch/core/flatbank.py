@@ -21,7 +21,8 @@ one kernel launch each (``repro_torch.kernels.ops``).
 
 The row-sharded layout over a bank mesh
 (``repro_torch.launch.mesh.BankMesh``; ``local_rows``, ``row_slice``,
-``place_bank``, ``place_rows``, ``place_replicated``): rows shard over
+``place_bank``, ``place_rows``, ``place_replicated``, and
+``gather_rows``, the inverse of ``place_rows``): rows shard over
 all the mesh's axes, ``edge``-major, so rank ``r`` of ``k`` holds rows
 ``[r N/k, (r + 1) N/k)``, and columns are never split. A rank's part of
 a bank (``place_bank``) is its rows as a new contiguous ``(N/k, P)``
@@ -146,6 +147,20 @@ def place_rows(arr, mesh):
     (N, ...)), copied onto the mesh's device."""
     arr = torch.as_tensor(arr)
     return arr[row_slice(arr.shape[0], mesh)].to(mesh.device, copy=True)
+
+
+def gather_rows(arr, mesh):
+    """The inverse of ``place_rows``: every rank's ``N/k`` rows of a
+    row-aligned tensor joined in rank order, the whole ``(N, ...)``
+    tensor on the mesh's device of every rank (one ``all_gather`` over
+    the mesh's group; every rank of it calls this). The port's stand-in
+    for the global view of a row-sharded ``jax.Array``."""
+    import torch.distributed as dist
+    part = torch.as_tensor(arr).to(mesh.device).contiguous()
+    out = torch.empty((part.shape[0] * mesh.size,) + tuple(part.shape[1:]),
+                      dtype=part.dtype, device=mesh.device)
+    dist.all_gather(list(out.chunk(mesh.size)), part, group=mesh.group)
+    return out
 
 
 def place_replicated(tree, mesh):

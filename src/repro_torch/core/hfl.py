@@ -178,6 +178,15 @@ class AggContext:
             return arr
         return flatbank.place_rows(arr, self.mesh)
 
+    def gather_rows(self, arr):
+        """Every rank's rows of a row-aligned tensor joined in rank
+        order, the whole ``(N, ...)`` tensor on every rank
+        (``flatbank.gather_rows``, a collective over the mesh's group;
+        identity on one device)."""
+        if self.mesh is None:
+            return arr
+        return flatbank.gather_rows(arr, self.mesh)
+
     def place_replicated(self, tree):
         """A tensor or a dict/list/tuple of them on this rank's device
         (identity on one device)."""

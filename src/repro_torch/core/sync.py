@@ -226,12 +226,10 @@ def _favor(env, *, g1: int, frac: float, eps: float, seed: int):
 def share_topology(env) -> np.ndarray:
     """Share [9]: assign devices to edges so every edge's label histogram
     approaches the global distribution (greedy, size-balanced). Reads
-    every device's labels, so it runs on a one-device env only."""
-    if env.agg_ctx.sharded:
-        raise NotImplementedError(
-            "share_topology reads all N devices' labels; a sharded env "
-            "holds its rows only (ROADMAP item 10 (b))")
-    y = env.fed.y.cpu().numpy()                  # (N, n_local)
+    every device's labels: a sharded env gathers its ranks' rows of them
+    first (``AggContext.gather_rows``), so every rank computes the same
+    assignment (the reference reads a sharded array's global view)."""
+    y = env.agg_ctx.gather_rows(env.fed.y).cpu().numpy()   # (N, n_local)
     n, m = env.cfg.n_devices, env.cfg.n_edges
     n_classes = int(y.max()) + 1
     hist = np.stack([np.bincount(y[i], minlength=n_classes)

@@ -1,27 +1,41 @@
-"""Meshes: the HFL mesh of the LLM train step and the bank mesh of the
-sharded ``(N, P)`` model bank; the port of ``repro.launch.mesh``.
+"""Meshes: the HFL mesh of the LLM train step, the bank mesh of the
+sharded ``(N, P)`` model bank and the production layouts; the port of
+``repro.launch.mesh``.
 
 **HFL mesh.** The reference factors a TPU pod into the five axes
 ``("pod", "edge", "fl", "fsdp", "tp")``: ``pod`` x ``edge`` x ``fl``
 index the diverging model replicas (Arena's edges and their devices),
-``fsdp`` x ``tp`` shard each replica. Here an :class:`HFLMesh` names the
-same five axes over ONE device, which holds every replica as the leading
-``(pod, edge, fl)`` axes of each parameter leaf (``launch.train.
-lift_params``), with fsdp = tp = 1. A mesh of several devices (replica
-axes over a ``torch.distributed`` group, tensor axes over cards) is
-ROADMAP item 10 (b), and so is ``derive_bank_mesh``, the replica plane
-of such a mesh. The parameter PartitionSpecs (``serve_param_specs``,
-``hfl_param_specs``) are pure functions here: a spec is a tuple with one
-entry per dimension, ``None``, an axis name or a tuple of axis names,
-as the reference's ``PartitionSpec`` reads entry for entry. On one
-device they describe the layout and shard nothing.
+``fsdp`` x ``tp`` shard each replica. Here an :class:`HFLMesh` lays the
+replicas of the ``(pod, edge, fl)`` axes over a *rank grid* ``(p_r,
+e_r, f_r)`` that divides them: the ranks of an initialised
+``torch.distributed`` process group (the world) in row-major order, as
+the reference reshapes its device array. Rank ``r`` holds the block of
+``(pod/p_r, edge/e_r, fl/f_r)`` replicas at its grid coordinates as the
+leading axes of each parameter leaf (``place_params``; one device holds
+them all, grid ``(1, 1, 1)``, ``launch.train.lift_params``), and nothing
+inside a replica is sharded: fsdp = tp = 1. The mesh owns the process
+groups its aggregations cross: one per ``(pod, edge)`` block of ranks
+(the fl sub-group that Eq. 1 crosses; none when f_r = 1) and the world
+(Eq. 2). Sharding a replica's tensors over fsdp/tp is the tensor plane
+of ROADMAP item 10 (b) and raises ``NotImplementedError``. The
+parameter PartitionSpecs (``serve_param_specs``, ``hfl_param_specs``)
+are pure functions: a spec is a tuple with one entry per dimension,
+``None``, an axis name or a tuple of axis names, as the reference's
+``PartitionSpec`` reads entry for entry; ``shardings`` turns one into
+this rank's index of a leaf.
+
+**Production layouts.** ``make_production_mesh`` and
+``derive_serve_mesh`` return a :class:`RankMesh`, the port's stand-in
+for a ``jax.sharding.Mesh``: the ranks laid out over named axes. Nothing
+runs over them here: their tensor axes are the tensor plane.
 
 **Bank mesh.** The reference's bank mesh is a ``jax.sharding.Mesh``
 with axes ``("edge", "fl")``, the HFL mesh's replica plane. Here a
 :class:`BankMesh` names the same two axes over the ranks of a process
 group, one rank per shard, ranks in ``edge``-major order: rank ``r``
 holds bank rows ``[r N/k, (r + 1) N/k)`` of ``k = edge * fl`` shards
-(``repro_torch.core.flatbank.place_bank``).
+(``repro_torch.core.flatbank.place_bank``); ``derive_bank_mesh`` takes
+it from an HFL mesh's pod 0.
 
 Importing this module touches neither ``torch.distributed`` nor the
 card: everything happens inside the functions.
@@ -29,7 +43,9 @@ card: everything happens inside the functions.
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -42,16 +58,42 @@ BANK_AXES = ("edge", "fl")      # flat-bank row shards (replica plane)
 MESH_ITEM = "ROADMAP.md, 'Modules still to port', item 10 (b)"
 
 
+def _world():
+    """``torch.distributed``, or None when no process group is up."""
+    import torch.distributed as dist
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def _rank_device(device) -> torch.device:
+    """This rank's device: ``"cuda"`` gives ``cuda:{r % cards}``, r the
+    process's global rank, and makes it the current card; ``"cpu"`` the
+    CPU (the gloo backend runs both)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.device(device).index is None:
+        dev = torch.device("cuda", _world().get_rank()
+                           % torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
 # ---------------------------------------------------------------------------
-# the HFL mesh (one device)
+# the HFL mesh: replicas over the ranks of a process group
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class HFLMesh:
-    """``dims`` over ``HFL_AXES`` on one ``device``: the replicas of the
-    ``(pod, edge, fl)`` axes all live there."""
+    """``dims`` over ``HFL_AXES``; the ``(pod, edge, fl)`` replicas over
+    the rank grid ``grid``, rank ``rank`` holding the ``block`` at its
+    grid coordinates on ``device``. ``fl_group`` is the process group of
+    this rank's ``(pod, edge)`` block of ranks (None when f_r = 1); Eq. 2
+    crosses the world (the default group). One device: grid (1, 1, 1),
+    rank 0, no groups."""
     dims: tuple
     device: torch.device
+    grid: tuple = (1, 1, 1)
+    rank: int = 0
+    fl_group: object = dataclasses.field(default=None, compare=False)
 
     @property
     def axis_names(self) -> tuple:
@@ -60,31 +102,98 @@ class HFLMesh:
     @property
     def shape(self) -> dict:
         """``{"pod": p, "edge": e, "fl": f, "fsdp": 1, "tp": 1}``, as a
-        JAX mesh's ``shape`` reads."""
+        JAX mesh's ``shape`` reads (replicas, not ranks)."""
         return dict(zip(HFL_AXES, self.dims))
 
+    @property
+    def n_ranks(self) -> int:
+        return math.prod(self.grid)
 
-def make_hfl_mesh(replicas: tuple, *, fsdp: int = 1, tp: int = 1,
-                  device="cuda") -> HFLMesh:
-    """An HFL mesh of ``replicas = (pod, edge, fl)`` model replicas on one
-    device. fsdp or tp above 1 raise ``NotImplementedError``: sharding a
-    replica needs several devices (item 10 (b))."""
+    @property
+    def coords(self) -> tuple:
+        """This rank's ``(pod, edge, fl)`` coordinates in the rank grid."""
+        return tuple(int(c) for c in np.unravel_index(self.rank, self.grid))
+
+    @property
+    def block(self) -> tuple:
+        """The ``(pod, edge, fl)`` replicas each rank holds."""
+        return tuple(d // g for d, g in zip(self.dims[:3], self.grid))
+
+    def block_slice(self, axis: str) -> slice:
+        """This rank's replicas along the replica axis ``axis``."""
+        i = REPLICA_AXES.index(axis)
+        b, c = self.block[i], self.coords[i]
+        return slice(c * b, (c + 1) * b)
+
+
+def rank_grid(replicas: tuple, n_ranks: int) -> tuple:
+    """A rank grid ``(p_r, e_r, f_r)`` of ``n_ranks`` ranks that divides
+    ``replicas``, filled from the fl axis outwards (so Eq. 1 crosses
+    ranks first); ``ValueError`` where none does."""
+    n = int(n_ranks)
+    f = math.gcd(int(replicas[2]), n)
+    e = math.gcd(int(replicas[1]), n // f)
+    p = n // (f * e)
+    if int(replicas[0]) % p:
+        raise ValueError(f"{n} ranks do not divide the replicas "
+                         f"{tuple(replicas)}")
+    return (p, e, f)
+
+
+def make_hfl_mesh(replicas: tuple, *, ranks=None, fsdp: int = 1,
+                  tp: int = 1, device="cuda") -> HFLMesh:
+    """An HFL mesh of ``replicas = (pod, edge, fl)`` model replicas over
+    the rank grid ``ranks`` (default ``(1, 1, 1)``: every replica on one
+    device). A grid of k > 1 ranks needs an initialised process group of
+    exactly k ranks and builds the fl groups with ``dist.new_group``, so
+    every rank calls this, with the same arguments; ``device="cuda"``
+    puts this rank's replicas on ``cuda:{r % cards}``. ``ValueError``
+    where the grid does not divide the replicas or the group does not
+    fit it; fsdp or tp above 1 raise ``NotImplementedError`` (the tensor
+    plane of item 10 (b))."""
     pod, edge, fl = (int(a) for a in replicas)
     if min(pod, edge, fl) < 1:
         raise ValueError(f"HFL mesh replicas {replicas} must be >= 1")
     if fsdp != 1 or tp != 1:
         raise NotImplementedError(
-            f"fsdp={fsdp}, tp={tp}: a sharded replica needs a multi-device "
-            f"HFL mesh: see {MESH_ITEM}")
-    return HFLMesh(dims=(pod, edge, fl, 1, 1), device=resolve_device(device))
+            f"fsdp={fsdp}, tp={tp}: sharding a replica's tensors is the "
+            f"tensor plane of {MESH_ITEM}")
+    grid = (1, 1, 1) if ranks is None else tuple(int(a) for a in ranks)
+    if len(grid) != 3 or min(grid) < 1 or any(
+            d % g for d, g in zip((pod, edge, fl), grid)):
+        raise ValueError(f"rank grid {grid} does not divide the replicas "
+                         f"{(pod, edge, fl)}")
+    dims = (pod, edge, fl, 1, 1)
+    k = math.prod(grid)
+    if k == 1:
+        return HFLMesh(dims=dims, device=resolve_device(device))
+    dist = _world()
+    if dist is None or dist.get_world_size() != k:
+        raise ValueError(f"rank grid {grid} needs an initialised "
+                         f"torch.distributed process group of {k} ranks")
+    rank = dist.get_rank()
+    dev = _rank_device(device)
+    ids = np.arange(k).reshape(grid)
+    fl_group = None
+    if grid[2] > 1:
+        # every rank creates every group, in the same order
+        for block in ids.reshape(-1, grid[2]):
+            group = dist.new_group(block.tolist())
+            if rank in block:
+                fl_group = group
+    return HFLMesh(dims=dims, device=dev, grid=grid, rank=rank,
+                   fl_group=fl_group)
 
 
 def derive_hfl_mesh(devices, topology: tuple, n_pods: int = 1) -> HFLMesh:
     """The reference's ``derive_hfl_mesh``: ``topology`` = (M edges, D
     fl-devices, F fsdp, T tp) must factor the devices of a pod
     (``len(devices) / n_pods``), else ``ValueError``, as in the
-    reference. One device (topology (1, 1, 1, 1)) gives a one-replica
-    mesh; more devices raise ``NotImplementedError`` (item 10 (b))."""
+    reference. ``devices`` holds one device per rank of the world, in
+    rank order; each rank holds one replica, so the mesh is replicas
+    ``(n_pods, M, D)`` over the same rank grid (one device: every
+    replica there). F or T above 1 raise ``NotImplementedError`` (the
+    tensor plane of item 10 (b))."""
     devices = list(devices)
     m, d, f, t = (int(a) for a in topology)
     per_pod = len(devices) // max(int(n_pods), 1)
@@ -92,15 +201,107 @@ def derive_hfl_mesh(devices, topology: tuple, n_pods: int = 1) -> HFLMesh:
         raise ValueError(
             f"topology {tuple(topology)} does not factor {per_pod} "
             f"devices/pod")
-    if len(devices) > 1:
+    if f != 1 or t != 1:
         raise NotImplementedError(
-            f"an HFL mesh over {len(devices)} devices: see {MESH_ITEM}")
-    return HFLMesh(dims=(1, m, d, f, t), device=resolve_device(devices[0]))
+            f"topology {tuple(topology)} shards each replica over fsdp x tp "
+            f"= {f * t} devices: the tensor plane of {MESH_ITEM}")
+    if len(devices) == 1:
+        return make_hfl_mesh((1, m, d), device=devices[0])
+    dist = _world()
+    reps = (int(n_pods), m, d)
+    return make_hfl_mesh(reps, ranks=reps, device=devices[
+        dist.get_rank() if dist is not None else 0])
 
 
 def n_replicas(hfl_mesh) -> tuple:
     s = hfl_mesh.shape
     return s["pod"], s["edge"], s["fl"]
+
+
+def place_params(params, hfl_mesh) -> dict:
+    """This rank's block of a whole lifted parameter tree (every leaf
+    ``(pod, edge, fl, ...)``, ``launch.train.lift_params``): each leaf's
+    block of the replica axes, a new contiguous tensor on the mesh's
+    device."""
+    idx = tuple(hfl_mesh.block_slice(a) for a in REPLICA_AXES)
+    return _map_paths(lambda _, a: torch.as_tensor(a)[idx].to(
+        hfl_mesh.device, copy=True).contiguous(), params)
+
+
+def gather_replicas(block, hfl_mesh):
+    """One leaf's blocks ``(pod/p_r, edge/e_r, fl/f_r, ...)`` from every
+    rank laid out whole, ``(pod, edge, fl, ...)`` on every rank: one
+    ``all_gather`` over the world, which every rank calls (the block
+    itself on one rank)."""
+    if hfl_mesh.n_ranks == 1:
+        return block
+    k, rest = hfl_mesh.n_ranks, tuple(block.shape[3:])
+    parts = torch.empty((k,) + tuple(block.shape), dtype=block.dtype,
+                        device=block.device)
+    _world().all_gather(list(parts.unbind(0)), block.contiguous())
+    tail = tuple(range(6, 6 + len(rest)))
+    whole = parts.view(hfl_mesh.grid + hfl_mesh.block + rest).permute(
+        (0, 3, 1, 4, 2, 5) + tail)
+    return whole.reshape(tuple(hfl_mesh.dims[:3]) + rest).contiguous()
+
+
+def gather_params(params, hfl_mesh) -> dict:
+    """The inverse of ``place_params``: every rank's blocks joined into
+    the whole lifted tree on every rank (``gather_replicas`` per leaf;
+    for tests and checks)."""
+    return _map_paths(lambda _, a: gather_replicas(a, hfl_mesh), params)
+
+
+# ---------------------------------------------------------------------------
+# production layouts
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """Global ranks laid out over ``axis_names``: ``ranks`` is an int
+    array of the axes' shape, as a ``jax.sharding.Mesh`` lays out its
+    devices. A layout only."""
+    ranks: np.ndarray = dataclasses.field(compare=False)
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.ranks.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.ranks.size)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         n_ranks=None) -> RankMesh:
+    """The reference's production mesh: ``("data", "model")`` = (16, 16)
+    over 256 ranks, or ``("pod", "data", "model")`` = (2, 16, 16) over
+    512. ``n_ranks`` (default: the world's size, 1 without a process
+    group) below that raises ``ValueError``, as ``jax.make_mesh`` does
+    with too few devices."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    if n_ranks is None:
+        dist = _world()
+        n_ranks = dist.get_world_size() if dist is not None else 1
+    if n_ranks < need:
+        raise ValueError(f"the production mesh {shape} needs {need} ranks, "
+                         f"have {n_ranks}")
+    return RankMesh(np.arange(need).reshape(shape), axes)
+
+
+def derive_serve_mesh(mesh: RankMesh, tp: int) -> RankMesh:
+    """Serving has no replicas: ``("pod", "batch", "tp")`` over the same
+    ranks, as the reference derives it. A layout only: serving over it
+    is the tensor plane of item 10 (b)."""
+    ranks = mesh.ranks
+    n_pods = ranks.shape[0] if ranks.ndim == 3 else 1
+    per_pod = ranks.size // n_pods
+    if per_pod % tp:
+        raise ValueError(f"tp={tp} does not divide {per_pod}")
+    return RankMesh(ranks.reshape(n_pods, per_pod // tp, tp), SERVE_AXES)
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +427,44 @@ def hfl_param_specs(cfg, params_shape, mesh=None) -> dict:
     return _map_paths(lift, params_shape)
 
 
+def _map_specs(fn, tree):
+    """``fn`` over a tree of specs (dicts and lists of tuples)."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_specs(fn, v) for v in tree]
+    return fn(tree)
+
+
+def shardings(mesh, specs):
+    """For each spec of ``specs`` (``hfl_param_specs``), this rank's
+    index into its leaf: one slice per spec entry, the rank's block of a
+    replica axis (``HFLMesh.block_slice``) and the whole of every other
+    dimension. An entry naming a tensor axis of more than one rank (a
+    ``derive_serve_mesh`` layout's tp, say) raises
+    ``NotImplementedError``: sharding a replica's tensors is the tensor
+    plane of item 10 (b)."""
+    sizes = (dict(zip(REPLICA_AXES, mesh.grid)) if isinstance(mesh, HFLMesh)
+             else dict(mesh.shape))
+
+    def index(spec):
+        out = []
+        for entry in spec:
+            axes = () if entry is None else \
+                entry if isinstance(entry, tuple) else (entry,)
+            wide = [a for a in axes
+                    if a not in REPLICA_AXES and sizes.get(a, 1) > 1]
+            if wide:
+                raise NotImplementedError(
+                    f"spec {spec} shards a replica's tensors over {wide}: "
+                    f"the tensor plane of {MESH_ITEM}")
+            rep = [a for a in axes if a in REPLICA_AXES]
+            out.append(mesh.block_slice(rep[0]) if rep else slice(None))
+        return tuple(out)
+
+    return _map_specs(index, specs)
+
+
 # ---------------------------------------------------------------------------
 # the bank mesh
 # ---------------------------------------------------------------------------
@@ -281,13 +520,29 @@ def make_bank_mesh(n_edge_shards: int, fl: int = 1, *, group=None,
     if rank < 0:
         raise ValueError("this process is not a member of the bank mesh's "
                          "process group")
-    dev = resolve_device(device)
-    if dev.type == "cuda" and torch.device(device).index is None:
-        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
     return BankMesh(dims=(int(n_edge_shards), int(fl)), rank=int(rank),
-                    device=dev, group=group)
+                    device=_rank_device(device), group=group)
+
+
+def derive_bank_mesh(hfl_mesh) -> BankMesh:
+    """The HFL mesh's ``(edge, fl)`` plane of pod 0 as a bank mesh (the
+    reference's ``devices[0, :, :, 0, 0]``): its ``e_r x f_r`` ranks,
+    bank rows edge-major over them. With more than one pod of ranks it
+    builds pod 0's process group (``dist.new_group``, so every rank calls
+    it) and raises ``ValueError`` on a rank outside pod 0; so does a mesh
+    that is not an HFL mesh, as in the reference."""
+    if not isinstance(hfl_mesh, HFLMesh):
+        raise ValueError(f"expected an HFL mesh with axes {HFL_AXES}, got "
+                         f"{tuple(getattr(hfl_mesh, 'axis_names', ()))}")
+    p_r, e_r, f_r = hfl_mesh.grid
+    group = None
+    if p_r > 1:
+        group = _world().new_group(list(range(e_r * f_r)))
+        if hfl_mesh.coords[0] != 0:
+            raise ValueError(f"rank {hfl_mesh.rank} is not in pod 0 of the "
+                             f"HFL mesh")
+    return BankMesh(dims=(e_r, f_r), rank=hfl_mesh.rank,
+                    device=hfl_mesh.device, group=group)
 
 
 def make_bank_context(n_edge_shards: int, fl: int = 1, *, group=None,

@@ -1,5 +1,6 @@
-"""Hierarchical train step: Arena's synchronization scheme on the LLM
-replicas of one card; the port of ``repro.launch.train``.
+"""Hierarchical train step: Arena's synchronization scheme on LLM
+replicas, on one card or over the ranks of a process group; the port of
+``repro.launch.train``.
 
 One ``train_step`` call is one cloud round (Eq. 5):
 
@@ -8,10 +9,11 @@ One ``train_step`` call is one cloud round (Eq. 5):
     cloud mean (Eq. 2)
 
 Model replicas live as leading ``(pod, edge, fl)`` axes of every
-parameter leaf, the reference's layout (``lift_params``), here all on the
-one device of an ``HFLMesh`` (``launch.mesh.make_hfl_mesh``). A local
-epoch is ``mb_per_epoch`` minibatches through ``Model.loss`` and
-autograd, one SGD step each. The port loops over the replicas where the
+parameter leaf, the reference's layout (``lift_params``), laid over the
+ranks of an ``HFLMesh`` (``launch.mesh.make_hfl_mesh``): each rank holds
+its block of them, one device all of them. A local epoch is
+``mb_per_epoch`` minibatches through ``Model.loss`` and autograd, one
+SGD step each. The port loops over a rank's replicas where the
 reference vmaps over the three replica axes: the replicas are
 independent, so the values are the same, and one replica's gradients
 are held at a time (a full-width qwen3-1.7b replica's are 8.1 GB).
@@ -19,13 +21,17 @@ are held at a time (a full-width qwen3-1.7b replica's are 8.1 GB).
 Eq. 1 and Eq. 2 are the reference's uniform means (``_edge_mean``,
 ``_cloud_mean``), computed by the two kernels written for their
 size-weighted general form (``repro_torch.kernels.ops``): per leaf,
-viewed as an ``(R, numel)`` bank of R = pod * edge * fl rows, one
-``segment_agg`` launch with weights 1 and segment ids ``pod * n_edge +
-edge`` (E = 1 for the cloud mean) and one ``segment_broadcast`` launch
-writing the means back into the leaf. A static round launches each
-kernel ``(g2 + 1)`` times per leaf. The training forward reaches no
-kernel: attention, WKV and the loss are the reference's plain tensor
-math (``Model.loss``).
+viewed as the rank's ``(R/k, numel)`` bank of replica rows, one launch
+of the ``segment_agg`` kernel with weights 1 and segment ids ``pod *
+n_edge + edge`` (E = 1 for the cloud mean) and one ``segment_broadcast``
+launch writing the means back into the rank's rows. Where a mean's
+replicas span ranks, the launch is the rank's partial
+(``segment_sum_partial``) and its sums meet in an ``all_reduce`` over
+the ranks the mean crosses: the rank's fl group for Eq. 1, the world
+for Eq. 2 (``ops.segment_agg_sharded``). A static round launches each
+kernel ``(g2 + 1)`` times per leaf on every rank. The training forward
+reaches no kernel: attention, WKV and the loss are the reference's
+plain tensor math (``Model.loss``).
 
 ``static`` frequencies run ``g1``/``g2`` fixed loops; ``dynamic`` takes
 per-edge ``(g1e, g2e)`` host integers (the Arena action) with the
@@ -35,6 +41,8 @@ values.
 from __future__ import annotations
 
 import argparse
+import math
+import os
 import time
 from typing import Optional
 
@@ -69,58 +77,99 @@ def _sgd(p, g, lr: float) -> None:
         p.copy_((p.to(torch.float32) - step).to(p.dtype))
 
 
-def _bank_inputs(reps: tuple, per_edge: bool, device):
-    """The (R,) f32 weights (all 1) and int32 segment ids of the replicas
-    in (pod, edge, fl) order: ``pod * n_edge + edge`` for the edge mean,
-    0 for the cloud mean."""
-    n_pod, n_edge, n_fl = reps
-    r = n_pod * n_edge * n_fl
-    ids = np.repeat(np.arange(n_pod * n_edge), n_fl) if per_edge else \
-        np.zeros(r, np.int64)
-    return (torch.ones((r,), dtype=torch.float32, device=device),
-            torch.as_tensor(ids.astype(np.int32), device=device))
+def _bank_inputs(n_rows: int, n_seg: int, device):
+    """The (n_rows,) f32 weights (all 1) and int32 segment ids of a
+    rank's replicas in (pod, edge, fl) order, ``n_rows / n_seg``
+    consecutive rows per segment."""
+    ids = np.repeat(np.arange(n_seg), n_rows // n_seg).astype(np.int32)
+    return (torch.ones((n_rows,), dtype=torch.float32, device=device),
+            torch.as_tensor(ids, device=device))
 
 
-def _edge_mean(params, reps: tuple, active=None) -> None:
+def _row_mean(group, spread: bool):
+    """The per-leaf segment means of rows that lie on this rank alone
+    (``spread`` False: one ``segment_agg`` launch) or on every rank of
+    ``group``: one ``segment_sum_partial`` launch and an ``all_reduce``
+    (``ops.segment_agg_sharded``), chained in rank order in deterministic
+    mode (``ops.segment_agg_ordered``)."""
+    if not spread:
+        return ops.segment_agg
+    ordered = torch.are_deterministic_algorithms_enabled()
+    agg = ops.segment_agg_ordered if ordered else ops.segment_agg_sharded
+    return lambda v, w, s, e: agg(v, w, s, e, group)
+
+
+def _edge_mean(params, hfl_mesh, active=None) -> None:
     """Eq. 1 on every leaf, in place: each replica takes the mean of its
-    (pod, edge)'s fl replicas. One ``segment_agg`` launch per leaf, then
-    one ``segment_broadcast`` writing every replica; with ``active`` (an
-    (n_edge,) bool with some False) only the active edges' replicas are
-    written, one ``segment_broadcast`` per active (pod, edge)."""
-    n_pod, n_edge, n_fl = reps
+    (pod, edge)'s fl replicas. Per leaf, viewed as this rank's (R/k,
+    numel) rows, the means of the rank's (pod, edge) segments
+    (``_row_mean``: they cross the rank's fl group when f_r > 1), then
+    one ``segment_broadcast`` writing every replica of the rank; with
+    ``active`` (an (n_edge,) bool with some False) only the active edges'
+    replicas are written, one ``segment_broadcast`` per active (pod,
+    edge). A rank none of whose edges is active does nothing: every rank
+    of its fl group holds the same edges, so their collectives line up."""
+    bp, be, bf = hfl_mesh.block
+    n_seg = bp * be
+    mine = None
+    if active is not None:
+        e0 = hfl_mesh.coords[1] * be
+        mine = np.tile(np.asarray(active, bool)[e0:e0 + be], bp)
+        if not mine.any():
+            return
     leaves = _leaves(params)
-    ones, seg = _bank_inputs(reps, True, leaves[0].device)
-    zeros = torch.zeros((n_fl,), dtype=torch.int32, device=seg.device)
+    ones, seg = _bank_inputs(n_seg * bf, n_seg, leaves[0].device)
+    zeros = torch.zeros((bf,), dtype=torch.int32, device=seg.device)
+    mean = _row_mean(hfl_mesh.fl_group, hfl_mesh.grid[2] > 1)
     for leaf in leaves:
         view = leaf.view(seg.shape[0], -1)
-        means = ops.segment_agg(view, ones, seg, n_pod * n_edge)
-        if active is None or bool(np.all(active)):
+        means = mean(view, ones, seg, n_seg)
+        if mine is None or mine.all():
             ops.segment_broadcast(means, seg, out=view)
             continue
-        for pod in range(n_pod):
-            for j in np.flatnonzero(active):
-                e = pod * n_edge + int(j)
-                ops.segment_broadcast(means[e:e + 1], zeros,
-                                      out=view[e * n_fl:(e + 1) * n_fl])
+        for j in np.flatnonzero(mine):
+            ops.segment_broadcast(means[j:j + 1], zeros,
+                                  out=view[j * bf:(j + 1) * bf])
 
 
-def _cloud_mean(params, reps: tuple, collective_dtype=None) -> None:
+def _cloud_mean(params, hfl_mesh, collective_dtype=None) -> None:
     """Eq. 2 on every leaf, in place: every replica takes the mean over
-    all of them. With ``collective_dtype`` the leaf is cast to it first
-    and the mean written in it (the reference's quantized sync), then
-    restored to the leaf's dtype."""
+    all of them, one ``segment_broadcast`` writing the rank's replicas.
+    The mean is one ``segment_agg`` launch on one rank; on several, one
+    ``segment_sum_partial`` launch on the rank's rows and an
+    ``all_reduce`` over the world (``ops.segment_agg_sharded``). In
+    deterministic mode every rank gathers the replicas in the one-device
+    order (``mesh.gather_replicas``) and runs the one-device launch on
+    them: a chain in rank order is that order only where each rank's
+    replicas are consecutive rows, and a rank grid with f_r > 1 and
+    several edges per rank interleaves them. With ``collective_dtype``
+    the rows are cast to it first and the mean written in it (the
+    reference's quantized sync), then restored to the leaf's dtype."""
     leaves = _leaves(params)
-    ones, seg = _bank_inputs(reps, False, leaves[0].device)
+    n = math.prod(hfl_mesh.block)
+    ones, zeros = _bank_inputs(n, 1, leaves[0].device)
+    gather = (hfl_mesh.n_ranks > 1
+              and torch.are_deterministic_algorithms_enabled())
+    mean = _row_mean(None, hfl_mesh.n_ranks > 1)
+    if gather:
+        r_all = math.prod(hfl_mesh.dims[:3])
+        ones_all, zeros_all = _bank_inputs(r_all, 1, zeros.device)
     for leaf in leaves:
-        view = leaf.view(seg.shape[0], -1)
-        if collective_dtype is None or view.dtype == collective_dtype:
-            means = ops.segment_agg(view, ones, seg, 1)
-            ops.segment_broadcast(means, seg, out=view)
+        view = leaf.view(n, -1)
+        low = view if collective_dtype is None or \
+            view.dtype == collective_dtype else view.to(collective_dtype)
+        if gather:
+            whole = mesh_lib.gather_replicas(
+                low.view(hfl_mesh.block + (-1,)), hfl_mesh).view(r_all, -1)
+            means = ops.segment_agg(whole, ones_all, zeros_all, 1)
+            del whole
+        else:
+            means = mean(low, ones, zeros, 1)
+        if low is view:
+            ops.segment_broadcast(means, zeros, out=view)
             continue
-        low = view.to(collective_dtype)
-        means = ops.segment_agg(low, ones, seg, 1)
         del low
-        view.copy_(ops.segment_broadcast(means, seg,
+        view.copy_(ops.segment_broadcast(means, zeros,
                                          out_dtype=collective_dtype))
 
 
@@ -139,16 +188,25 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
     integer frequencies (host arrays or tensors), at most
     ``max_g1``/``max_g2``.
 
-    ``params``: the lifted tree (``lift_params``), every leaf
-    ``(pod, edge, fl, ...)`` and contiguous on the mesh's device; it is
-    updated in place and returned. ``batch``: {"tokens", "labels"} (B,
-    S) int with B a multiple of the replica count; replica r (in (pod,
+    ``params``: the lifted tree of this rank's replicas, every leaf
+    ``(pod/p_r, edge/e_r, fl/f_r, ...)`` (the mesh's ``block``) and
+    contiguous on the mesh's device: ``lift_params`` on one device,
+    ``mesh.place_params`` of it, or ``lift_params`` to the block, on the
+    ranks of a multi-rank mesh; it is updated in place and returned.
+    ``batch``: {"tokens", "labels"} (B, S) int, the whole batch on every
+    rank, with B a multiple of the replica count R; replica r (in (pod,
     edge, fl) order) trains on rows ``[r B/R, (r + 1) B/R)``, split into
-    ``mb_per_epoch`` minibatches. ``collective_dtype`` casts the params
-    before the cloud mean only (the reference's quantized cloud sync).
-    ``param_specs`` is the tree of ``mesh.hfl_param_specs`` and
-    ``batch_spec`` the batch's, ``(("pod", "edge", "fl"),)``: on one
-    device they describe the layout and shard nothing.
+    ``mb_per_epoch`` minibatches, and a rank takes its replicas' rows
+    (the batch splits over ``REPLICA_AXES``). ``collective_dtype`` casts
+    the params before the cloud mean only (the reference's quantized
+    cloud sync). ``param_specs`` is the tree of ``mesh.hfl_param_specs``
+    and ``batch_spec`` the batch's, ``(("pod", "edge", "fl"),)``.
+
+    On a multi-rank mesh every rank calls the step with the same
+    arguments; Eq. 1 crosses the rank's fl group where f_r > 1 and Eq. 2
+    the world (``_edge_mean``, ``_cloud_mean``). Under
+    ``device.deterministic_algorithms`` both keep the one-device
+    summation order, so the round is bitwise the one-device round.
 
     Dynamic rounds: in epoch t1 of edge period t2 a replica of edge j
     trains only if ``t1 < g1e[j]`` and ``t2 < g2e[j]``, and only edges
@@ -158,23 +216,28 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
     same, and a dynamic round with ``g1e = g1``, ``g2e = g2`` everywhere
     launches what the static round launches.
 
-    TF32 stays off (``device.disable_tf32``). ``seq_shard_acts`` needs a
-    multi-device mesh and raises (item 10 (b))."""
+    TF32 stays off (``device.disable_tf32``). ``seq_shard_acts`` shards
+    activations over the tensor axes and raises (the tensor plane of
+    item 10 (b))."""
     if seq_shard_acts:
         raise NotImplementedError(
-            f"seq_shard_acts needs a multi-device HFL mesh: see "
-            f"{mesh_lib.MESH_ITEM}")
+            f"seq_shard_acts shards activations over fsdp x tp: the tensor "
+            f"plane of {mesh_lib.MESH_ITEM}")
     model = build_model(cfg)
-    reps = mesh_lib.n_replicas(hfl_mesh)
-    n_pod, n_edge, n_fl = reps
+    n_pod, n_edge, n_fl = mesh_lib.n_replicas(hfl_mesh)
     repl = n_pod * n_edge * n_fl
+    block = hfl_mesh.block
+    mine = math.prod(block)
+    rows = tuple(hfl_mesh.block_slice(a) for a in mesh_lib.REPLICA_AXES)
+    e0 = hfl_mesh.coords[1] * block[1]
     low = None if collective_dtype is None else getattr(torch,
                                                         collective_dtype)
     disable_tf32()
 
     def replica_epoch(params, batch, r: int) -> None:
-        """One local epoch of replica r: ``mb_per_epoch`` SGD steps."""
-        views = [leaf.view((repl,) + leaf.shape[3:])[r]
+        """One local epoch of this rank's replica r: ``mb_per_epoch`` SGD
+        steps."""
+        views = [leaf.view((mine,) + leaf.shape[3:])[r]
                  for leaf in _leaves(params)]
         toks, labs = batch["tokens"][r], batch["labels"][r]
         per = toks.shape[0] // mb_per_epoch
@@ -195,35 +258,47 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
             del grads
 
     def reshape_batch(batch):
+        """This rank's replicas' rows of the whole batch, (R/k, B/R,
+        ...)."""
         def r(a):
             b = a.shape[0]
             if b % repl:
                 raise ValueError(f"batch of {b} does not split over "
                                  f"{repl} replicas")
-            return a.reshape((repl, b // repl) + tuple(a.shape[1:]))
+            a = a.reshape((n_pod, n_edge, n_fl, b // repl)
+                          + tuple(a.shape[1:]))
+            return a[rows].reshape((mine, b // repl) + tuple(a.shape[4:]))
         return {k: r(v) for k, v in batch.items()}
 
+    def check_params(params) -> None:
+        shape = tuple(_leaves(params)[0].shape[:3])
+        if shape != block:
+            raise ValueError(f"params hold {shape} replicas, this rank's "
+                             f"block is {block} (mesh.place_params)")
+
     def epoch(params, batch, edges) -> None:
-        """One local epoch of every replica whose edge is in ``edges``
-        (an (n_edge,) bool)."""
-        for r in range(repl):
-            if edges[(r // n_fl) % n_edge]:
+        """One local epoch of every replica of this rank whose edge is in
+        ``edges`` (an (n_edge,) bool)."""
+        for r in range(mine):
+            if edges[e0 + (r // block[2]) % block[1]]:
                 replica_epoch(params, batch, r)
 
     everyone = np.ones(n_edge, bool)
 
     if not dynamic:
         def train_step(params, batch):
+            check_params(params)
             batch = reshape_batch(batch)
             with torch.no_grad():
                 for _ in range(g2):
                     for _ in range(g1):
                         epoch(params, batch, everyone)
-                    _edge_mean(params, reps)
-                _cloud_mean(params, reps, low)
+                    _edge_mean(params, hfl_mesh)
+                _cloud_mean(params, hfl_mesh, low)
             return params
     else:
         def train_step(params, batch, g1e, g2e):
+            check_params(params)
             batch = reshape_batch(batch)
             g1e = np.asarray(torch.as_tensor(g1e).cpu(), np.int64)
             g2e = np.asarray(torch.as_tensor(g2e).cpu(), np.int64)
@@ -236,8 +311,8 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
                         act = (t1 < g1e) & active2
                         if act.any():
                             epoch(params, batch, act)
-                    _edge_mean(params, reps, active2)
-                _cloud_mean(params, reps, low)
+                    _edge_mean(params, hfl_mesh, active2)
+                _cloud_mean(params, hfl_mesh, low)
             return params
 
     param_specs = mesh_lib.hfl_param_specs(cfg, _meta_params(cfg), hfl_mesh)
@@ -254,9 +329,23 @@ def _meta_params(cfg) -> dict:
 
 def lift_params(params, n_pod: int, n_edge: int, n_fl: int) -> dict:
     """Broadcast one model copy into the replicated HFL layout: every
-    leaf ``(n_pod, n_edge, n_fl, ...)``, contiguous."""
+    leaf ``(n_pod, n_edge, n_fl, ...)``, a new contiguous tensor (also for
+    one replica, where ``contiguous`` would return a view of the copy and
+    the round would train it in place)."""
     return _map(lambda a: a.expand((n_pod, n_edge, n_fl) + tuple(a.shape))
-                .contiguous(), params)
+                .clone(memory_format=torch.contiguous_format), params)
+
+
+def _torchrun_world():
+    """Under ``torchrun`` (``WORLD_SIZE`` in the environment) and with no
+    process group up yet: initialise the world from the environment on
+    gloo (which runs CPU and CUDA tensors) and return True; else
+    False."""
+    import torch.distributed as dist
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    dist.init_process_group("gloo")
+    return True
 
 
 def main(argv=None):
@@ -264,13 +353,22 @@ def main(argv=None):
 
         PYTHONPATH=src python -m repro_torch.launch.train --arch \\
             qwen3-1.7b --mesh micro --rounds 10 [--dynamic] [--device cpu]
+        PYTHONPATH=src torchrun --nproc-per-node 4 -m \\
+            repro_torch.launch.train --device cpu --mesh micro
 
-    --mesh micro  : the reduced config, replicas (1, 2, 2) on one device
+    --mesh micro  : the reduced config, replicas (1, 2, 2): on one device,
+                    or, under torchrun (or in an initialised process
+                    group), spread over the world's ranks
+                    (``mesh.rank_grid``: 2 ranks (1, 1, 2), 4 ranks
+                    (1, 2, 2)); only rank 0 prints
     --mesh single / multi : the reference's 256 / 512-device production
-                    meshes; they raise here (item 10 (b))
+                    meshes; every config's topology shards a replica
+                    over fsdp x tp, so they raise here (item 10 (b))
     --dynamic uses the masked per-edge-frequency step with a Var-Freq-B
     style schedule (the Arena agent plugs in through the same signature).
     Runs on the card unless ``--device cpu``."""
+    import torch.distributed as dist
+
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batch
 
@@ -290,44 +388,54 @@ def main(argv=None):
     if args.mesh != "micro":
         raise NotImplementedError(
             f"--mesh {args.mesh} needs the {256 if args.mesh == 'single' else 512}"
-            f"-device production mesh: see {mesh_lib.MESH_ITEM}")
-    cfg = get_config(args.arch).reduce()
-    hfl_mesh = mesh_lib.make_hfl_mesh((1, 2, 2), device=args.device)
-    dev = hfl_mesh.device
-    n_pod, n_edge, n_fl = mesh_lib.n_replicas(hfl_mesh)
-    repl = n_pod * n_edge * n_fl
-    if args.batch % repl:
-        args.batch = repl * max(1, args.batch // repl)
+            f"-device production mesh and a replica sharded over its tensor "
+            f"axes: see {mesh_lib.MESH_ITEM}")
+    owned = _torchrun_world()
+    try:
+        cfg = get_config(args.arch).reduce()
+        reps = (1, 2, 2)
+        k = dist.get_world_size() if dist.is_initialized() else 1
+        hfl_mesh = mesh_lib.make_hfl_mesh(
+            reps, ranks=mesh_lib.rank_grid(reps, k), device=args.device)
+        dev, lead = hfl_mesh.device, hfl_mesh.rank == 0
+        n_edge, repl = reps[1], math.prod(reps)
+        if args.batch % repl:
+            args.batch = repl * max(1, args.batch // repl)
 
-    kw = dict(lr=3e-3, mb_per_epoch=max(1, args.batch // repl),
-              remat=False, attn_chunk=min(1024, args.seq))
-    if args.dynamic:
-        step, _, _ = make_hfl_train_step(
-            cfg, hfl_mesh, dynamic=True, max_g1=args.g1 + 2,
-            max_g2=args.g2 + 2, **kw)
-    else:
-        step, _, _ = make_hfl_train_step(cfg, hfl_mesh, g1=args.g1,
-                                         g2=args.g2, **kw)
-    model = build_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = lift_params(model.init(gen, device=dev), n_pod, n_edge, n_fl)
-    rng = np.random.default_rng(0)
-    for i in range(args.rounds):
-        batch = token_batch(i, args.batch, args.seq, cfg.vocab, device=dev)
-        t0 = time.time()
+        kw = dict(lr=3e-3, mb_per_epoch=max(1, args.batch // repl),
+                  remat=False, attn_chunk=min(1024, args.seq))
         if args.dynamic:
-            # Var-Freq-B style: per-edge freqs (Arena's agent drops in here)
-            g1e = rng.integers(1, args.g1 + 1, n_edge)
-            g2e = rng.integers(1, args.g2 + 1, n_edge)
-            params = step(params, batch, g1e, g2e)
+            step, _, _ = make_hfl_train_step(
+                cfg, hfl_mesh, dynamic=True, max_g1=args.g1 + 2,
+                max_g2=args.g2 + 2, **kw)
         else:
-            params = step(params, batch)
-        p0 = _map(lambda a: a[0, 0, 0], params)
-        with torch.no_grad():
-            loss = float(model.loss(p0, token_batch(
-                9999, args.batch, args.seq, cfg.vocab, device=dev)))
-        print(f"round {i} loss={loss:.4f} dt={time.time() - t0:.1f}s",
-              flush=True)
+            step, _, _ = make_hfl_train_step(cfg, hfl_mesh, g1=args.g1,
+                                             g2=args.g2, **kw)
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = lift_params(model.init(gen, device=dev), *hfl_mesh.block)
+        rng = np.random.default_rng(0)
+        for i in range(args.rounds):
+            batch = token_batch(i, args.batch, args.seq, cfg.vocab,
+                                device=dev)
+            t0 = time.time()
+            if args.dynamic:
+                # Var-Freq-B style: per-edge freqs (Arena's agent drops in)
+                g1e = rng.integers(1, args.g1 + 1, n_edge)
+                g2e = rng.integers(1, args.g2 + 1, n_edge)
+                params = step(params, batch, g1e, g2e)
+            else:
+                params = step(params, batch)
+            if lead:                        # rank 0 holds replica (0, 0, 0)
+                p0 = _map(lambda a: a[0, 0, 0], params)
+                with torch.no_grad():
+                    loss = float(model.loss(p0, token_batch(
+                        9999, args.batch, args.seq, cfg.vocab, device=dev)))
+                print(f"round {i} loss={loss:.4f} "
+                      f"dt={time.time() - t0:.1f}s", flush=True)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -25,8 +25,8 @@ the reference leaves its einsums to XLA; no hand-written kernel runs
 here.
 
 Expert parallelism (``ep_axis``: an ``all_to_all`` over the tp axis of
-a mesh) needs a multi-rank mesh and raises ``NotImplementedError``
-(ROADMAP.md, item 10 (b)); on one device the ``"tensor"`` and
+a mesh) shards a replica and raises ``NotImplementedError`` (the tensor
+plane of ROADMAP.md, item 10 (b)); on one device the ``"tensor"`` and
 ``"expert"`` modes are the same math.
 """
 from __future__ import annotations
@@ -100,7 +100,8 @@ def moe_ffn(params, cfg, x, *, ep_axis: Optional[str] = None,
     if ep_axis is not None:
         raise NotImplementedError(
             f"expert parallelism (ep_axis={ep_axis!r}, ep_size={ep_size}) "
-            f"needs a multi-rank mesh: see {EP_ITEM}")
+            f"shards the experts over the tp axis, the tensor plane of "
+            f"{EP_ITEM}")
     b, s, d = x.shape
     t_all = b * s
     if t_all > token_chunk and t_all % token_chunk == 0:

@@ -349,8 +349,9 @@ def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
     device; only None is accepted."""
     if act_spec is not None:
         raise NotImplementedError(
-            "act_spec (sequence-sharded activations) needs a multi-rank "
-            "HFL mesh: see ROADMAP.md, 'Modules still to port', item 10 (b)")
+            "act_spec (activations sharded over the fsdp x tp axes) is the "
+            "tensor plane of ROADMAP.md, 'Modules still to port', item "
+            "10 (b)")
     check_family(cfg)
     x, mpos = embed_inputs(params, cfg, tokens, extras)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)

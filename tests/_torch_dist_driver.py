@@ -18,6 +18,8 @@ which ``tests/test_torch_sharded.py`` also calls to build the JAX
 reference's inputs, so both sides see the same arrays. They mirror
 ``tests/test_sharded_bank.py`` case for case, with its seeds.
 """
+import contextlib
+import dataclasses
 import os
 import pickle
 import sys
@@ -27,14 +29,19 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+import _torch_train_ref as tref
+from repro_torch import configs, weights
 from repro_torch.checkpoint import store
-from repro_torch.core import flatbank, hfl
-from repro_torch.kernels import ops, ref
+from repro_torch.core import flatbank, hfl, sync
+from repro_torch.data.synthetic import token_batch
+from repro_torch.device import deterministic_algorithms
+from repro_torch.kernels import hier_agg, ops, ref
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.runtime import (AsyncConfig, ChurnEvent, FaultSpec,
                                  StalenessBuffer)
 from repro_torch.sim import AsyncHFLEnv, EnvConfig, HFLEnv
 from repro_torch.telemetry import ledger
+from repro_torch.launch import train
 
 # the mesh shapes each world runs (rows shard over all ranks either way)
 MESHES = {1: [(1, 1)], 2: [(2, 1)], 4: [(4, 1), (2, 2)]}
@@ -45,6 +52,11 @@ TRAJ_CFG = dict(task="mnist", mode="real", n_devices=8, n_edges=4,
 TRAJ_ASSIGN = np.repeat(np.arange(4), 2)        # edge-aligned shards
 TRAJ_RUNS = {"clean": 4, "faults": 6}           # events per trajectory
 ENV_ROUNDS = 2                                  # HFLEnv step_raw calls
+SNAP_AT = 3               # events of the faulty trajectory before a snapshot
+# the rank grids of the train step's replicas (1, 2, 2) at each world
+TRAIN_REPS = (1, 2, 2)
+TRAIN_GRIDS = {1: [(1, 1, 1)], 2: [(1, 1, 2), (1, 2, 1)], 4: [(1, 2, 2)]}
+TRAIN_ARCH = "qwen3-1.7b"
 
 
 # ---------------------------------------------------------------------------
@@ -455,11 +467,26 @@ def case_context(world, inp):
         "buffer_ctx": StalenessBuffer(2, ctx=ctx1, device="cpu").ctx is ctx1,
         "mesh_desc": ledger.mesh_desc(ctx1),
         "single_desc": ledger.mesh_desc(sc),
-        "snapshot": (_raises(NotImplementedError,
-                             lambda: store.save_runtime(env, "unused"))
-                     and _raises(NotImplementedError,
-                                 lambda: store.load_runtime(env, "unused"))),
+        "snapshot": _analytic_snapshots(env, inp["outdir"]),
     }
+
+
+def _analytic_snapshots(env, outdir: str) -> tuple:
+    """``env`` (analytic, a one-rank mesh) and the same env on one device,
+    each reset and saved: (every array equal, the JSON equal)."""
+    one = AsyncHFLEnv(dataclasses.replace(env.cfg, agg=None))
+    one.reset()
+    paths = [os.path.join(outdir, f"ctx-snap-{i}") for i in range(2)]
+    for e, path in zip((env, one), paths):
+        store.save_runtime(e, path)
+    arrays = [np.load(p + ".npz") for p in paths]
+    metas = []
+    for p in paths:
+        with open(p + ".json") as f:
+            metas.append(f.read())
+    return (arrays[0].files == arrays[1].files and all(
+        np.array_equal(arrays[0][k], arrays[1][k]) for k in arrays[0].files),
+        metas[0] == metas[1])
 
 
 def case_edge_round(world, inp):
@@ -600,6 +627,230 @@ def case_hflenv(world, inp):
     return out
 
 
+def _traj_env(inp, ctx, kind="faults"):
+    """The deterministic ``TRAJ_CFG`` ``AsyncHFLEnv`` of ``kind`` under
+    ``ctx`` (None: one device), with the reference's draws."""
+    acfg, spec = traj_runtime(kind)
+    cfg = EnvConfig(**TRAJ_CFG, device="cpu", deterministic=True, agg=ctx)
+    env = AsyncHFLEnv(cfg, acfg, faults=spec, **_sources(inp))
+    env.set_topology(TRAJ_ASSIGN)
+    return env
+
+
+def _events(env, n: int) -> dict:
+    """``n`` events at action (2, 2): their (reward, acc, edge, flushed,
+    dropped), then the global vector and this rank's bank rows."""
+    traj = []
+    for _ in range(n):
+        _, r, _, info = env.step(np.array([2.0, 2.0]))
+        traj.append((float(r), info["acc"], info["edge"], info["flushed"],
+                     info["dropped"]))
+    return {"traj": traj, "gvec": _np(env._global_vec),
+            "bank": _np(env._spec.flatten(env.bank)),
+            "rows": _leaf_rows(env.bank)}
+
+
+def _resume(inp, ctx, path: str) -> dict:
+    """A fresh env under ``ctx`` loads ``path`` and runs the rest of the
+    faulty trajectory."""
+    env = _traj_env(inp, ctx)
+    store.load_runtime(env, path)
+    return _events(env, TRAJ_RUNS["faults"] - SNAP_AT)
+
+
+def _label(layout) -> str:
+    return layout if isinstance(layout, str) else f"{layout[0]}x{layout[1]}"
+
+
+def case_snapshot(world, inp):
+    """The faulty trajectory under each layout of this world (and on one
+    device at world 1): ``SNAP_AT`` events, ``save_runtime`` to
+    ``snap-<layout>`` in the world's directory, the rest uninterrupted,
+    then a fresh env that loads the snapshot and runs the rest. At
+    world 2 the layouts cross: a one-device snapshot at the same event
+    (each rank writes its own) loads into a sharded env, and the sharded
+    snapshot into a one-device env."""
+    layouts = [("single", None)] if world == 1 else []
+    layouts += [(shape, _ctx(shape)) for shape in MESHES[world]]
+    out = {}
+    for layout, ctx in layouts:
+        path = os.path.join(inp["outdir"], f"snap-{_label(layout)}")
+        env = _traj_env(inp, ctx)
+        env.reset()
+        head = _events(env, SNAP_AT)
+        store.save_runtime(env, path)
+        out[layout] = {"head": head["traj"], "path": path,
+                       "whole": _events(env, TRAJ_RUNS["faults"] - SNAP_AT),
+                       "resumed": _resume(inp, ctx, path)}
+    if world == 2:
+        single = os.path.join(inp["outdir"], f"snap-one-r{dist.get_rank()}")
+        env = _traj_env(inp, None)
+        env.reset()
+        _events(env, SNAP_AT)
+        store.save_runtime(env, single)
+        out["cross"] = {"into_sharded": _resume(inp, _ctx((2, 1)), single),
+                        "into_single": _resume(inp, None,
+                                               out[(2, 1)]["path"])}
+    return out
+
+
+def _share_run(ctx) -> dict:
+    """The deterministic ``TRAJ_CFG`` ``HFLEnv`` under ``ctx``:
+    ``share_topology``, that topology, reset and one (2, 2) round; the
+    labels it read are gathered for the test."""
+    env = HFLEnv(EnvConfig(**TRAJ_CFG, device="cpu", deterministic=True,
+                           agg=ctx))
+    assign = sync.share_topology(env)
+    env.set_topology(assign)
+    env.reset()
+    env.step_raw(np.full(4, 2), np.full(4, 2))
+    spec = flatbank.model_spec(env.global_model)
+    return {"assign": assign, "acc": env.acc,
+            "y": _np(env.agg_ctx.gather_rows(env.fed.y)),
+            "gvec": _np(spec.flatten_model(env.global_model)),
+            "bank": _np(flatbank.bank_spec(env.bank).flatten(env.bank)),
+            "rows": _leaf_rows(env.bank)}
+
+
+def case_share(world, inp):
+    return {"single": _share_run(None), "sharded": _share_run(
+        _ctx((world, 1)))}
+
+
+def _flat(tree, prefix="") -> dict:
+    """A nested dict's leaves under their '/'-joined key paths."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def _nest(flat: dict) -> dict:
+    out = {}
+    for key, v in flat.items():
+        d = out
+        *head, last = key.split("/")
+        for part in head:
+            d = d.setdefault(part, {})
+        d[last] = v
+    return out
+
+
+@contextlib.contextmanager
+def _kernel_calls():
+    """Counts the calls of the aggregation wrappers (CPU tensors launch no
+    kernel, so ``ops.LAUNCHES`` stays 0 here): ``segment_agg`` (one
+    launch on the card) and ``segment_sum_partial`` (a rank's partial
+    launch) under "segment_agg", as ``LAUNCHES`` counts them, and
+    ``segment_broadcast``."""
+    counts = {"segment_agg": 0, "segment_broadcast": 0}
+    saved = {n: getattr(hier_agg, n) for n in (
+        "segment_agg", "segment_sum_partial", "segment_broadcast")}
+
+    def counted(fn, key):
+        def call(*args, **kw):
+            counts[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(hier_agg, name, counted(fn, "segment_broadcast"
+                                        if name == "segment_broadcast"
+                                        else "segment_agg"))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(hier_agg, name, fn)
+
+
+def case_train(world, inp):
+    """The reduced qwen3 train step (f32, ``tests/_torch_train_ref.py``'s
+    settings) from the reference's initial parameters on replicas (1, 2,
+    2) over each rank grid of this world, static and dynamic, plain and
+    in deterministic mode: rank 0 returns replica (0, 0, 0) of the round
+    (``mesh.gather_params``), every rank its launches, its block and
+    whether every replica of the gathered round equals replica (0, 0,
+    0) bitwise. The launches are the wrappers' calls
+    (``_kernel_calls``)."""
+    cfg = tref.config(TRAIN_ARCH, "float32", configs)
+    p0 = weights.tree_from_numpy(_nest(inp["train_init"]), "cpu")
+    batch = token_batch(0, tref.BATCH, tref.SEQ, cfg.vocab, device="cpu")
+    out = {}
+    for grid in TRAIN_GRIDS[world]:
+        hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, ranks=grid, device="cpu")
+        for dynamic in (False, True):
+            kw = dict(tref.STEP, mb_per_epoch=tref.MB_PER_EPOCH[TRAIN_ARCH])
+            kw.update(dict(dynamic=True, **tref.DYNAMIC) if dynamic
+                      else tref.STATIC)
+            step, _, _ = train.make_hfl_train_step(cfg, hm, **kw)
+            args = (tref.G1E, tref.G2E) if dynamic else ()
+            for det in (False, True):
+                params = train.lift_params(p0, *hm.block)
+                mode = deterministic_algorithms() if det else \
+                    contextlib.nullcontext()
+                with mode, _kernel_calls() as launches:
+                    params = step(params, batch, *args)
+                whole = _flat(mesh_lib.gather_params(params, hm))
+                res = {"launches": launches, "block": hm.block,
+                       "coords": hm.coords, "replicas_equal": all(
+                           torch.equal(r, a[0, 0, 0]) for a in whole.values()
+                           for r in a.reshape((4,) + a.shape[3:]))}
+                if hm.rank == 0:
+                    res["replica0"] = {k: _np(a[0, 0, 0])
+                                       for k, a in whole.items()}
+                out[(grid, dynamic, det)] = res
+    return out
+
+
+def case_mesh(world, inp):
+    """The mesh functions in this world: ``derive_hfl_mesh`` over the
+    world's devices, ``rank_grid``, ``derive_bank_mesh``, ``shardings``
+    of the train step's specs, ``place_params``/``gather_params``, and the
+    layouts (``make_production_mesh``, ``derive_serve_mesh``)."""
+    from repro_torch.launch import mesh as m
+    out = {"grid": m.rank_grid(TRAIN_REPS, world)}
+    hm = m.make_hfl_mesh(TRAIN_REPS, ranks=out["grid"], device="cpu")
+    out["hfl"] = (hm.shape, hm.grid, hm.rank, hm.coords, hm.block,
+                  hm.fl_group is not None)
+    bm = m.derive_bank_mesh(hm)
+    out["bank"] = (bm.shape, bm.size, bm.rank)
+    bank = {"w": torch.arange(16 * 3, dtype=torch.float32).reshape(16, 3)}
+    ctx = hfl.AggContext.for_mesh(bm)
+    out["bank_rows"] = _np(ctx.place_bank(bank)["w"])
+    out["bank_gathered"] = _np(ctx.gather_rows(ctx.place_rows(bank["w"])))
+    out["derive_errors"] = (
+        _raises(ValueError, lambda: m.derive_hfl_mesh(["cpu"] * world,
+                                                      (3, 1, 1, 1))),
+        _raises(ValueError, lambda: m.make_hfl_mesh(TRAIN_REPS,
+                                                    ranks=(1, 1, 4))),
+        _raises(NotImplementedError, lambda: m.make_hfl_mesh(
+            TRAIN_REPS, tp=2, device="cpu")))
+    if world > 1:
+        out["derived"] = m.derive_hfl_mesh(["cpu"] * world,
+                                           (world, 1, 1, 1)).shape
+        out["derive_tp"] = _raises(NotImplementedError, lambda: (
+            m.derive_hfl_mesh(["cpu"] * world, (1, 1, 1, world))))
+    full = {"a": {"w": torch.arange(4 * 6, dtype=torch.float32).reshape(
+        1, 2, 2, 6)}, "b": torch.arange(4.0).reshape(1, 2, 2)}
+    mine = m.place_params(full, hm)
+    specs = {"a": {"w": m.REPLICA_AXES + (None,)},
+             "b": m.REPLICA_AXES}
+    idx = m.shardings(hm, specs)
+    out["shardings"] = idx
+    out["place"] = (_np(mine["a"]["w"]), torch.equal(
+        full["a"]["w"][idx["a"]["w"]], mine["a"]["w"]))
+    back = m.gather_params(mine, hm)
+    out["gather"] = torch.equal(back["a"]["w"], full["a"]["w"]) and \
+        torch.equal(back["b"], full["b"])
+    serve = m.derive_serve_mesh(m.make_production_mesh(n_ranks=256), 8)
+    out["shardings_tp"] = _raises(NotImplementedError, lambda: m.shardings(
+        serve, {"w": (None, "tp")}))
+    out["production"] = _raises(ValueError, m.make_production_mesh)
+    return out
+
+
 CASES = [("context", (1,), case_context),
          ("agg_mixed", (1, 2, 4), case_agg_mixed),
          ("uneven", (4,), case_uneven),
@@ -616,7 +867,11 @@ CASES = [("context", (1,), case_context),
          ("hflenv", (1, 2), case_hflenv),
          ("one_row", (4,), case_one_row),
          ("spanning", (2,), case_spanning),
-         ("traj", (1, 2, 4), case_traj)]
+         ("traj", (1, 2, 4), case_traj),
+         ("snapshot", (1, 2, 4), case_snapshot),
+         ("share", (4,), case_share),
+         ("train", (1, 2, 4), case_train),
+         ("mesh", (1, 2, 4), case_mesh)]
 
 
 def card_aggregation(rank: int, world: int, port: int, outdir: str) -> None:
@@ -699,6 +954,89 @@ def card_round(rank: int, world: int, port: int, outdir: str) -> None:
         dist.destroy_process_group()
 
 
+# the deterministic faulty MNIST trajectory of the card's snapshot test
+# (tests/test_torch_cuda.py): 8 devices on 2 ranks, TRAJ_ASSIGN's edges
+CARD_SNAP_CFG = dict(task="mnist", mode="real", n_devices=8, n_edges=4,
+                     n_local=64, gamma_max=2, threshold_time=300.0,
+                     deterministic=True)
+
+
+def card_snapshot_env(ctx):
+    """The ``CARD_SNAP_CFG`` ``AsyncHFLEnv`` with the faulty trajectory's
+    runtime under ``ctx`` (None: one device), on the card."""
+    acfg, spec = traj_runtime("faults")
+    env = AsyncHFLEnv(EnvConfig(**CARD_SNAP_CFG, agg=ctx), acfg, faults=spec)
+    env.set_topology(TRAJ_ASSIGN)
+    return env
+
+
+def card_snapshot(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of a gloo group on the card (a ``torch.multiprocessing.
+    spawn`` target of ``tests/test_torch_cuda.py``): the
+    ``card_snapshot_env`` trajectory, saved after ``SNAP_AT`` events to
+    ``outdir/snap``, the rest uninterrupted, then a fresh env that loads
+    it and runs the rest; writes both ends to ``outdir/rank<r>.pt``."""
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        ctx = mesh_lib.make_bank_context(world)
+        env = card_snapshot_env(ctx)
+        env.reset()
+        _events(env, SNAP_AT)
+        path = os.path.join(outdir, "snap")
+        store.save_runtime(env, path)
+        whole = _events(env, TRAJ_RUNS["faults"] - SNAP_AT)
+        env = card_snapshot_env(ctx)
+        store.load_runtime(env, path)
+        torch.save({"whole": whole, "device": str(env.device),
+                    "resumed": _events(env, TRAJ_RUNS["faults"] - SNAP_AT)},
+                   os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def card_train_setup(dev):
+    """The card's reduced train step: qwen3 with ``tests/
+    _torch_train_ref.py``'s config and settings, seed-0 weights drawn on
+    ``dev``, its batch; returns (cfg, params, batch, step kwargs)."""
+    from repro_torch.models.model import build_model
+    cfg = tref.config(TRAIN_ARCH, "float32", configs)
+    p0 = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    batch = token_batch(0, tref.BATCH, tref.SEQ, cfg.vocab, device=dev)
+    kw = dict(tref.STEP, mb_per_epoch=tref.MB_PER_EPOCH[TRAIN_ARCH],
+              **tref.STATIC)
+    return cfg, p0, batch, kw
+
+
+def card_train(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of a gloo group on the card (a spawn target of
+    ``tests/test_torch_cuda.py``): the reduced static (2, 2) round on
+    replicas (1, 2, 2) over rank grid ``mesh.rank_grid`` of ``world``
+    ranks in deterministic mode, with the launch counts set to 0 just
+    before; writes the gathered round (on the CPU) and the launches to
+    ``outdir/rank<r>.pt``."""
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        grid = mesh_lib.rank_grid(TRAIN_REPS, world)
+        hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, ranks=grid)
+        cfg, p0, batch, kw = card_train_setup(hm.device)
+        step, _, _ = train.make_hfl_train_step(cfg, hm, **kw)
+        params = train.lift_params(p0, *hm.block)
+        ops.reset_launches()
+        with deterministic_algorithms():
+            params = step(params, batch)
+        launches = dict(ops.LAUNCHES)
+        whole = _flat(mesh_lib.gather_params(params, hm))
+        torch.save({"launches": launches, "device": str(hm.device),
+                    "grid": grid, "round": {k: v.cpu()
+                                            for k, v in whole.items()}},
+                   os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
 def _rank(rank: int, world: int, inputs: str, outdir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -707,6 +1045,7 @@ def _rank(rank: int, world: int, inputs: str, outdir: str) -> None:
     try:
         with open(inputs, "rb") as f:
             inp = pickle.load(f)
+        inp["outdir"] = outdir
         res = {name: fn(world, inp) for name, worlds, fn in CASES
                if world in worlds}
         with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:

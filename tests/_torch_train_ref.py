@@ -6,7 +6,9 @@ replica (0, 0, 0)'s parameters and the bitwise equality of the four
 replicas to ``<outdir>/<case>.npz``, and the initial parameters to
 ``<outdir>/init-<arch>-<act>.npz``.
 
-    python tests/_torch_train_ref.py <outdir>
+    python tests/_torch_train_ref.py <outdir> [case ...]
+
+runs the named cases only, when some are named.
 """
 import dataclasses
 import os
@@ -68,7 +70,7 @@ def _flat(tree, prefix=""):
     return out
 
 
-def main(outdir: str) -> None:
+def main(outdir: str, only=()) -> None:
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -82,6 +84,8 @@ def main(outdir: str) -> None:
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 2, 2, 1, 1),
                 mesh_lib.HFL_AXES)
     for case, arch, act, dynamic, chunked, coll in CASES:
+        if only and case not in only:
+            continue
         cfg = config(arch, act, configs)
         model = build_model(cfg)
         p0 = model.init(jax.random.PRNGKey(0))
@@ -107,4 +111,4 @@ def main(outdir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2:])

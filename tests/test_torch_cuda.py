@@ -1032,6 +1032,74 @@ def test_sharded_gloo_two_ranks_cnn_round_bitwise_on_card(cuda_dev,
     assert torch.equal(torch.cat([r["bank"] for r in res]), bank)
 
 
+def test_sharded_gloo_two_ranks_snapshot_resume_bitwise_on_card(cuda_dev,
+                                                               tmp_path):
+    """A sharded snapshot on the card: the deterministic faulty MNIST
+    ``AsyncHFLEnv`` (``_torch_dist_driver.CARD_SNAP_CFG``) on two gloo
+    ranks spawned on the one card, saved after 3 events: the resumed env
+    runs the last 3 bitwise the uninterrupted run (events, global vector,
+    each rank's bank rows), which is the one-device run's; the sharded
+    snapshot's arrays are bitwise the one-device env's snapshot at the
+    same event."""
+    import torch.multiprocessing as mp
+    import _torch_dist_driver as drv
+    mp.spawn(drv.card_snapshot, args=(2, _free_port(), str(tmp_path)),
+             nprocs=2, join=True)
+    env = drv.card_snapshot_env(None)
+    env.reset()
+    drv._events(env, drv.SNAP_AT)
+    store.save_runtime(env, str(tmp_path / "one"))
+    one = drv._events(env, drv.TRAJ_RUNS["faults"] - drv.SNAP_AT)
+    res = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    for r in res:
+        assert r["device"].startswith("cuda")
+        for run in (r["whole"], r["resumed"]):
+            assert run["traj"] == one["traj"]
+            assert np.array_equal(run["gvec"], one["gvec"])
+            assert run["rows"] == [4]
+    for run in ("whole", "resumed"):
+        assert np.array_equal(np.concatenate([r[run]["bank"] for r in res]),
+                              one["bank"])
+    with np.load(tmp_path / "one.npz") as a, \
+            np.load(tmp_path / "snap.npz") as b:
+        assert a.files == b.files
+        assert all(np.array_equal(a[k], b[k]) for k in a.files)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_multi_rank_train_step_bitwise_on_card(cuda_dev, tmp_path, world):
+    """The reduced qwen3 (2, 2) round (f32 activations, vocab 128) on
+    replicas (1, 2, 2) over gloo ranks spawned on the one card (rank grid
+    (1, 1, 2) at 2 ranks, (1, 2, 2) at 4) in deterministic mode: every
+    leaf of every replica bitwise the one-device card round from the same
+    seed-0 weights and batch, (g2 + 1) ``segment_agg`` and
+    ``segment_broadcast`` launches per leaf on each rank."""
+    import torch.multiprocessing as mp
+    import _torch_dist_driver as drv
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    mp.spawn(drv.card_train, args=(world, _free_port(), str(tmp_path)),
+             nprocs=world, join=True)
+    cfg, p0, batch, kw = drv.card_train_setup(cuda_dev)
+    step, _, _ = train.make_hfl_train_step(
+        cfg, mesh_lib.make_hfl_mesh(drv.TRAIN_REPS, device=cuda_dev), **kw)
+    with deterministic_algorithms():
+        want = drv._flat(step(train.lift_params(p0, *drv.TRAIN_REPS),
+                              batch))
+    n = len(want) * (kw["g2"] + 1)
+    for r in range(world):
+        res = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert res["device"].startswith("cuda")
+        assert res["grid"] == mesh_lib.rank_grid(drv.TRAIN_REPS, world)
+        assert res["launches"]["segment_agg"] == n
+        assert res["launches"]["segment_broadcast"] == n
+        assert sorted(res["round"]) == sorted(want)
+        assert all(torch.equal(res["round"][k], v.cpu())
+                   for k, v in want.items())
+
+
 # ---------------------------------------------------------------------------
 # the LLM train step
 # ---------------------------------------------------------------------------

@@ -13,10 +13,12 @@ that function. Banks come back as each rank's rows; no rank may hold
 more than ``N/k`` of them.
 """
 import functools
+import json
 import os
 import pickle
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -24,12 +26,16 @@ import numpy as np
 import pytest
 import torch
 import _torch_dist_driver as drv
+import _torch_train_ref as tref
 from _subproc import REPO, child_env
 from _torch_parity import (jax_async_perm_sources, jax_env_perm_source,
                            jax_fedavg_perms, jax_round_perms)
 
+from repro import configs as jconfigs
 from repro.core import hfl as jhfl
+from repro.core import sync as jsync
 from repro.kernels import ref as jref
+from repro.models import build_model as j_build_model
 from repro.models import model as jmodel
 from repro.runtime import AsyncConfig as JAsyncConfig
 from repro.runtime import ChurnEvent as JChurnEvent
@@ -42,11 +48,25 @@ from repro_torch.kernels import ops, ref
 WORLDS = (1, 2, 4)
 MESH_CASES = [(w, s) for w in WORLDS for s in drv.MESHES[w]]
 MESH_IDS = [f"{s[0]}x{s[1]}" for _, s in MESH_CASES]
+F32_TOL = 1e-4                   # tests/test_torch_train.py's step bound
 SEED = drv.TRAJ_CFG["seed"]
 G = drv.TRAJ_CFG["gamma_max"]
 N = drv.TRAJ_CFG["n_devices"]
 N_LOCAL = drv.TRAJ_CFG["n_local"]
 VERSIONS = 8                     # edge-round shuffles for versions 0..7
+# the reference's train-step cases the multi-rank step is held against
+TRAIN_CASES = {False: "qwen3-f32-static", True: "qwen3-f32-dynamic"}
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flat_tree(v, key) if isinstance(v, dict)
+                   else {key: np.asarray(v)})
+    return out
+
+
 def _inputs() -> dict:
     """The reference's draws for the rounds and the envs, as numpy."""
     perm_source, edge_perm_source = jax_async_perm_sources(
@@ -63,6 +83,11 @@ def _inputs() -> dict:
                         for v in range(VERSIONS)],
         "env_perms": [env_source().numpy()
                       for _ in range(drv.ENV_ROUNDS + 1)],
+        # the reference's initial parameters of the reduced train step,
+        # as its child process draws them
+        "train_init": _flat_tree(jax.jit(j_build_model(tref.config(
+            drv.TRAIN_ARCH, "float32", jconfigs)).init)(
+                jax.random.PRNGKey(0))),
     }
 
 
@@ -78,8 +103,11 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{world: [rank 0's results, rank 1's, ...]}: the three worlds run
-    at once, one driver process each, while this process computes the
+    """{world: [rank 0's results, rank 1's, ...]}, and under "dirs" each
+    world's directory and the reference's train-step results: the three
+    worlds run at once, one driver process each, beside the reference's
+    two reduced qwen3 train steps in a child process with 4 host devices
+    (``tests/_torch_train_ref.py``), while this process computes the
     reference's env runs."""
     root = tmp_path_factory.mktemp("dist")
     inputs = root / "inputs.pkl"
@@ -93,9 +121,18 @@ def runs(tmp_path_factory):
             [sys.executable, driver, str(w), str(inputs),
              str(root / f"w{w}")], env=child_env(OMP_NUM_THREADS=1),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    (root / "train_ref").mkdir()
+    ref_proc = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "tests", "_torch_train_ref.py"),
+         str(root / "train_ref"), *TRAIN_CASES.values()],
+        env=child_env(4, OMP_NUM_THREADS=1), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
     _jtraj_all()
     _jenv_accs()
-    out = {}
+    out = {"dirs": {w: root / f"w{w}" for w in WORLDS}}
+    _, err = ref_proc.communicate(timeout=900)
+    assert ref_proc.returncode == 0, err[-4000:]
+    out["dirs"]["train_ref"] = root / "train_ref"
     for w, p in procs.items():
         _, err = p.communicate(timeout=900)
         assert p.returncode == 0, err[-4000:]
@@ -210,11 +247,14 @@ def test_entry_points_take_a_context_only(runs):
 
 
 def test_ledger_mesh_and_sharded_snapshot(runs):
+    """The ledger's mesh description; ``save_runtime`` of an analytic env
+    under a one-rank mesh no longer raises and writes the one-device
+    env's snapshot: every array and the JSON equal."""
     c = runs[1][0]["context"]
     assert c["mesh_desc"] == {"axes": ["edge", "fl"],
                               "shape": {"edge": 1, "fl": 1}}
     assert c["single_desc"] == "single-chip"
-    assert c["snapshot"]
+    assert c["snapshot"] == (True, True)
 
 
 # ---------------------------------------------------------------------------
@@ -711,3 +751,195 @@ def test_deterministic_edge_round_trains_its_edge_chunks_only():
     _, _, edges = cloud(start, x, y, sizes, ea, np.ones(m), np.ones(m),
                         perms)
     assert torch.equal(vec, edges["w"][1].reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# sharded snapshots, share on a sharded env, the multi-rank train step and
+# the mesh functions
+# ---------------------------------------------------------------------------
+
+SNAP_LAYOUTS = [(2, (2, 1)), (4, (4, 1)), (4, (2, 2))]
+SNAP_IDS = [f"{s[0]}x{s[1]}" for _, s in SNAP_LAYOUTS]
+
+
+def _npz(path) -> dict:
+    with np.load(f"{path}.npz") as d:
+        return {k: d[k] for k in d.files}
+
+
+@pytest.mark.parametrize("world,shape", SNAP_LAYOUTS, ids=SNAP_IDS)
+def test_sharded_snapshot_resume_is_uninterrupted_bitwise(runs, world,
+                                                          shape):
+    """``TRAJ_CFG``'s faulty trajectory in deterministic mode on k ranks,
+    saved after 3 of its 6 events: a fresh sharded env that loads the
+    snapshot runs the other 3 with every event, the global vector and
+    every rank's bank rows bitwise the uninterrupted run's, N/k rows on
+    each rank; the uninterrupted run is the one-device run's, bitwise."""
+    res = [r["snapshot"][shape] for r in runs[world]]
+    for r in res:
+        assert r["resumed"]["traj"] == r["whole"]["traj"]
+        assert _same(r["resumed"]["gvec"], r["whole"]["gvec"])
+        assert _same(r["resumed"]["bank"], r["whole"]["bank"])
+        assert r["resumed"]["rows"] == r["whole"]["rows"] == [N // world]
+    single = runs[1][0]["snapshot"]["single"]
+    assert single["resumed"]["traj"] == single["whole"]["traj"]
+    for r in res:
+        assert r["head"] == single["head"]
+        assert r["whole"]["traj"] == single["whole"]["traj"]
+        assert _same(r["whole"]["gvec"], single["whole"]["gvec"])
+    assert _same(_rows([r["whole"]["bank"] for r in res]),
+                 single["whole"]["bank"])
+
+
+@pytest.mark.parametrize("world,shape", [(1, (1, 1))] + SNAP_LAYOUTS,
+                         ids=["1x1"] + SNAP_IDS)
+def test_sharded_snapshot_is_the_one_device_snapshot(runs, world, shape):
+    """The files a sharded env writes at event 3 are the one-device env's
+    at the same event: the npz's keys, shapes, dtypes and values bitwise
+    (the bank gathered in row order), and the JSON equal. So the
+    one-device loaders, the port's and the reference's, read it as a
+    one-device snapshot."""
+    one = _npz(runs["dirs"][1] / "snap-single")
+    got = _npz(runs["dirs"][world] / f"snap-{shape[0]}x{shape[1]}")
+    assert sorted(got) == sorted(one)
+    assert any(k.startswith("bank/") for k in one)
+    for k in one:
+        assert got[k].dtype == one[k].dtype and _same(got[k], one[k]), k
+    with open(runs["dirs"][1] / "snap-single.json") as f:
+        want = json.load(f)
+    with open(runs["dirs"][world] / f"snap-{shape[0]}x{shape[1]}.json") as f:
+        assert json.load(f) == want
+
+
+def test_sharded_snapshot_loads_across_layouts(runs):
+    """2 ranks: the one-device snapshot of event 3 loads into a sharded
+    env and the sharded snapshot into a one-device env; each runs the
+    last 3 events bitwise the uninterrupted sharded run (the one-device
+    bank is its ranks' rows joined)."""
+    whole = [r["snapshot"][(2, 1)]["whole"] for r in runs[2]]
+    for r, w in zip(runs[2], whole):
+        into_sharded = r["snapshot"]["cross"]["into_sharded"]
+        into_single = r["snapshot"]["cross"]["into_single"]
+        assert into_sharded["traj"] == into_single["traj"] == w["traj"]
+        assert _same(into_sharded["gvec"], w["gvec"])
+        assert _same(into_single["gvec"], w["gvec"])
+        assert _same(into_sharded["bank"], w["bank"])
+        assert into_sharded["rows"] == [N // 2] and into_single["rows"] == [N]
+        assert _same(into_single["bank"], _rows([x["bank"] for x in whole]))
+
+
+@pytest.mark.parametrize("world", [4])
+def test_share_topology_sharded_matches_reference(runs, world):
+    """``share_topology`` on a sharded ``TRAJ_CFG`` env gathers the ranks'
+    labels (the one-device env's, bitwise) and returns, on every rank,
+    the reference's ``repro.core.sync.share_topology`` assignment on
+    them (called on a stub holding the labels and the config, all it
+    reads) and the one-device env's; the deterministic (2, 2) round after
+    it is bitwise the one-device round, N/k rows per rank."""
+    single = runs[world][0]["share"]["single"]
+    stub = types.SimpleNamespace(
+        fed=types.SimpleNamespace(y=single["y"]),
+        cfg=types.SimpleNamespace(n_devices=N,
+                                  n_edges=drv.TRAJ_CFG["n_edges"]))
+    want = jsync.share_topology(stub)
+    assert np.array_equal(single["assign"], want)
+    for r in runs[world]:
+        sh = r["share"]["sharded"]
+        assert _same(sh["y"], single["y"])
+        assert np.array_equal(sh["assign"], want)
+        assert sh["acc"] == single["acc"] and _same(sh["gvec"],
+                                                    single["gvec"])
+        assert sh["rows"] == [N // world]
+    assert _same(_rows([r["share"]["sharded"]["bank"] for r in runs[world]]),
+                 single["bank"])
+
+
+TRAIN_LAYOUTS = [(1, (1, 1, 1)), (2, (1, 1, 2)), (2, (1, 2, 1)),
+                 (4, (1, 2, 2))]
+TRAIN_IDS = ["one-device"] + [f"{w}ranks-{g[0]}{g[1]}{g[2]}"
+                              for w, g in TRAIN_LAYOUTS[1:]]
+
+
+def _train_launches(block, coords, dynamic: bool, n_leaves: int) -> dict:
+    """One rank's launches of each kernel in a round: an Eq. 1 per edge
+    period in which one of its edges is active (one broadcast, or one per
+    active (pod, edge) when not all are), and Eq. 2."""
+    agg = bcast = 1 + (tref.STATIC["g2"] if not dynamic else 0)
+    if dynamic:
+        be, e0 = block[1], coords[1] * block[1]
+        for t2 in range(tref.DYNAMIC["max_g2"]):
+            act = (t2 < tref.G2E)[e0:e0 + be]
+            if act.any():
+                agg += 1
+                bcast += 1 if act.all() else int(act.sum()) * block[0]
+    return {"segment_agg": agg * n_leaves,
+            "segment_broadcast": bcast * n_leaves}
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("world,grid", TRAIN_LAYOUTS, ids=TRAIN_IDS)
+def test_multi_rank_train_step_matches_reference(runs, world, grid,
+                                                  dynamic):
+    """Reduced qwen3 (f32 activations, ``tests/_torch_train_ref.py``'s
+    settings) on replicas (1, 2, 2) spread over the rank grid, one
+    static (2, 2) round or the dynamic one: every leaf of replica (0, 0,
+    0) within 1e-4 of the reference's jitted step, plain and in
+    deterministic mode; in deterministic mode bitwise the one-device port
+    step; all four replicas bitwise equal on every rank after the round;
+    each rank's block, and its ``segment_agg`` (partial) and
+    ``segment_broadcast`` launches as its edges imply: (g2 + 1) per leaf
+    of each in the static round."""
+    want = np.load(runs["dirs"]["train_ref"] / f"{TRAIN_CASES[dynamic]}.npz")
+    keys = sorted(k for k in want.files if k != "__replicas_equal__")
+    one = runs[1][0]["train"][((1, 1, 1), dynamic, True)]["replica0"]
+    block = tuple(d // g for d, g in zip(drv.TRAIN_REPS, grid))
+    for det in (False, True):
+        res = [r["train"][(grid, dynamic, det)] for r in runs[world]]
+        got = res[0]["replica0"]
+        assert sorted(got) == keys
+        for k in keys:
+            _close(got[k], want[k], F32_TOL, F32_TOL)
+        for rank, r in enumerate(res):
+            coords = tuple(int(c) for c in np.unravel_index(rank, grid))
+            assert r["replicas_equal"] and r["block"] == block
+            assert r["coords"] == coords
+            assert r["launches"] == _train_launches(block, coords, dynamic,
+                                                    len(keys))
+        if det:
+            assert _same(got, one)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_functions_over_the_ranks(runs, world):
+    """``rank_grid`` fills the fl axis first; the HFL mesh's replicas,
+    rank grid, rank order (row-major), coordinates, blocks and fl group;
+    ``derive_bank_mesh`` (pod 0's ``(edge, fl)`` plane) placing and
+    gathering bank rows; ``derive_hfl_mesh`` over the world's devices and
+    its ``ValueError``/``NotImplementedError`` (fsdp/tp above 1: the
+    tensor plane); ``shardings`` of replica specs, ``place_params`` and
+    ``gather_params``; a tp-sharded spec raising; the production mesh
+    raising below 256 ranks."""
+    grid = {1: (1, 1, 1), 2: (1, 1, 2), 4: (1, 2, 2)}[world]
+    block = tuple(d // g for d, g in zip(drv.TRAIN_REPS, grid))
+    bank = np.arange(48, dtype=np.float32).reshape(16, 3)
+    whole = np.arange(24, dtype=np.float32).reshape(1, 2, 2, 6)
+    for rank, r in enumerate(runs[world]):
+        m = r["mesh"]
+        coords = tuple(int(c) for c in np.unravel_index(rank, grid))
+        idx = tuple(slice(c * b, (c + 1) * b) for c, b in zip(coords, block))
+        assert m["grid"] == grid
+        assert m["hfl"] == ({"pod": 1, "edge": 2, "fl": 2, "fsdp": 1,
+                             "tp": 1}, grid, rank, coords, block, grid[2] > 1)
+        assert m["bank"] == ({"edge": grid[1], "fl": grid[2]}, world, rank)
+        per = 16 // world
+        assert _same(m["bank_rows"], bank[rank * per:(rank + 1) * per])
+        assert _same(m["bank_gathered"], bank)
+        assert all(m["derive_errors"])
+        if world > 1:
+            assert m["derived"] == {"pod": 1, "edge": world, "fl": 1,
+                                    "fsdp": 1, "tp": 1}
+            assert m["derive_tp"]
+        assert m["shardings"] == {"a": {"w": idx + (slice(None),)},
+                                  "b": idx}
+        assert _same(m["place"][0], whole[idx]) and m["place"][1]
+        assert m["gather"] and m["shardings_tp"] and m["production"]

@@ -470,26 +470,70 @@ def test_guard_divisibility_matches_reference():
 
 
 def test_hfl_mesh_one_device():
-    """``make_hfl_mesh`` puts every replica on one device (fsdp = tp =
-    1; more raises, item 10 (b)); ``derive_hfl_mesh`` raises ValueError
-    when the topology does not factor the devices, as the reference
-    does."""
+    """``make_hfl_mesh`` with no rank grid puts every replica on one
+    device (fsdp = tp = 1; more raises, the tensor plane of item 10
+    (b)); ``derive_hfl_mesh`` raises ValueError when the topology does
+    not factor the devices, as the reference does, and over two devices
+    needs a two-rank process group (``tests/test_torch_sharded.py::
+    test_mesh_functions_over_the_ranks`` runs it in one) instead of
+    raising NotImplementedError."""
     hm = mesh.make_hfl_mesh((1, 2, 2), device="cpu")
     assert hm.axis_names == mesh.HFL_AXES == jmesh.HFL_AXES
     assert hm.shape == {"pod": 1, "edge": 2, "fl": 2, "fsdp": 1, "tp": 1}
     assert mesh.n_replicas(hm) == (1, 2, 2)
+    assert (hm.grid, hm.n_ranks, hm.coords, hm.block) == \
+        ((1, 1, 1), 1, (0, 0, 0), (1, 2, 2))
     assert (mesh.REPLICA_AXES, mesh.TENSOR_AXES, mesh.SERVE_AXES) == \
         (jmesh.REPLICA_AXES, jmesh.TENSOR_AXES, jmesh.SERVE_AXES)
     with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
         mesh.make_hfl_mesh((1, 2, 2), tp=4, device="cpu")
     with pytest.raises(ValueError, match="does not factor"):
         mesh.derive_hfl_mesh(["cpu"], (2, 1, 1, 1))
-    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         mesh.derive_hfl_mesh(["cpu", "cpu"], (2, 1, 1, 1))
+    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+        mesh.derive_hfl_mesh(["cpu", "cpu"], (1, 1, 1, 2))
     assert mesh.derive_hfl_mesh(["cpu"], (1, 1, 1, 1)).shape["edge"] == 1
     if not torch.cuda.is_available():         # the default is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mesh.make_hfl_mesh((1, 2, 2))
+
+
+def test_production_layouts_match_reference():
+    """``make_production_mesh`` and ``derive_serve_mesh`` give the shapes
+    of the reference's ``tests/test_sharding.py::
+    test_make_production_mesh_shapes`` with the ranks in row-major
+    order; below 256 (512) ranks they raise ValueError, as
+    ``jax.make_mesh`` does. The reference's ``derive_hfl_mesh(m2, (4, 4,
+    1, 16))`` shards each replica over tp = 16 (``{"pod": 2, "edge": 4,
+    "fl": 4, "fsdp": 1, "tp": 16}``): the port raises NotImplementedError
+    there (the tensor plane), and so does ``shardings`` of a tp-sharded
+    spec over the serve layout."""
+    m1 = mesh.make_production_mesh(n_ranks=512)
+    assert m1.shape == {"data": 16, "model": 16}
+    assert np.array_equal(m1.ranks, np.arange(256).reshape(16, 16))
+    m2 = mesh.make_production_mesh(multi_pod=True, n_ranks=512)
+    assert m2.shape == {"pod": 2, "data": 16, "model": 16}
+    assert np.array_equal(m2.ranks, np.arange(512).reshape(2, 16, 16))
+    s = mesh.derive_serve_mesh(m1, 8)
+    assert s.shape == {"pod": 1, "batch": 32, "tp": 8}
+    assert np.array_equal(s.ranks, np.arange(256).reshape(1, 32, 8))
+    assert mesh.derive_serve_mesh(m2, 16).shape == {"pod": 2, "batch": 16,
+                                                    "tp": 16}
+    with pytest.raises(ValueError, match="needs 512 ranks"):
+        mesh.make_production_mesh(multi_pod=True, n_ranks=256)
+    with pytest.raises(ValueError, match="needs 256 ranks, have 1"):
+        mesh.make_production_mesh()
+    with pytest.raises(ValueError, match="does not divide"):
+        mesh.derive_serve_mesh(m1, 7)
+    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+        mesh.derive_hfl_mesh(["cpu"] * 512, (4, 4, 1, 16), n_pods=2)
+    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+        mesh.shardings(s, {"w": (None, "tp")})
+    assert mesh.rank_grid((1, 2, 2), 2) == (1, 1, 2)
+    assert mesh.rank_grid((2, 4, 2), 8) == (1, 4, 2)
+    with pytest.raises(ValueError, match="do not divide"):
+        mesh.rank_grid((1, 2, 2), 3)
 
 
 # ---------------------------------------------------------------------------
