@@ -18,8 +18,9 @@ Phases, each fatal on failure (the script exits non-zero):
    with 5 edges and Eq. 2 with 1, and the async flushes: one segment over
    K = 3 CIFAR or K = 2 MNIST updates) in f32 and with a bf16 bank, plus
    a ragged case with an empty segment, and at the LLM train step's
-   largest edge mean (4 x 352,321,536 f32, 2 edges) and phase 3k's
-   per-rank partial of it (2 x 352,321,536, ``segment_sum_partial``):
+   largest edge mean (4 x 352,321,536 f32, 2 edges), phase 3k's
+   per-rank partial of it (2 x 352,321,536, ``segment_sum_partial``)
+   and phase 3l's tp rank's edge mean (4 x 88,080,384, 2 edges):
    ``segment_agg`` and the partial within atol = rtol
    = 1e-5 (the kernel sums rows in order with fmaf, the plain version
    with ``index_add_``; the orders differ), ``segment_broadcast``
@@ -62,7 +63,7 @@ Phases, each fatal on failure (the script exits non-zero):
    walls of both modes printed; (c) ``AsyncHFLEnv`` real at
    the paper's CIFAR width (buffer_k 3, poly decay, 30 s flush deadline)
    with drops, transient retries, an outage and a leave + join of edge 4,
-   40 events: every applied flush within 1e-5 of the numpy oracle on its
+   20 events: every applied flush within 1e-5 of the numpy oracle on its
    buffered vectors, the joined edge's rows the global model and the
    others bitwise, launches as the events imply (per landed upload
    1 + gamma2 and gamma2, per applied flush one ``segment_agg``, per
@@ -72,7 +73,8 @@ Phases, each fatal on failure (the script exits non-zero):
    ``async-arena``, each with its launches held;
 3e. checkpoints, telemetry, health and the ledger
    (``repro_torch.checkpoint.store``, ``repro_torch.telemetry``) at the
-   paper's CIFAR width in deterministic mode with phase 3d (c)'s faults:
+   paper's CIFAR width in deterministic mode with ``_obs_env``'s faults
+   (phase 3d (c)'s rates; the outage and churn at 150-320 s):
    (a) 8 events at action (1, 1) with telemetry, health and ``ktime``
    off, then on: every event's (reward, acc, edge, flushed), the global
    vector and the bank bitwise equal, ``ktime``'s call counts equal to
@@ -135,7 +137,10 @@ Phases, each fatal on failure (the script exits non-zero):
    ``segment_agg`` and ``segment_broadcast`` launches held to (g2 + 1)
    per leaf, every leaf bitwise equal across the replicas, replica 0's
    loss before and after, seconds per round and per SGD step, peak
-   memory beside the 45 GB reckoning; (c) in deterministic mode a
+   memory beside the 45 GB reckoning; (b') the same round with KV
+   chunks of 64, another summation order: replica 0's loss and per-leaf
+   sums against (b)'s, the bf16 round's own response to a reordering,
+   which bounds phase 3l's loss; (c) in deterministic mode a
    dynamic round at g1e = g2e = 2 bitwise the static (2, 2) round, then
    a dynamic round with the reference main's seeded draws, launches
    held; (d) one (1, 1) round at seq 4096 (train_4k), one sequence per
@@ -145,10 +150,10 @@ Phases, each fatal on failure (the script exits non-zero):
    a sharded env, ``sync.share_topology``, the multi-rank ``HFLMesh`` of
    ``launch.mesh`` and ``launch.train``), on a 120 s budget, gloo ranks
    spawned on the one card (4, then 2) against one-device references
-   computed in this process first: (a) phase 3d (c)'s faulty CIFAR
+   computed in this process first: (a) phase 3e's faulty CIFAR
    ``AsyncHFLEnv`` in deterministic mode at action (1, 1) on 2 ranks,
-   ``save_runtime`` after 20 events, ``load_runtime`` into a fresh
-   sharded env, events 21-40 bitwise the uninterrupted 2-rank run and
+   ``save_runtime`` after 10 events, ``load_runtime`` into a fresh
+   sharded env, events 11-20 bitwise the uninterrupted 2-rank run and
    the one-device run (events, global vector, bank), the sharded
    snapshot's arrays bitwise the one-device snapshot's, its MB and save
    and load seconds; (b) ``share_topology`` at the MNIST defaults on 2
@@ -166,6 +171,22 @@ Phases, each fatal on failure (the script exits non-zero):
    step, the gloo ``all_reduce`` milliseconds of one Eq. 1 and one
    Eq. 2, each rank's peak memory within ``REPLICA_MEM_GB``; it prints
    its wall;
+3l. the tensor plane (``models.tp``, the tp axis of ``launch.mesh``'s
+   ``HFLMesh``, the train step over it): full-width qwen3-1.7b (f32
+   weights from seed 0, bf16 activations), each of replicas (1, 2, 2)
+   split over 4 gloo tp ranks spawned on the one card (the published
+   topology's T = 4; NCCL cannot put several ranks on one card), each
+   rank drawing the seed-0 replica on the card in turn and keeping its
+   tp blocks: one static (2, 2) round at phase 3g (b)'s settings,
+   (g2 + 1) launches of each kernel per leaf on every rank (Eq. 1 and
+   Eq. 2 on the rank's blocks of its 4 replicas), every replica and
+   every replicated leaf (norms, ``q_norm``, ``k_norm``) bitwise equal
+   across the ranks, replica (0, 0, 0) gathered whole on rank 0, its
+   per-leaf sums of squares and sums within ``REPLICA_REL`` of 3g (b)'s
+   round and its loss no farther from 3g (b)'s than 3g (b')'s (a split
+   product sums in another order, and a bf16 round's loss moves with
+   any summation order); the round's wall, the gloo ``all_reduce`` seconds
+   over the tp group and each rank's peak memory within ``TP_MEM_GB``;
 3b. the LLM serving path: a reduced qwen3, rwkv6, olmoe, zamba2,
    whisper and qwen2-vl (f32 activations; the last two with their stub
    inputs) served on the card against the CPU; then the main path,
@@ -224,13 +245,15 @@ Phases, each fatal on failure (the script exits non-zero):
    its resync and Eq. 2, and the flushes with ``torch.mv`` as the
    library call; the JSON line has CIFAR and MNIST Eq. 1 rows and the
    CIFAR flush row for ``segment_agg``, and phase 3f's sharded Eq. 1
-   row), at phase 3g's LLM edge mean (both kernels, ``torch.mean``
-   over the replica axis and a ``copy_`` of the expanded means as the
-   library calls, CUDA events around 10 calls) and at phase 3k's
-   per-rank partial of the full-width Eq. 1 (2 x 352,321,536 -> 2,
-   ``torch.sum`` over each edge's rows as the library call): device
-   time per launch from CUDA events around a CUDA-graph replay, beside the plain version's, one PyTorch library
-   call's, the bound (bytes over 3.35 TB/s), and the eager wrapper's
+   row), at phase 3g's LLM edge mean and phase 3l's tp rank's (4 x
+   88,080,384 -> 2; both kernels, ``torch.mean`` over the replica axis
+   and a ``copy_`` of the expanded means as the library calls, CUDA
+   events around 10 calls) and at phase 3k's per-rank partial of the
+   full-width Eq. 1 (2 x 352,321,536 -> 2, ``torch.sum`` over each
+   edge's rows as the library call): device time per launch from CUDA
+   events around a CUDA-graph replay, beside the plain version's, one
+   PyTorch library call's, the bound (bytes over 3.35 TB/s), and the
+   eager wrapper's
    time per call as the round pays it (host dispatch included);
 4b. the same for ``flash_attention`` (qwen3 prefill and decode, olmoe
    prefill and decode, qwen3's windowed prefill and ring decode, zamba2's
@@ -437,14 +460,17 @@ LLM_AGG = ("llm-edge-mean", 4, 28 * 2048 * 6144, 2)
 # phase 3k's full-width Eq. 1 on 2 ranks: a rank's partial launch
 # (segment_sum_partial) over its 2 replicas of that leaf, one per edge
 LLM_PARTIAL = ("llm-eq1-partial-k2", 2, 28 * 2048 * 6144, 2)
+# phase 3l's Eq. 1 on a tp rank: its quarter of that leaf (w_gate's
+# columns split over 4 tp ranks) over the 4 replicas it holds
+LLM_TP = ("llm-edge-mean-tp4", 4, 28 * 2048 * 6144 // 4, 2)
 
 
-def llm_agg_check(torch, ops, ref, dev) -> dict:
-    """Phase 2 at the LLM edge-mean shape: ``segment_agg`` within AGG_TOL
-    of its plain version, ``segment_broadcast`` bitwise, two runs of each
-    bitwise equal; returns the max abs errors."""
-    name, n, p, e = LLM_AGG
-    gen = torch.Generator(device=dev).manual_seed(5)
+def _edge_mean_check(torch, ops, ref, dev, shape, seed: int) -> float:
+    """``segment_agg`` within AGG_TOL of its plain version and
+    ``segment_broadcast`` bitwise at an LLM edge-mean ``shape``, two runs
+    of each bitwise equal; returns the max abs error."""
+    name, n, p, e = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
     bank = torch.randn((n, p), generator=gen, device=dev)
     w = torch.ones((n,), device=dev)
     seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
@@ -463,9 +489,24 @@ def llm_agg_check(torch, ops, ref, dev) -> dict:
           f"segment_broadcast {name}: two runs differ")
     print(f"  {name:13s} torch.float32  N={n:3d} P={p:,} E={e}  segment_agg "
           f"max|err| {d:.3e}  broadcast bitwise")
+    return d
+
+
+def llm_agg_check(torch, ops, ref, dev) -> dict:
+    """Phase 2 at the LLM shapes: the edge means of phases 3g and 3l
+    (``_edge_mean_check``) and phase 3k's partial, within AGG_TOL of its
+    plain version; returns the max abs errors keyed (kernel, shape)."""
+    err = {}
+    for shape, seed in ((LLM_AGG, 5), (LLM_TP, 7)):
+        err[("segment_agg", shape[0])] = _edge_mean_check(
+            torch, ops, ref, dev, shape, seed)
+        err[("segment_broadcast", shape[0])] = 0.0
+        torch.cuda.empty_cache()
     name, n, p, e = LLM_PARTIAL
-    part, pw, pseg = bank[:n], w[:n], torch.arange(e, dtype=torch.int32,
-                                                   device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    part = torch.randn((n, p), generator=gen, device=dev)
+    pw = torch.ones((n,), device=dev)
+    pseg = torch.arange(e, dtype=torch.int32, device=dev)
     sums, wsum = ops.segment_sum_partial(part, pw, pseg, e)
     want = ref.segment_scaled_sum_ref(part, pw, pseg,
                                       torch.ones(e, device=dev), e)
@@ -475,10 +516,10 @@ def llm_agg_check(torch, ops, ref, dev) -> dict:
           f"segment_sum_partial {name}: max abs err {dp}")
     print(f"  {name:13s} torch.float32  N={n:3d} P={p:,} E={e}  "
           f"segment_sum_partial max|err| {dp:.3e}, weight sums bitwise")
-    del bank, got, out, sums, want
+    del part, sums, want
     torch.cuda.empty_cache()
-    return {"segment_agg": d, "segment_broadcast": 0.0,
-            "segment_sum_partial": dp}
+    err[("segment_sum_partial", name)] = dp
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -853,9 +894,15 @@ FLUSH_TOL = 1e-5
 # mode trains the active rows only; its gap is printed, not held
 EDGE_G1, EDGE_G2 = np.array([2, 1, 3, 2, 1]), np.array([1, 2, 2, 1, 2])
 # phase 3d (c): the paper's CIFAR width in real mode; the fault windows
-# and the deadline fall inside the first 40 events (simulated 92-460 s)
+# and the deadline fall inside the first 20 events (simulated 102-284 s):
+# an outage of edge 1 (start, length) and edge 4 leaving and rejoining.
+# Until the whole script passed 900 s (phase 3l) it ran 40 events with
+# the outage at [150, 230) s and the churn at 200 and 320 s; the
+# compressed schedule keeps its degraded flushes, drops, retries and join
 ASYNC_FAULTS = dict(drop_prob=0.1, transient_prob=0.2, seed=0)
-ASYNC_EVENTS = 40
+ASYNC_EVENTS = 20
+ASYNC_OUTAGE = (110.0, 60.0)
+ASYNC_CHURN = (130.0, 200.0)
 # phase 3d (d): T cut to 40 s (phase 3c: 100 s; paper 3000 s; 80 s
 # until the whole script passed 800 s on a slower host: the agent's
 # episode is then about 12 events, not 54) and async-fedavg to 5 events,
@@ -1113,15 +1160,17 @@ def async_drive(torch, ops, env, log, label: str, fn):
 def faulty_cifar_run(torch, ops, ref, runtime, env_mod, cfg) -> dict:
     """(c) ``AsyncHFLEnv`` real at the paper's CIFAR width (buffer_k 3,
     poly decay, a 30 s flush deadline) with faults: drop 0.1, transient
-    0.2, an outage of edge 1 over [150, 230) s, edge 4 leaving at 200 s
-    and rejoining at 320 s. 40 events at action (2, 2). Every applied
+    0.2, an outage of edge 1 (``ASYNC_OUTAGE``), edge 4 leaving and
+    rejoining (``ASYNC_CHURN``); ``ASYNC_EVENTS`` events at action (2,
+    2). Every applied
     flush within FLUSH_TOL of the numpy oracle on its buffered vectors;
     at the join, edge 4's rows become the global model and every other
     row stays bitwise; launches as the events imply."""
     spec = runtime.FaultSpec(
-        outages=(runtime.Outage(1, 150.0, 80.0),),
-        churn=(runtime.ChurnEvent(200.0, 4, "leave"),
-               runtime.ChurnEvent(320.0, 4, "join")), **ASYNC_FAULTS)
+        outages=(runtime.Outage(1, *ASYNC_OUTAGE),),
+        churn=(runtime.ChurnEvent(ASYNC_CHURN[0], 4, "leave"),
+               runtime.ChurnEvent(ASYNC_CHURN[1], 4, "join")),
+        **ASYNC_FAULTS)
     t0 = time.perf_counter()
     env = env_mod.AsyncHFLEnv(
         cfg, runtime.AsyncConfig(buffer_k=3, decay="poly",
@@ -1129,8 +1178,9 @@ def faulty_cifar_run(torch, ops, ref, runtime, env_mod, cfg) -> dict:
     c = env.cfg
     print(f"  (c) AsyncHFLEnv, CIFAR: {c.n_devices} devices, {c.n_edges} "
           f"edges, n_local {c.n_local}, buffer_k 3, poly decay, deadline "
-          f"30 s, faults {ASYNC_FAULTS}, outage edge 1 [150, 230) s, edge 4"
-          f" leaves 200 s, joins 320 s; setup "
+          f"30 s, faults {ASYNC_FAULTS}, outage edge 1 [{ASYNC_OUTAGE[0]:g}, "
+          f"{sum(ASYNC_OUTAGE):g}) s, edge 4 leaves {ASYNC_CHURN[0]:g} s, "
+          f"joins {ASYNC_CHURN[1]:g} s; {ASYNC_EVENTS} events; setup "
           f"{sync_time(torch) - t0:.2f} s")
     flush_errs, joins = [], []
     flush = runtime.StalenessBuffer.flush
@@ -1249,7 +1299,9 @@ OBS_ACTION = np.array([1.0, 1.0])
 
 def _obs_env(torch, env_mod, runtime, cfg, on: bool):
     """The paper's CIFAR ``AsyncHFLEnv`` in deterministic mode with phase
-    3d (c)'s faults, telemetry and health on or off."""
+    3d (c)'s fault rates, an outage of edge 1 over [150, 230) s and edge
+    4 leaving at 200 s and rejoining at 320 s, telemetry and health on or
+    off."""
     spec = runtime.FaultSpec(
         outages=(runtime.Outage(1, 150.0, 80.0),),
         churn=(runtime.ChurnEvent(200.0, 4, "leave"),
@@ -1800,6 +1852,22 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
           f"{specs['embed']}")
     del params
 
+    # (b') the same round with KV chunks of 64: another summation order,
+    # the round's own response to it, which bounds phase 3l's loss
+    ctl, _, _ = train.make_hfl_train_step(cfg, hm, g1=2, g2=2,
+                                          **dict(kw, attn_chunk=64))
+    params, w_ctl, _ = _full_round(torch, ops, train, ctl, init(), batch)
+    ctl_loss = loss_of(params, evalb)
+    full["reorder_rel"] = _replica_rel(
+        {"loss": ctl_loss, "stats": [_leaf_stats(torch, a[0, 0, 0])
+                                     for a in train._leaves(params)]}, full)
+    del params
+    print(f"  (b') the same round with KV chunks of 64 ({w_ctl:.3f} s): loss "
+          f"{ctl_loss:.6f}; its response to that summation order: loss "
+          f"{full['reorder_rel'][0]:.3e}, per-leaf sums of squares "
+          f"{full['reorder_rel'][1]:.3e}, sums over L1 "
+          f"{full['reorder_rel'][2]:.3e} (relative to (b))")
+
     # (c) dynamic = static bitwise, deterministic mode
     dyn, _, _ = train.make_hfl_train_step(cfg, hm, dynamic=True, max_g1=3,
                                           max_g2=3, **kw)
@@ -1898,11 +1966,12 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
 # phase 3k: the replica plane over gloo ranks on the one card
 # ---------------------------------------------------------------------------
 
-# (a) phase 3d (c)'s faulty CIFAR AsyncHFLEnv in deterministic mode at phase
+# (a) phase 3e's faulty CIFAR AsyncHFLEnv in deterministic mode at phase
 # 3e's action (1, 1) (an event trains its edge's rows for one epoch, a
-# quarter of 3d's (2, 2)), saved after SNAP_EVENTS of REPLICA_EVENTS
-REPLICA_EVENTS = 40
-SNAP_EVENTS = 20
+# quarter of 3d's (2, 2)), saved after SNAP_EVENTS of REPLICA_EVENTS (40
+# and 20 until phase 3l came)
+REPLICA_EVENTS = 20
+SNAP_EVENTS = 10
 # (c) the reduced round's rank grids at 4 and 2 ranks (mesh.rank_grid), and
 # the full-width round's at 2: replicas (1, 2, 2) as blocks of (1, 2, 1),
 # so both Eq. 1 and Eq. 2 cross the ranks
@@ -2022,6 +2091,18 @@ def _leaf_stats(torch, a) -> tuple:
     """(sum, L1 norm, sum of squares) of one leaf, in f64."""
     d = a.double()
     return float(d.sum()), float(d.abs().sum()), float((d * d).sum())
+
+
+def _replica_rel(got: dict, ref: dict) -> tuple:
+    """A round's replica 0 against a reference round's ({"loss", "stats"}
+    each): the loss relative to the reference's, and the largest per-leaf
+    sum of squares relative to itself and sum relative to the leaf's L1
+    norm."""
+    return (abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            max(abs(a[2] - b[2]) / b[2]
+                for a, b in zip(got["stats"], ref["stats"])),
+            max(abs(a[0] - b[0]) / b[1]
+                for a, b in zip(got["stats"], ref["stats"])))
 
 
 def _replica_rank(rank: int, world: int, port: int, outdir: str) -> None:
@@ -2188,7 +2269,7 @@ def replica_plane(torch, ops, env_mod, runtime, sync, flatbank, store,
                 "arrays are not the one-device snapshot's")
         size_mb = sum(os.path.getsize(os.path.join(tmp, f"snap-k2.{x}"))
                       for x in ("npz", "json")) / 1e6
-        print(f"  (a) CIFAR AsyncHFLEnv, phase 3d (c)'s faults, "
+        print(f"  (a) CIFAR AsyncHFLEnv, phase 3e's faults, "
               f"deterministic, action {OBS_ACTION.tolist()}, 2 ranks of 25 "
               f"rows: save_runtime after {SNAP_EVENTS} events, "
               f"load_runtime into a fresh sharded env, events "
@@ -2240,11 +2321,7 @@ def replica_plane(torch, ops, env_mod, runtime, sync, flatbank, store,
                   f"!= {want}")
             check(r["same"], "phase 3k (c) full width: a replica differs "
                   "from rank 0's replica (0, 0, 0)")
-        rel_loss = abs(full[0]["loss"] - ref["loss"]) / abs(ref["loss"])
-        rel_sq = max(abs(a[2] - b[2]) / b[2]
-                     for a, b in zip(full[0]["stats"], ref["stats"]))
-        rel_sum = max(abs(a[0] - b[0]) / b[1]
-                      for a, b in zip(full[0]["stats"], ref["stats"]))
+        rel_loss, rel_sq, rel_sum = _replica_rel(full[0], ref)
         check(max(rel_loss, rel_sq, rel_sum) <= REPLICA_REL,
               f"phase 3k (c) full width: vs 3g (b) loss {rel_loss:.3e}, sum "
               f"of squares {rel_sq:.3e}, sum {rel_sum:.3e} > {REPLICA_REL}")
@@ -2275,6 +2352,205 @@ def replica_plane(torch, ops, env_mod, runtime, sync, flatbank, store,
     print(f"  phase 3k took {wall:.1f} s (budget {REPLICA_BUDGET_S:.0f} s); "
           f"ranks sharing one card say nothing of multi-GPU scaling")
     return {k: sum(r["counts"][k] for r in full)
+            for k in ("segment_agg", "segment_broadcast")}
+
+
+# ---------------------------------------------------------------------------
+# phase 3l: the tensor plane, each replica over 4 gloo tp ranks on the card
+# ---------------------------------------------------------------------------
+
+# qwen3-1.7b's published topology (8, 8, 1, 4) splits each replica over
+# T = 4 tp ranks; here replicas (1, 2, 2), all on every rank (rank grid
+# (1, 1, 1)), one rank per tp coordinate
+TP_WORLD = 4
+# the leaves no spec splits: every rank of a tp group holds them whole
+TP_REPLICATED = ("final_norm", "layers/ln1", "layers/ln2",
+                 "layers/attn/q_norm", "layers/attn/k_norm")
+# per rank: its quarter of four f32 replicas (8.1 GB), of one replica's
+# gradients (2.0 GB), remat's activations and bf16 casts (< 1 GB) and
+# Eq. 1's means of the largest leaf's block (0.7 GB); the staggered draw
+# of one whole replica (8.1 GB) comes before the round
+TP_MEM_GB = 14.0
+TP_BUDGET_S = 150.0
+
+
+def _flat(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def _one_leaf(path: str, leaf) -> dict:
+    """A tree holding only ``leaf`` at ``path``."""
+    for key in reversed(path.split("/")):
+        leaf = {key: leaf}
+    return leaf
+
+
+def _tp_rank(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of phase 3l, a ``torch.multiprocessing.spawn`` target:
+    a gloo group of ``world`` tp ranks on the one card. Draws the seed-0
+    qwen3-1.7b replica on the card one rank at a time and keeps its tp
+    blocks, runs one static (2, 2) round of replicas (1, 2, 2) at phase
+    3g (b)'s settings with the launch counts set to 0 just before, then
+    gathers replica (0, 0, 0) whole on rank 0 leaf by leaf and takes its
+    loss and per-leaf stats there. Writes its results to
+    ``outdir/rank<r>.pt``."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.models import model as model_mod
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, tp=world)
+        dev = hm.device
+        cfg = configs.get_config("qwen3-1.7b")
+        model = model_mod.build_model(cfg)
+        t0 = time.perf_counter()
+        for r in range(world):           # one whole replica at a time
+            if r == rank:
+                p1 = model.init(torch.Generator(device=dev).manual_seed(0),
+                                dev)
+                blocks = mesh_lib.tp_blocks(p1, hm)
+                del p1
+                torch.cuda.empty_cache()
+            dist.barrier()
+        params = train.lift_params(blocks, *hm.block)
+        del blocks
+        t_init = time.perf_counter() - t0
+        step, specs, _ = train.make_hfl_train_step(
+            cfg, hm, g1=2, g2=2, **dict(TRAIN_KW, attn_chunk=128))
+        batch = token_batch(0, 8, 128, cfg.vocab, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _AllReduceTimer(torch, dist) as timer:
+            ops.reset_launches()
+            t0 = sync_time(torch)
+            params = step(params, batch)
+            wall = sync_time(torch) - t0
+            counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        flat = _flat(params)
+        same_rep = True
+        for k in TP_REPLICATED:
+            r0 = flat[k].clone()
+            dist.broadcast(r0, src=0)
+            same_rep = same_rep and torch.equal(r0, flat[k])
+        tp_ms = timer.ms.get(hm.tp_group, [])
+        out = {"wall": wall, "peak": peak, "counts": counts,
+               "init_s": t_init, "n_leaves": len(flat),
+               "replicas_equal": _replicas_equal(torch, train, params),
+               "replicated_equal": same_rep, "block": hm.block,
+               "tp_rank": hm.tp_rank, "gloo_s": float(np.sum(tp_ms)) / 1e3,
+               "gloo_calls": len(tp_ms),
+               "shard_gb": sum(a.numel() * a.element_size()
+                               for a in flat.values()) / 1e9}
+        whole = {}
+        t0 = time.perf_counter()
+        for k, a in flat.items():
+            leaf = _flat(mesh_lib.gather_replica(_one_leaf(k, a[0, 0, 0]),
+                                                 hm, specs))[k]
+            if rank == 0:
+                whole[k] = leaf.clone()
+            del leaf
+        del params, flat
+        torch.cuda.empty_cache()
+        out["gather_s"] = time.perf_counter() - t0
+        if rank == 0:
+            one = {}
+            for k, a in whole.items():
+                d = one
+                *head, last = k.split("/")
+                for part in head:
+                    d = d.setdefault(part, {})
+                d[last] = a
+            with torch.no_grad():
+                out["loss"] = float(model.loss(
+                    one, token_batch(9999, 8, 128, cfg.vocab, device=dev)))
+            # in the tree's order, as 3g (b) takes them
+            out["stats"] = [_leaf_stats(torch, a) for a in whole.values()]
+            del one, whole
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tensor_plane(torch, trained) -> dict:
+    """Phase 3l: full-width qwen3-1.7b, each of replicas (1, 2, 2) split
+    over ``TP_WORLD`` gloo tp ranks spawned on the one card, one static
+    (2, 2) round at phase 3g (b)'s settings; held to (g2 + 1) launches of
+    each kernel per leaf on every rank, every replica and every
+    replicated leaf bitwise equal across the ranks, and replica (0, 0,
+    0) gathered whole against 3g (b)'s one-device round by
+    ``REPLICA_REL``. Returns the launches summed over the ranks."""
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_3l_", dir=os.path.join(
+        ROOT, "build"))
+    try:
+        torch.cuda.empty_cache()
+        mp.spawn(_tp_rank, args=(TP_WORLD, _free_port(), tmp),
+                 nprocs=TP_WORLD, join=True)
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(TP_WORLD)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = _agg_launches(res[0]["n_leaves"], 2)
+    for r in res:
+        got = {k: r["counts"][k] for k in want}
+        check(got == want, f"phase 3l: rank {r['tp_rank']} launches {got} "
+              f"!= {want}")
+        check(r["replicas_equal"], "phase 3l: a rank's replicas differ "
+              "after the cloud round")
+        check(r["replicated_equal"], "phase 3l: a replicated leaf differs "
+              "from tp rank 0's")
+    ref = trained["full"]
+    got = res[0]
+    rel_loss, rel_sq, rel_sum = _replica_rel(got, ref)
+    loss_bound = max(REPLICA_REL, ref["reorder_rel"][0])
+    wall = max(r["wall"] for r in res)
+    n_sgd = 2 * 2 * int(np.prod(TRAIN_REPS)) * TRAIN_KW["mb_per_epoch"]
+
+    def per_rank(key, spec):
+        return ", ".join(format(r[key], spec) for r in res)
+
+    print(f"  qwen3-1.7b full width (f32 weights, bf16 activations), "
+          f"replicas {TRAIN_REPS} on every rank, each split over "
+          f"{TP_WORLD} gloo tp ranks sharing the card, batch 8 x seq 128, "
+          f"(2, 2), remat, KV chunks of 128, plain mode: round "
+          f"{wall:.3f} s (ranks {per_rank('wall', '.3f')}), {n_sgd} SGD "
+          f"steps per rank ({wall / n_sgd:.4f} s per step); gloo "
+          f"all_reduce over the tp group {res[0]['gloo_calls']} calls, "
+          f"{per_rank('gloo_s', '.3f')} s per rank; blocks "
+          f"{res[0]['shard_gb']:.2f} GB a rank; draw and split "
+          f"{res[0]['init_s']:.1f} s (one rank at a time), replica 0 "
+          f"gathered in {res[0]['gather_s']:.1f} s; peak memory "
+          f"{per_rank('peak', '.2f')} GB (reckoned "
+          f"{TP_MEM_GB:.0f} GB); launches per rank {res[0]['counts']}; "
+          f"every replica bitwise equal, every replicated leaf bitwise tp "
+          f"rank 0's; replica (0, 0, 0) gathered vs 3g (b)'s one-device "
+          f"round: loss {got['loss']:.6f} vs {ref['loss']:.6f} (relative "
+          f"{rel_loss:.3e}, bound {loss_bound:.3e}: 3g (b)'s own response "
+          f"to KV chunks of 64), per leaf sum of squares {rel_sq:.3e}, sum "
+          f"over L1 {rel_sum:.3e} (bound {REPLICA_REL})")
+    check(max(rel_sq, rel_sum) <= REPLICA_REL and rel_loss <= loss_bound,
+          f"phase 3l: vs 3g (b) loss {rel_loss:.3e} (bound "
+          f"{loss_bound:.3e}), sum of squares {rel_sq:.3e}, sum "
+          f"{rel_sum:.3e} (bound {REPLICA_REL})")
+    check(max(r["peak"] for r in res) <= TP_MEM_GB,
+          f"phase 3l: peak memory over {TP_MEM_GB} GB")
+    print(f"  phase 3l took {time.perf_counter() - t_phase:.1f} s (budget "
+          f"{TP_BUDGET_S:.0f} s); ranks sharing one card say nothing of "
+          f"multi-GPU scaling")
+    return {k: sum(r["counts"][k] for r in res)
             for k in ("segment_agg", "segment_broadcast")}
 
 
@@ -2387,62 +2663,71 @@ def timings(torch, hier_agg, ops, ref, dev, runs: dict, err: dict):
 
 
 def time_llm_agg(torch, hier_agg, ops, ref, dev) -> dict:
-    """Phase 4 at the LLM edge-mean shape: each kernel, its plain version
-    and the library call (``torch.mean`` over the replica axis; a
-    ``copy_`` of the expanded means), CUDA events around 10 back-to-back
-    calls (each moves 8.46 GB, so dispatch is noise), kernel and plain
-    twice in turns; the bound is the bytes over 3.35 TB/s."""
-    name, n, p, e = LLM_AGG
-    gen = torch.Generator(device=dev).manual_seed(6)
-    bank = torch.randn((n, p), generator=gen, device=dev)
-    w = torch.ones((n,), device=dev)
-    seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
-    models = torch.randn((e, p), generator=gen, device=dev)
-    out = torch.empty((n, p), device=dev)
-    agg = lambda: hier_agg._launch_segment_agg(bank, w, seg, e,
-                                               normalize=True)[0]
-    mean = lambda: bank.view(e, n // e, p).mean(dim=1)
-    check(torch.allclose(mean(), agg(), atol=AGG_TOL, rtol=AGG_TOL),
-          "LLM edge mean: torch.mean disagrees")
-    bcast = lambda: ops.segment_broadcast(models, seg, out=out)
-    copy = lambda: out.view(e, n // e, p).copy_(
-        models[:, None].expand(e, n // e, p))
-    cases = [("segment_agg", agg,
-              lambda: ref.segment_agg_ref(bank, w, seg, e), mean,
-              4 * (n * p + e * p + 2 * n)),
-             ("segment_broadcast", bcast,
-              lambda: ref.segment_broadcast_ref(models, seg), copy,
-              4 * (e * p + n * p + n))]
-    # phase 3k's per-rank partial: the first 2 rows, one per edge, and
-    # torch.sum over each edge's rows as the library call
-    _, n2, _, e2 = LLM_PARTIAL
-    part, pseg = bank[:n2], torch.arange(e2, dtype=torch.int32, device=dev)
-    ones2 = torch.ones((e2,), device=dev)
-    cases.append(("segment_sum_partial", lambda: hier_agg._launch_segment_agg(
-        part, w[:n2], pseg, e2, normalize=False, with_wsum=True),
-        lambda: (ref.segment_weight_sums(w[:n2], pseg, e2),
-                 ref.segment_scaled_sum_ref(part, w[:n2], pseg, ones2, e2)),
-        lambda: part.view(e2, n2 // e2, p).sum(dim=1),
-        4 * (n2 * p + e2 * p + 2 * n2 + e2)))
+    """Phase 4 at the LLM edge-mean shapes (phase 3g's and phase 3l's):
+    each kernel, its plain version and the library call (``torch.mean``
+    over the replica axis; a ``copy_`` of the expanded means), and at
+    phase 3k's partial (``torch.sum`` over each edge's rows), CUDA events
+    around 10 back-to-back calls (each moves GBs, so dispatch is noise),
+    kernel and plain twice in turns; the bound is the bytes over 3.35
+    TB/s. Returns the times keyed (kernel, shape)."""
     res = {}
     before = dict(hier_agg.LAUNCHES)
-    for k, kern, plain, lib, nbytes in cases:
-        if k == "segment_sum_partial":
-            name, n, p, e = LLM_PARTIAL
-        ms = lambda fn: event_ms(torch, fn, iters=10, warmup=2)
+    ms = lambda fn: event_ms(torch, fn, iters=10, warmup=2)
+
+    def timed(k, shape, kern, plain, lib, nbytes):
+        name, n, p, e = shape
         t_k1, t_p1, t_k2, t_p2 = ms(kern), ms(plain), ms(kern), ms(plain)
         t_lib = ms(lib)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        res[k] = {"ms": min(t_k1, t_k2), "plain_ms": min(t_p1, t_p2),
-                  "bound_ms": bound, "bound_by": "bytes",
-                  "library_ms": t_lib}
+        res[(k, name)] = {"ms": min(t_k1, t_k2),
+                          "plain_ms": min(t_p1, t_p2), "bound_ms": bound,
+                          "bound_by": "bytes", "library_ms": t_lib}
         print(f"  {k:17s} {name} N={n} E={e} P={p:,}: kernel {t_k1:.4f}/"
               f"{t_k2:.4f} ms, plain {t_p1:.4f}/{t_p2:.4f} ms, library "
-              f"{t_lib:.4f} ms, {nbytes / 1e9:.2f} GB, bound {bound:.4f} ms "
-              f"({bound / res[k]['ms'] * 100:.1f}% of bound)")
+              f"{t_lib:.4f} ms, {nbytes / 1e9:.3f} GB, bound {bound:.4f} ms "
+              f"({bound / res[(k, name)]['ms'] * 100:.1f}% of bound)")
+
+    for shape, seed in ((LLM_AGG, 6), (LLM_TP, 8)):
+        _, n, p, e = shape
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        bank = torch.randn((n, p), generator=gen, device=dev)
+        w = torch.ones((n,), device=dev)
+        seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
+        models = torch.randn((e, p), generator=gen, device=dev)
+        out = torch.empty((n, p), device=dev)
+        agg = lambda: hier_agg._launch_segment_agg(bank, w, seg, e,
+                                                   normalize=True)[0]
+        mean = lambda: bank.view(e, n // e, p).mean(dim=1)
+        check(torch.allclose(mean(), agg(), atol=AGG_TOL, rtol=AGG_TOL),
+              f"{shape[0]}: torch.mean disagrees")
+        timed("segment_agg", shape, agg,
+              lambda: ref.segment_agg_ref(bank, w, seg, e), mean,
+              4 * (n * p + e * p + 2 * n))
+        timed("segment_broadcast", shape,
+              lambda: ops.segment_broadcast(models, seg, out=out),
+              lambda: ref.segment_broadcast_ref(models, seg),
+              lambda: out.view(e, n // e, p).copy_(
+                  models[:, None].expand(e, n // e, p)),
+              4 * (e * p + n * p + n))
+        if shape is LLM_AGG:
+            # phase 3k's per-rank partial: the first 2 rows, one per edge
+            _, n2, _, e2 = LLM_PARTIAL
+            part, pseg = bank[:n2], torch.arange(e2, dtype=torch.int32,
+                                                 device=dev)
+            ones2 = torch.ones((e2,), device=dev)
+            timed("segment_sum_partial", LLM_PARTIAL,
+                  lambda: hier_agg._launch_segment_agg(
+                      part, w[:n2], pseg, e2, normalize=False,
+                      with_wsum=True),
+                  lambda: (ref.segment_weight_sums(w[:n2], pseg, e2),
+                           ref.segment_scaled_sum_ref(part, w[:n2], pseg,
+                                                      ones2, e2)),
+                  lambda: part.view(e2, n2 // e2, p).sum(dim=1),
+                  4 * (n2 * p + e2 * p + 2 * n2 + e2))
+            del part
+        del bank, models, out
+        torch.cuda.empty_cache()
     hier_agg.LAUNCHES.update(before)         # timing launches do not count
-    del bank, models, out
-    torch.cuda.empty_cache()
     return res
 
 
@@ -3533,6 +3818,10 @@ def main() -> int:
                              store, configs, model, train, mesh_lib, trained,
                              dev)
 
+    print(f"phase 3l: the tensor plane, each replica over {TP_WORLD} gloo tp "
+          f"ranks on the one card ({smi})")
+    tensor = tensor_plane(torch, trained)
+
     print(f"phase 3h: MoE and ring-buffer serving ({smi})")
     served.update(serve_moe_and_ring(torch, ops, flash_attention, configs,
                                      model, serve, dev))
@@ -3560,17 +3849,17 @@ def main() -> int:
     # the LLM edge mean: the largest leaf of phase 3g (b)'s round, its
     # launches those of that round (every leaf, Eq. 1 and Eq. 2); a rank's
     # partial of phase 3k's full-width Eq. 1, its launches those of both
-    # ranks' round
-    for k, t in time_llm_agg(torch, hier_agg, ops, ref, dev).items():
-        partial = k == "segment_sum_partial"
-        kern = "segment_agg" if partial else k
+    # ranks' round; a tp rank's block of that leaf in phase 3l, its
+    # launches those of the 4 ranks' round
+    launches = {LLM_AGG[0]: trained["launches"], LLM_PARTIAL[0]: replicas,
+                LLM_TP[0]: tensor}
+    for (k, shape), t in time_llm_agg(torch, hier_agg, ops, ref,
+                                      dev).items():
+        kern = "segment_agg" if k == "segment_sum_partial" else k
         rows.append(dict(name=kern, route="cuda", source=KERNEL_SRC[kern],
                          replaces=REPLACES[kern],
-                         launches=(replicas if partial else
-                                   trained["launches"])[kern],
-                         max_abs_err=llm_err[k],
-                         shape=(LLM_PARTIAL if partial else LLM_AGG)[0],
-                         **t))
+                         launches=launches[shape][kern],
+                         max_abs_err=llm_err[(k, shape)], shape=shape, **t))
     cifar_eq1 = {r["name"]: r["ms"] for r in rows
                  if r["shape"] == "cifar-eq1"}
     print(f"  phase 3e's in-program ktime medians (CUDA events around each "

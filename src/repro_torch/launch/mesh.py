@@ -8,16 +8,23 @@ index the diverging model replicas (Arena's edges and their devices),
 ``fsdp`` x ``tp`` shard each replica. Here an :class:`HFLMesh` lays the
 replicas of the ``(pod, edge, fl)`` axes over a *rank grid* ``(p_r,
 e_r, f_r)`` that divides them: the ranks of an initialised
-``torch.distributed`` process group (the world) in row-major order, as
-the reference reshapes its device array. Rank ``r`` holds the block of
-``(pod/p_r, edge/e_r, fl/f_r)`` replicas at its grid coordinates as the
-leading axes of each parameter leaf (``place_params``; one device holds
-them all, grid ``(1, 1, 1)``, ``launch.train.lift_params``), and nothing
-inside a replica is sharded: fsdp = tp = 1. The mesh owns the process
-groups its aggregations cross: one per ``(pod, edge)`` block of ranks
-(the fl sub-group that Eq. 1 crosses; none when f_r = 1) and the world
-(Eq. 2). Sharding a replica's tensors over fsdp/tp is the tensor plane
-of ROADMAP item 10 (b) and raises ``NotImplementedError``. The
+``torch.distributed`` process group (the world), and each replica over
+``T`` tp ranks: the ranks lie in row-major order over the rank grid
+``(p_r, e_r, f_r, 1, T)``, tp the fastest axis, as the reference
+reshapes its device array. Rank ``r`` holds, at its grid coordinates,
+the block of ``(pod/p_r, edge/e_r, fl/f_r)`` replicas as the leading
+axes of each parameter leaf (one device holds them all, grid ``(1, 1,
+1)``, ``launch.train.lift_params``), and of each leaf that the
+reference's specs split over ``"tp"`` its t-th of T equal contiguous
+blocks (``place_params``, ``tp_blocks``): Megatron-style tensor
+parallelism, which the dense family's layers run by hand
+(``models.tp``). fsdp stays 1: fsdp above 1, and tp above 1 outside the
+dense family, is the rest of the tensor plane of ROADMAP item 10 (b)
+and raises ``NotImplementedError``. The mesh owns the process groups
+its collectives cross: the tp group of each replica block (the T
+consecutive ranks that share it), and at each tp coordinate the fl
+group of each ``(pod, edge)`` block of ranks (Eq. 1; none when f_r = 1)
+and the replica group of all of them (Eq. 2; the world when T = 1). The
 parameter PartitionSpecs (``serve_param_specs``, ``hfl_param_specs``)
 are pure functions: a spec is a tuple with one entry per dimension,
 ``None``, an axis name or a tuple of axis names, as the reference's
@@ -49,13 +56,14 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import tp as tp_mod
 
 HFL_AXES = ("pod", "edge", "fl", "fsdp", "tp")
 REPLICA_AXES = ("pod", "edge", "fl")
 TENSOR_AXES = ("fsdp", "tp")
 SERVE_AXES = ("pod", "batch", "tp")
 BANK_AXES = ("edge", "fl")      # flat-bank row shards (replica plane)
-MESH_ITEM = "ROADMAP.md, 'Modules still to port', item 10 (b)"
+MESH_ITEM = tp_mod.TP_ITEM
 
 
 def _world():
@@ -84,16 +92,21 @@ def _rank_device(device) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class HFLMesh:
     """``dims`` over ``HFL_AXES``; the ``(pod, edge, fl)`` replicas over
-    the rank grid ``grid``, rank ``rank`` holding the ``block`` at its
-    grid coordinates on ``device``. ``fl_group`` is the process group of
-    this rank's ``(pod, edge)`` block of ranks (None when f_r = 1); Eq. 2
-    crosses the world (the default group). One device: grid (1, 1, 1),
-    rank 0, no groups."""
+    the rank grid ``grid`` and each replica over ``dims[4]`` = T tp ranks,
+    rank ``rank`` holding the ``block`` at its grid coordinates, tp block
+    ``tp_rank``, on ``device``. ``fl_group`` is the process group of this
+    rank's ``(pod, edge)`` block of ranks at its tp coordinate (None when
+    f_r = 1), ``replica_group`` that of every replica block at its tp
+    coordinate (Eq. 2; None: the world, when T = 1) and ``tp_group`` the
+    T ranks of its replica block (None when T = 1). One device: grid (1,
+    1, 1), T = 1, rank 0, no groups."""
     dims: tuple
     device: torch.device
     grid: tuple = (1, 1, 1)
     rank: int = 0
     fl_group: object = dataclasses.field(default=None, compare=False)
+    replica_group: object = dataclasses.field(default=None, compare=False)
+    tp_group: object = dataclasses.field(default=None, compare=False)
 
     @property
     def axis_names(self) -> tuple:
@@ -101,18 +114,41 @@ class HFLMesh:
 
     @property
     def shape(self) -> dict:
-        """``{"pod": p, "edge": e, "fl": f, "fsdp": 1, "tp": 1}``, as a
-        JAX mesh's ``shape`` reads (replicas, not ranks)."""
+        """``{"pod": p, "edge": e, "fl": f, "fsdp": 1, "tp": T}``, as a
+        JAX mesh's ``shape`` reads (replicas and tp ranks)."""
         return dict(zip(HFL_AXES, self.dims))
 
     @property
-    def n_ranks(self) -> int:
+    def tp(self) -> int:
+        return int(self.dims[4])
+
+    @property
+    def replica_ranks(self) -> int:
+        """The ranks of one tp coordinate: one per replica block."""
         return math.prod(self.grid)
+
+    @property
+    def n_ranks(self) -> int:
+        return self.replica_ranks * self.tp
 
     @property
     def coords(self) -> tuple:
         """This rank's ``(pod, edge, fl)`` coordinates in the rank grid."""
-        return tuple(int(c) for c in np.unravel_index(self.rank, self.grid))
+        return tuple(int(c) for c in np.unravel_index(self.rank // self.tp,
+                                                      self.grid))
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's tp coordinate: its block of every tp-split leaf."""
+        return self.rank % self.tp
+
+    @property
+    def tp_context(self):
+        """The ``models.tp.TPContext`` of this rank's replica block
+        (``Model.loss(tp=)``), None when T = 1."""
+        if self.tp == 1:
+            return None
+        return tp_mod.TPContext(self.tp_group, self.tp, self.tp_rank)
 
     @property
     def block(self) -> tuple:
@@ -144,45 +180,62 @@ def make_hfl_mesh(replicas: tuple, *, ranks=None, fsdp: int = 1,
                   tp: int = 1, device="cuda") -> HFLMesh:
     """An HFL mesh of ``replicas = (pod, edge, fl)`` model replicas over
     the rank grid ``ranks`` (default ``(1, 1, 1)``: every replica on one
-    device). A grid of k > 1 ranks needs an initialised process group of
-    exactly k ranks and builds the fl groups with ``dist.new_group``, so
-    every rank calls this, with the same arguments; ``device="cuda"``
-    puts this rank's replicas on ``cuda:{r % cards}``. ``ValueError``
-    where the grid does not divide the replicas or the group does not
-    fit it; fsdp or tp above 1 raise ``NotImplementedError`` (the tensor
-    plane of item 10 (b))."""
+    device), each replica split over ``tp`` ranks. A mesh of k =
+    prod(ranks) x tp > 1 ranks needs an initialised process group of
+    exactly k ranks, the ranks in row-major order over ``ranks + (1,
+    tp)``, and builds its groups with ``dist.new_group``, so every rank
+    calls this, with the same arguments; ``device="cuda"`` puts this
+    rank's blocks on ``cuda:{r % cards}``. ``ValueError`` where the grid
+    does not divide the replicas or the group does not fit the mesh;
+    fsdp above 1 raises ``NotImplementedError`` (the tensor plane of
+    item 10 (b)). Whether a model splits over tp ranks is the train
+    step's check (``models.tp.check``)."""
     pod, edge, fl = (int(a) for a in replicas)
     if min(pod, edge, fl) < 1:
         raise ValueError(f"HFL mesh replicas {replicas} must be >= 1")
-    if fsdp != 1 or tp != 1:
+    if fsdp != 1:
         raise NotImplementedError(
-            f"fsdp={fsdp}, tp={tp}: sharding a replica's tensors is the "
+            f"fsdp={fsdp}: sharding a replica's tensors over fsdp is the "
             f"tensor plane of {MESH_ITEM}")
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError(f"tp={tp} must be >= 1")
     grid = (1, 1, 1) if ranks is None else tuple(int(a) for a in ranks)
     if len(grid) != 3 or min(grid) < 1 or any(
             d % g for d, g in zip((pod, edge, fl), grid)):
         raise ValueError(f"rank grid {grid} does not divide the replicas "
                          f"{(pod, edge, fl)}")
-    dims = (pod, edge, fl, 1, 1)
-    k = math.prod(grid)
+    dims = (pod, edge, fl, 1, tp)
+    n_blocks = math.prod(grid)
+    k = n_blocks * tp
     if k == 1:
         return HFLMesh(dims=dims, device=resolve_device(device))
     dist = _world()
     if dist is None or dist.get_world_size() != k:
-        raise ValueError(f"rank grid {grid} needs an initialised "
+        raise ValueError(f"rank grid {grid + (1, tp)} needs an initialised "
                          f"torch.distributed process group of {k} ranks")
     rank = dist.get_rank()
     dev = _rank_device(device)
-    ids = np.arange(k).reshape(grid)
-    fl_group = None
-    if grid[2] > 1:
+    ids = np.arange(k).reshape((n_blocks, tp))    # (replica block, tp)
+    groups = {}
+
+    def build(kind, members):
         # every rank creates every group, in the same order
-        for block in ids.reshape(-1, grid[2]):
-            group = dist.new_group(block.tolist())
-            if rank in block:
-                fl_group = group
-    return HFLMesh(dims=dims, device=dev, grid=grid, rank=rank,
-                   fl_group=fl_group)
+        group = dist.new_group(members.tolist())
+        if rank in members:
+            groups[kind] = group
+
+    if tp > 1:
+        for members in ids:
+            build("tp_group", members)
+    if grid[2] > 1:
+        for t in range(tp):
+            for members in ids[:, t].reshape(-1, grid[2]):
+                build("fl_group", members)
+    if tp > 1 and n_blocks > 1:
+        for t in range(tp):
+            build("replica_group", ids[:, t])
+    return HFLMesh(dims=dims, device=dev, grid=grid, rank=rank, **groups)
 
 
 def derive_hfl_mesh(devices, topology: tuple, n_pods: int = 1) -> HFLMesh:
@@ -190,10 +243,10 @@ def derive_hfl_mesh(devices, topology: tuple, n_pods: int = 1) -> HFLMesh:
     fl-devices, F fsdp, T tp) must factor the devices of a pod
     (``len(devices) / n_pods``), else ``ValueError``, as in the
     reference. ``devices`` holds one device per rank of the world, in
-    rank order; each rank holds one replica, so the mesh is replicas
-    ``(n_pods, M, D)`` over the same rank grid (one device: every
-    replica there). F or T above 1 raise ``NotImplementedError`` (the
-    tensor plane of item 10 (b))."""
+    rank order; each replica block of T ranks holds one replica, so the
+    mesh is replicas ``(n_pods, M, D)`` over the same rank grid, each
+    split over T tp ranks (one device: every replica there). F above 1
+    raises ``NotImplementedError`` (the tensor plane of item 10 (b))."""
     devices = list(devices)
     m, d, f, t = (int(a) for a in topology)
     per_pod = len(devices) // max(int(n_pods), 1)
@@ -201,15 +254,15 @@ def derive_hfl_mesh(devices, topology: tuple, n_pods: int = 1) -> HFLMesh:
         raise ValueError(
             f"topology {tuple(topology)} does not factor {per_pod} "
             f"devices/pod")
-    if f != 1 or t != 1:
+    if f != 1:
         raise NotImplementedError(
-            f"topology {tuple(topology)} shards each replica over fsdp x tp "
-            f"= {f * t} devices: the tensor plane of {MESH_ITEM}")
+            f"topology {tuple(topology)} shards each replica over fsdp = "
+            f"{f} devices: the tensor plane of {MESH_ITEM}")
     if len(devices) == 1:
         return make_hfl_mesh((1, m, d), device=devices[0])
     dist = _world()
     reps = (int(n_pods), m, d)
-    return make_hfl_mesh(reps, ranks=reps, device=devices[
+    return make_hfl_mesh(reps, ranks=reps, tp=t, device=devices[
         dist.get_rank() if dist is not None else 0])
 
 
@@ -218,38 +271,139 @@ def n_replicas(hfl_mesh) -> tuple:
     return s["pod"], s["edge"], s["fl"]
 
 
+def _leaf_spec(path: str, shape, hfl_mesh) -> tuple:
+    """One unlifted leaf's tensor spec (``_spec_for``, no expert
+    parallelism), guarded by the mesh's sizes."""
+    return _guard_divisibility(_spec_for(path, len(shape), False),
+                               tuple(shape), hfl_mesh.shape)
+
+
+def _tp_axis(spec: tuple, hfl_mesh):
+    """The dimension a spec splits over more than one tp rank, or
+    None."""
+    if hfl_mesh.tp == 1:
+        return None
+    for i, entry in enumerate(spec):
+        if entry is not None and "tp" in (entry if isinstance(entry, tuple)
+                                          else (entry,)):
+            return i
+    return None
+
+
+def _tp_block(a, axis, hfl_mesh):
+    """This rank's block of ``a`` along ``axis`` (the whole of ``a``
+    when ``axis`` is None)."""
+    if axis is None:
+        return a
+    n = a.shape[axis] // hfl_mesh.tp
+    return a.narrow(axis, hfl_mesh.tp_rank * n, n)
+
+
+def _place(params, hfl_mesh, lead: tuple) -> dict:
+    """Each leaf indexed by ``lead`` on its leading axes, then cut to this
+    rank's tp block where the reference's specs (and the guard) split it
+    over ``"tp"``, a new contiguous tensor on the mesh's device."""
+    def place(path, a):
+        a = torch.as_tensor(a)[lead]
+        n = len(lead)
+        axis = _tp_axis(_leaf_spec(path, a.shape[n:], hfl_mesh), hfl_mesh)
+        return _tp_block(a, None if axis is None else axis + n,
+                         hfl_mesh).to(hfl_mesh.device, copy=True).contiguous()
+
+    return _map_paths(place, params)
+
+
+def tp_blocks(params, hfl_mesh) -> dict:
+    """This rank's tp blocks of one whole replica's (unlifted) parameter
+    tree: each leaf split over ``"tp"`` cut to its t-th of T equal
+    contiguous blocks. Lift the result to the rank's replica block with
+    ``launch.train.lift_params``."""
+    return _place(params, hfl_mesh, ())
+
+
 def place_params(params, hfl_mesh) -> dict:
     """This rank's block of a whole lifted parameter tree (every leaf
     ``(pod, edge, fl, ...)``, ``launch.train.lift_params``): each leaf's
-    block of the replica axes, a new contiguous tensor on the mesh's
-    device."""
-    idx = tuple(hfl_mesh.block_slice(a) for a in REPLICA_AXES)
-    return _map_paths(lambda _, a: torch.as_tensor(a)[idx].to(
-        hfl_mesh.device, copy=True).contiguous(), params)
+    block of the replica axes and, of a leaf split over ``"tp"``, its
+    tp block (``tp_blocks``)."""
+    return _place(params, hfl_mesh, tuple(hfl_mesh.block_slice(a)
+                                          for a in REPLICA_AXES))
 
 
 def gather_replicas(block, hfl_mesh):
     """One leaf's blocks ``(pod/p_r, edge/e_r, fl/f_r, ...)`` from every
-    rank laid out whole, ``(pod, edge, fl, ...)`` on every rank: one
-    ``all_gather`` over the world, which every rank calls (the block
-    itself on one rank)."""
-    if hfl_mesh.n_ranks == 1:
+    replica block laid out whole, ``(pod, edge, fl, ...)`` on every rank:
+    one ``all_gather`` over the replica group of this rank's tp
+    coordinate (the world when T = 1), which every rank calls (the block
+    itself on one replica block)."""
+    k = hfl_mesh.replica_ranks
+    if k == 1:
         return block
-    k, rest = hfl_mesh.n_ranks, tuple(block.shape[3:])
+    rest = tuple(block.shape[3:])
     parts = torch.empty((k,) + tuple(block.shape), dtype=block.dtype,
                         device=block.device)
-    _world().all_gather(list(parts.unbind(0)), block.contiguous())
+    _world().all_gather(list(parts.unbind(0)), block.contiguous(),
+                        group=hfl_mesh.replica_group)
     tail = tuple(range(6, 6 + len(rest)))
     whole = parts.view(hfl_mesh.grid + hfl_mesh.block + rest).permute(
         (0, 3, 1, 4, 2, 5) + tail)
     return whole.reshape(tuple(hfl_mesh.dims[:3]) + rest).contiguous()
 
 
-def gather_params(params, hfl_mesh) -> dict:
+def gather_tp(block, axis, hfl_mesh):
+    """One leaf's tp blocks joined along ``axis`` on every rank of the tp
+    group (one ``all_gather`` over it, which each of them calls); the
+    block itself when ``axis`` is None."""
+    if axis is None or hfl_mesh.tp == 1:
+        return block
+    parts = torch.empty((hfl_mesh.tp,) + tuple(block.shape),
+                        dtype=block.dtype, device=block.device)
+    _world().all_gather(list(parts.unbind(0)), block.contiguous(),
+                        group=hfl_mesh.tp_group)
+    return torch.cat(parts.unbind(0), dim=axis)
+
+
+def _specs_at(specs, path: str):
+    for key in path.split("/"):
+        specs = specs[int(key) if isinstance(specs, list) else key]
+    return specs
+
+
+def _join(params, hfl_mesh, specs, n_lead: int, first=None) -> dict:
+    """``first`` (default: nothing) on each leaf, then its tp blocks
+    joined (``gather_tp``) on the dimension its spec (lifted; a leaf with
+    ``n_lead`` leading replica axes) splits over "tp". With T > 1 the
+    specs are needed: a block does not say whether its leaf was split
+    (the guard keeps a leaf T does not divide whole)."""
+    if hfl_mesh.tp > 1 and specs is None:
+        raise ValueError("joining tp blocks needs the tree's specs "
+                         "(hfl_param_specs with the mesh)")
+
+    def join(path, a):
+        a = a if first is None else first(a)
+        if hfl_mesh.tp == 1:
+            return a
+        spec = _specs_at(specs, path)[3 - n_lead:]
+        return gather_tp(a, _tp_axis(spec, hfl_mesh), hfl_mesh)
+
+    return _map_paths(join, params)
+
+
+def gather_params(params, hfl_mesh, specs=None) -> dict:
     """The inverse of ``place_params``: every rank's blocks joined into
-    the whole lifted tree on every rank (``gather_replicas`` per leaf;
-    for tests and checks)."""
-    return _map_paths(lambda _, a: gather_replicas(a, hfl_mesh), params)
+    the whole lifted tree on every rank (``gather_replicas`` and
+    ``gather_tp`` per leaf; for tests and checks). With T > 1 it needs
+    the tree's ``specs`` (``hfl_param_specs(cfg, shapes, hfl_mesh)``,
+    the train step's ``param_specs``)."""
+    return _join(params, hfl_mesh, specs, 3,
+                 lambda a: gather_replicas(a, hfl_mesh))
+
+
+def gather_replica(params, hfl_mesh, specs=None) -> dict:
+    """One replica's tp blocks (an unlifted tree, ``tp_blocks``) joined
+    whole on every rank of the tp group, leaf by leaf; ``specs`` as for
+    ``gather_params``."""
+    return _join(params, hfl_mesh, specs, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -427,42 +581,61 @@ def hfl_param_specs(cfg, params_shape, mesh=None) -> dict:
     return _map_paths(lift, params_shape)
 
 
-def _map_specs(fn, tree):
-    """``fn`` over a tree of specs (dicts and lists of tuples)."""
+def _map_specs(fn, tree, shapes=None):
+    """``fn(spec, shape)`` over a tree of specs (dicts and lists of
+    tuples), ``shape`` the ``.shape`` of the leaf at the same place in
+    ``shapes`` (None without ``shapes``)."""
+    at = (lambda k: None) if shapes is None else (lambda k: shapes[k])
     if isinstance(tree, dict):
-        return {k: _map_specs(fn, v) for k, v in tree.items()}
+        return {k: _map_specs(fn, v, at(k)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map_specs(fn, v) for v in tree]
-    return fn(tree)
+        return [_map_specs(fn, v, at(i)) for i, v in enumerate(tree)]
+    return fn(tree, None if shapes is None else tuple(shapes.shape))
 
 
-def shardings(mesh, specs):
+def shardings(mesh, specs, shapes=None):
     """For each spec of ``specs`` (``hfl_param_specs``), this rank's
     index into its leaf: one slice per spec entry, the rank's block of a
-    replica axis (``HFLMesh.block_slice``) and the whole of every other
-    dimension. An entry naming a tensor axis of more than one rank (a
-    ``derive_serve_mesh`` layout's tp, say) raises
-    ``NotImplementedError``: sharding a replica's tensors is the tensor
-    plane of item 10 (b)."""
-    sizes = (dict(zip(REPLICA_AXES, mesh.grid)) if isinstance(mesh, HFLMesh)
+    replica axis (``HFLMesh.block_slice``), of a dimension split over
+    ``"tp"`` (or ``("fsdp", "tp")``, fsdp being 1) its t-th of T equal
+    contiguous blocks, as a ``PartitionSpec`` reads, and the whole of
+    every other dimension. A tp block needs the leaf's size: ``shapes``
+    is a tree of the whole leaves (anything with ``.shape``, lifted as
+    the specs are), else ``ValueError``. An entry naming another tensor
+    axis of more than one rank (a ``derive_serve_mesh`` layout's tp,
+    say) raises ``NotImplementedError``: the tensor plane of item 10
+    (b)."""
+    hfl = isinstance(mesh, HFLMesh)
+    sizes = (dict(zip(REPLICA_AXES, mesh.grid), tp=mesh.tp) if hfl
              else dict(mesh.shape))
 
-    def index(spec):
+    def index(spec, shape):
         out = []
-        for entry in spec:
+        for i, entry in enumerate(spec):
             axes = () if entry is None else \
                 entry if isinstance(entry, tuple) else (entry,)
             wide = [a for a in axes
                     if a not in REPLICA_AXES and sizes.get(a, 1) > 1]
-            if wide:
+            if wide and (not hfl or wide != ["tp"]):
                 raise NotImplementedError(
                     f"spec {spec} shards a replica's tensors over {wide}: "
                     f"the tensor plane of {MESH_ITEM}")
             rep = [a for a in axes if a in REPLICA_AXES]
-            out.append(mesh.block_slice(rep[0]) if rep else slice(None))
+            if rep:
+                out.append(mesh.block_slice(rep[0]))
+            elif wide:
+                if shape is None or shape[i] % mesh.tp:
+                    raise ValueError(
+                        f"spec {spec} splits dimension {i} over tp = "
+                        f"{mesh.tp}: shardings needs a leaf shape it "
+                        f"divides, got {shape}")
+                n = shape[i] // mesh.tp
+                out.append(slice(mesh.tp_rank * n, (mesh.tp_rank + 1) * n))
+            else:
+                out.append(slice(None))
         return tuple(out)
 
-    return _map_specs(index, specs)
+    return _map_specs(index, specs, shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -526,23 +699,26 @@ def make_bank_mesh(n_edge_shards: int, fl: int = 1, *, group=None,
 
 def derive_bank_mesh(hfl_mesh) -> BankMesh:
     """The HFL mesh's ``(edge, fl)`` plane of pod 0 as a bank mesh (the
-    reference's ``devices[0, :, :, 0, 0]``): its ``e_r x f_r`` ranks,
-    bank rows edge-major over them. With more than one pod of ranks it
-    builds pod 0's process group (``dist.new_group``, so every rank calls
-    it) and raises ``ValueError`` on a rank outside pod 0; so does a mesh
-    that is not an HFL mesh, as in the reference."""
+    reference's ``devices[0, :, :, 0, 0]``): its ``e_r x f_r`` ranks at
+    tp coordinate 0, bank rows edge-major over them. With more than one
+    pod of ranks, or T > 1, it builds their process group
+    (``dist.new_group``, so every rank calls it) and raises
+    ``ValueError`` on a rank outside it; so does a mesh that is not an
+    HFL mesh, as in the reference."""
     if not isinstance(hfl_mesh, HFLMesh):
         raise ValueError(f"expected an HFL mesh with axes {HFL_AXES}, got "
                          f"{tuple(getattr(hfl_mesh, 'axis_names', ()))}")
     p_r, e_r, f_r = hfl_mesh.grid
-    group = None
-    if p_r > 1:
-        group = _world().new_group(list(range(e_r * f_r)))
-        if hfl_mesh.coords[0] != 0:
-            raise ValueError(f"rank {hfl_mesh.rank} is not in pod 0 of the "
-                             f"HFL mesh")
-    return BankMesh(dims=(e_r, f_r), rank=hfl_mesh.rank,
-                    device=hfl_mesh.device, group=group)
+    group, rank = None, hfl_mesh.rank
+    if p_r > 1 or hfl_mesh.tp > 1:
+        group = _world().new_group(
+            [b * hfl_mesh.tp for b in range(e_r * f_r)])
+        if hfl_mesh.coords[0] != 0 or hfl_mesh.tp_rank != 0:
+            raise ValueError(f"rank {hfl_mesh.rank} is not in pod 0 at tp "
+                             f"coordinate 0 of the HFL mesh")
+        rank = hfl_mesh.rank // hfl_mesh.tp
+    return BankMesh(dims=(e_r, f_r), rank=rank, device=hfl_mesh.device,
+                    group=group)
 
 
 def make_bank_context(n_edge_shards: int, fl: int = 1, *, group=None,

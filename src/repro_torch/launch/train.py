@@ -11,7 +11,11 @@ One ``train_step`` call is one cloud round (Eq. 5):
 Model replicas live as leading ``(pod, edge, fl)`` axes of every
 parameter leaf, the reference's layout (``lift_params``), laid over the
 ranks of an ``HFLMesh`` (``launch.mesh.make_hfl_mesh``): each rank holds
-its block of them, one device all of them. A local epoch is
+its block of them, one device all of them. On a mesh with T > 1 tp
+ranks each replica is split over T ranks as the reference's specs
+split it (a dense model only: ``models.tp``), each rank holding its tp
+blocks of its block's replicas and training them with the tp context
+(``Model.loss(tp=)``). A local epoch is
 ``mb_per_epoch`` minibatches through ``Model.loss`` and autograd, one
 SGD step each. The port loops over a rank's replicas where the
 reference vmaps over the three replica axes: the replicas are
@@ -21,14 +25,16 @@ are held at a time (a full-width qwen3-1.7b replica's are 8.1 GB).
 Eq. 1 and Eq. 2 are the reference's uniform means (``_edge_mean``,
 ``_cloud_mean``), computed by the two kernels written for their
 size-weighted general form (``repro_torch.kernels.ops``): per leaf,
-viewed as the rank's ``(R/k, numel)`` bank of replica rows, one launch
+viewed as the rank's ``(R/k, numel)`` bank of replica rows (of its tp
+block, under tp), one launch
 of the ``segment_agg`` kernel with weights 1 and segment ids ``pod *
 n_edge + edge`` (E = 1 for the cloud mean) and one ``segment_broadcast``
 launch writing the means back into the rank's rows. Where a mean's
 replicas span ranks, the launch is the rank's partial
 (``segment_sum_partial``) and its sums meet in an ``all_reduce`` over
-the ranks the mean crosses: the rank's fl group for Eq. 1, the world
-for Eq. 2 (``ops.segment_agg_sharded``). A static round launches each
+the ranks the mean crosses at the rank's tp coordinate: its fl group
+for Eq. 1, its replica group (the world when T = 1) for Eq. 2
+(``ops.segment_agg_sharded``). A static round launches each
 kernel ``(g2 + 1)`` times per leaf on every rank. The training forward
 reaches no kernel: attention, WKV and the loss are the reference's
 plain tensor math (``Model.loss``).
@@ -52,6 +58,7 @@ import torch
 from repro_torch.device import disable_tf32
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.model import build_model
 
 
@@ -135,9 +142,10 @@ def _edge_mean(params, hfl_mesh, active=None) -> None:
 def _cloud_mean(params, hfl_mesh, collective_dtype=None) -> None:
     """Eq. 2 on every leaf, in place: every replica takes the mean over
     all of them, one ``segment_broadcast`` writing the rank's replicas.
-    The mean is one ``segment_agg`` launch on one rank; on several, one
-    ``segment_sum_partial`` launch on the rank's rows and an
-    ``all_reduce`` over the world (``ops.segment_agg_sharded``). In
+    The mean is one ``segment_agg`` launch where one rank holds every
+    replica (of its tp block); otherwise one ``segment_sum_partial``
+    launch on the rank's rows and an ``all_reduce`` over its replica
+    group (``ops.segment_agg_sharded``). In
     deterministic mode every rank gathers the replicas in the one-device
     order (``mesh.gather_replicas``) and runs the one-device launch on
     them: a chain in rank order is that order only where each rank's
@@ -148,9 +156,9 @@ def _cloud_mean(params, hfl_mesh, collective_dtype=None) -> None:
     leaves = _leaves(params)
     n = math.prod(hfl_mesh.block)
     ones, zeros = _bank_inputs(n, 1, leaves[0].device)
-    gather = (hfl_mesh.n_ranks > 1
-              and torch.are_deterministic_algorithms_enabled())
-    mean = _row_mean(None, hfl_mesh.n_ranks > 1)
+    spread = hfl_mesh.replica_ranks > 1
+    gather = spread and torch.are_deterministic_algorithms_enabled()
+    mean = _row_mean(hfl_mesh.replica_group, spread)
     if gather:
         r_all = math.prod(hfl_mesh.dims[:3])
         ones_all, zeros_all = _bank_inputs(r_all, 1, zeros.device)
@@ -192,7 +200,9 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
     ``(pod/p_r, edge/e_r, fl/f_r, ...)`` (the mesh's ``block``) and
     contiguous on the mesh's device: ``lift_params`` on one device,
     ``mesh.place_params`` of it, or ``lift_params`` to the block, on the
-    ranks of a multi-rank mesh; it is updated in place and returned.
+    ranks of a multi-rank mesh; under tp, of the rank's tp blocks
+    (``mesh.place_params``, or ``lift_params`` of ``mesh.tp_blocks``). It
+    is updated in place and returned.
     ``batch``: {"tokens", "labels"} (B, S) int, the whole batch on every
     rank, with B a multiple of the replica count R; replica r (in (pod,
     edge, fl) order) trains on rows ``[r B/R, (r + 1) B/R)``, split into
@@ -204,9 +214,15 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
 
     On a multi-rank mesh every rank calls the step with the same
     arguments; Eq. 1 crosses the rank's fl group where f_r > 1 and Eq. 2
-    the world (``_edge_mean``, ``_cloud_mean``). Under
+    its replica group (``_edge_mean``, ``_cloud_mean``). Under
     ``device.deterministic_algorithms`` both keep the one-device
-    summation order, so the round is bitwise the one-device round.
+    summation order, so at T = 1 the round is bitwise the one-device
+    round. With T > 1 tp ranks the forward and backward run Megatron's
+    collectives over the tp group (``models.tp``; the replicated leaves
+    stay bitwise equal across it), a split product sums in another order
+    than the one-device product, and a dense model whose heads T does
+    not divide raises ``ValueError``, another family
+    ``NotImplementedError`` (``models.tp.check``).
 
     Dynamic rounds: in epoch t1 of edge period t2 a replica of edge j
     trains only if ``t1 < g1e[j]`` and ``t2 < g2e[j]``, and only edges
@@ -224,6 +240,8 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
             f"seq_shard_acts shards activations over fsdp x tp: the tensor "
             f"plane of {mesh_lib.MESH_ITEM}")
     model = build_model(cfg)
+    tp = hfl_mesh.tp_context
+    tp_mod.check(cfg, hfl_mesh.tp)
     n_pod, n_edge, n_fl = mesh_lib.n_replicas(hfl_mesh)
     repl = n_pod * n_edge * n_fl
     block = hfl_mesh.block
@@ -249,7 +267,7 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
                   "labels": labs[i * per:(i + 1) * per]}
             with torch.enable_grad():
                 loss = model.loss(p, mb, remat=remat, attn_chunk=attn_chunk,
-                                  wkv_chunked=wkv_chunked)
+                                  wkv_chunked=wkv_chunked, tp=tp)
                 grads = torch.autograd.grad(loss, leaves)
             del loss, p, leaves
             with torch.no_grad():
@@ -354,16 +372,20 @@ def main(argv=None):
         PYTHONPATH=src python -m repro_torch.launch.train --arch \\
             qwen3-1.7b --mesh micro --rounds 10 [--dynamic] [--device cpu]
         PYTHONPATH=src torchrun --nproc-per-node 4 -m \\
-            repro_torch.launch.train --device cpu --mesh micro
+            repro_torch.launch.train --device cpu --mesh micro [--tp 2]
 
     --mesh micro  : the reduced config, replicas (1, 2, 2): on one device,
                     or, under torchrun (or in an initialised process
-                    group), spread over the world's ranks
-                    (``mesh.rank_grid``: 2 ranks (1, 1, 2), 4 ranks
-                    (1, 2, 2)); only rank 0 prints
-    --mesh single / multi : the reference's 256 / 512-device production
-                    meshes; every config's topology shards a replica
-                    over fsdp x tp, so they raise here (item 10 (b))
+                    group), spread over the world's ranks, each replica
+                    over ``--tp`` of them (``mesh.rank_grid`` of the
+                    world / tp ranks: 2 (1, 1, 2), 4 (1, 2, 2)); only
+                    rank 0 prints
+    --mesh single / multi : the full config on the reference's 256 /
+                    512-rank production mesh, replicas and tp from the
+                    config's ``hfl_topology`` (``mesh.derive_hfl_mesh``):
+                    ``ValueError`` in a smaller world; fsdp above 1, or
+                    tp above 1 outside the dense family, raise
+                    ``NotImplementedError`` (item 10 (b))
     --dynamic uses the masked per-edge-frequency step with a Var-Freq-B
     style schedule (the Arena agent plugs in through the same signature).
     Runs on the card unless ``--device cpu``."""
@@ -382,21 +404,31 @@ def main(argv=None):
     ap.add_argument("--g1", type=int, default=2)
     ap.add_argument("--g2", type=int, default=2)
     ap.add_argument("--dynamic", action="store_true")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="--mesh micro: tp ranks per replica")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "micro":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} needs the {256 if args.mesh == 'single' else 512}"
-            f"-device production mesh and a replica sharded over its tensor "
-            f"axes: see {mesh_lib.MESH_ITEM}")
     owned = _torchrun_world()
     try:
-        cfg = get_config(args.arch).reduce()
-        reps = (1, 2, 2)
         k = dist.get_world_size() if dist.is_initialized() else 1
-        hfl_mesh = mesh_lib.make_hfl_mesh(
-            reps, ranks=mesh_lib.rank_grid(reps, k), device=args.device)
+        if args.mesh == "micro":
+            cfg = get_config(args.arch).reduce()
+            reps = (1, 2, 2)
+            if k % args.tp:
+                raise ValueError(f"--tp {args.tp} does not divide the "
+                                 f"world's {k} ranks")
+            hfl_mesh = mesh_lib.make_hfl_mesh(
+                reps, ranks=mesh_lib.rank_grid(reps, k // args.tp),
+                tp=args.tp, device=args.device)
+        else:
+            mesh_lib.make_production_mesh(multi_pod=args.mesh == "multi",
+                                          n_ranks=k)
+            cfg = get_config(args.arch)
+            hfl_mesh = mesh_lib.derive_hfl_mesh(
+                [args.device] * k, cfg.hfl_topology,
+                n_pods=2 if args.mesh == "multi" else 1)
+            reps = mesh_lib.n_replicas(hfl_mesh)
         dev, lead = hfl_mesh.device, hfl_mesh.rank == 0
         n_edge, repl = reps[1], math.prod(reps)
         if args.batch % repl:
@@ -413,7 +445,8 @@ def main(argv=None):
                                              g2=args.g2, **kw)
         model = build_model(cfg)
         gen = torch.Generator(device=dev).manual_seed(0)
-        params = lift_params(model.init(gen, device=dev), *hfl_mesh.block)
+        params = lift_params(mesh_lib.tp_blocks(model.init(gen, device=dev),
+                                                hfl_mesh), *hfl_mesh.block)
         rng = np.random.default_rng(0)
         for i in range(args.rounds):
             batch = token_batch(i, args.batch, args.seq, cfg.vocab,
@@ -426,13 +459,15 @@ def main(argv=None):
                 params = step(params, batch, g1e, g2e)
             else:
                 params = step(params, batch)
-            if lead:                        # rank 0 holds replica (0, 0, 0)
+            if hfl_mesh.coords == (0, 0, 0):   # replica (0, 0, 0)'s ranks
                 p0 = _map(lambda a: a[0, 0, 0], params)
                 with torch.no_grad():
                     loss = float(model.loss(p0, token_batch(
-                        9999, args.batch, args.seq, cfg.vocab, device=dev)))
-                print(f"round {i} loss={loss:.4f} "
-                      f"dt={time.time() - t0:.1f}s", flush=True)
+                        9999, args.batch, args.seq, cfg.vocab, device=dev),
+                        tp=hfl_mesh.tp_context))
+                if lead:
+                    print(f"round {i} loss={loss:.4f} "
+                          f"dt={time.time() - t0:.1f}s", flush=True)
     finally:
         if owned:
             dist.destroy_process_group()

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models import common
+from repro_torch.models import common, tp as tp_mod
 
 NEG_INF = -1e30
 
@@ -51,24 +51,28 @@ def attn_init(gen: torch.Generator, cfg, device, dtype=None) -> dict:
     return p
 
 
-def _project_qkv(params, cfg, x, positions, mpos=None):
+def _project_qkv(params, cfg, x, positions, mpos=None, tp=None):
     """x: (B, S, d) -> q (B, S, H, D), k/v (B, S, Hkv, D): projections in
     x's dtype, optional bias, per-head qk_norm, then interleaved rotary:
     M-RoPE over ``mpos`` (3, B, S) when the model has ``m_rope`` and
     ``mpos`` is given, else standard RoPE at ``positions`` when
-    ``rope_theta`` > 0."""
+    ``rope_theta`` > 0. The head counts are the projections': under
+    ``tp`` a rank's column blocks (``tp.column``), H / T and Hkv / T
+    heads."""
     b, s, _ = x.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    hd = cfg.head_dim
+    ws = [params[n].to(x.dtype) for n in ("wq", "wk", "wv")]
+    if tp is None:
+        q, k, v = (x @ w for w in ws)
+    else:
+        q, k, v = tp_mod.column(x, ws, tp)
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    q = q.reshape(b, s, nh, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
         q = common.rms_norm(q, params["q_norm"])
         k = common.rms_norm(k, params["k_norm"])
@@ -154,17 +158,21 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
 
 
 def self_attention(params, cfg, x, positions=None, *, causal=True,
-                   window: int = 0, mpos=None, chunk=None):
+                   window: int = 0, mpos=None, chunk=None, tp=None):
     """Full-sequence self attention. ``chunk=None`` runs the
     ``flash_attention`` kernel (serving; no autograd); an int runs
     ``chunked_attention`` over KV chunks of that size (training, as the
     reference's train and forward compute), non-causal as the reference
     does it: all-zero ``kv_positions``. ``mpos``: M-RoPE's position
-    streams (``_project_qkv``)."""
+    streams (``_project_qkv``).
+
+    ``tp`` (a ``models.tp.TPContext``): ``wq``/``wk``/``wv`` are this
+    rank's column blocks, whole heads (``tp.check``), ``wo`` its row
+    block (``tp.column``, ``tp.row``)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
-    q, k, v = _project_qkv(params, cfg, x, positions, mpos)
+    q, k, v = _project_qkv(params, cfg, x, positions, mpos, tp)
     if chunk is None:
         out = _attend(q, k, v, causal=causal, window=window if causal else 0)
     elif causal:
@@ -175,7 +183,8 @@ def self_attention(params, cfg, x, positions=None, *, causal=True,
                           device=x.device)
         out = chunked_attention(q, k, v, causal=False, chunk=chunk,
                                 kv_positions=kvp).reshape(b, s, -1)
-    return out @ params["wo"].to(x.dtype)
+    wo = params["wo"].to(x.dtype)
+    return out @ wo if tp is None else tp_mod.row(out, wo, tp)
 
 
 def prefill_attention(params, cfg, x, *, window: int = 0, mpos=None):

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp as tp_mod
+
 
 # ---------------------------------------------------------------------------
 # init
@@ -76,11 +78,16 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, device,
     }
 
 
-def swiglu(params, x):
-    """silu(x W_gate) * (x W_up) W_down, in x's dtype."""
-    g = x @ params["w_gate"].to(x.dtype)
-    u = x @ params["w_up"].to(x.dtype)
-    return (F.silu(g) * u) @ params["w_down"].to(x.dtype)
+def swiglu(params, x, tp=None):
+    """silu(x W_gate) * (x W_up) W_down, in x's dtype. ``tp`` (a
+    ``models.tp.TPContext``): ``w_gate``/``w_up`` are this rank's column
+    blocks and ``w_down`` its row block (``tp.column``, ``tp.row``)."""
+    wg, wu, wd = (params[n].to(x.dtype) for n in ("w_gate", "w_up",
+                                                  "w_down"))
+    if tp is None:
+        return (F.silu(x @ wg) * (x @ wu)) @ wd
+    g, u = tp_mod.column(x, [wg, wu], tp)
+    return tp_mod.row(F.silu(g) * u, wd, tp)
 
 
 def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, device,
@@ -184,7 +191,8 @@ def sinusoidal_positions(seq: int, d_model: int, device) -> torch.Tensor:
 # loss
 # ---------------------------------------------------------------------------
 
-def chunked_softmax_xent(h, w_out, labels, mask=None, chunk: int = 512):
+def chunked_softmax_xent(h, w_out, labels, mask=None, chunk: int = 512,
+                         tp=None):
     """Next-token cross-entropy computed in sequence chunks of ``chunk``
     (the last one the remainder), so the (B, S, vocab) logits never
     exist whole: per chunk the logits ``h @ w_out`` in h's dtype, then in
@@ -195,11 +203,17 @@ def chunked_softmax_xent(h, w_out, labels, mask=None, chunk: int = 512):
     None. Returns the f32 scalar mean loss, differentiable in h and
     w_out. The gold logit is an index into the flattened logits, whose
     backward (``index_put_`` with accumulation) has a deterministic
-    implementation on the card."""
+    implementation on the card.
+
+    ``tp`` (a ``models.tp.TPContext``): ``w_out`` is this rank's block of
+    V / T vocab columns, ``[t V/T, (t + 1) V/T)``, and the loss is
+    vocab-parallel (``_vocab_parallel_xent``)."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    if tp is not None:
+        return _vocab_parallel_xent(h, w_out, labels, mask, chunk, tp)
     w = w_out.to(h.dtype)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, s, chunk):
@@ -209,6 +223,37 @@ def chunked_softmax_xent(h, w_out, labels, mask=None, chunk: int = 512):
         flat = logits.reshape(-1, logits.shape[-1])
         rows = torch.arange(flat.shape[0], device=h.device)
         gold = flat[rows, labels[:, lo:hi].reshape(-1).long()]
+        total = total + ((lse - gold.reshape(lse.shape))
+                         * mask[:, lo:hi].float()).sum()
+    return total / mask.float().sum().clamp_min(1.0)
+
+
+def _vocab_parallel_xent(h, w_out, labels, mask, chunk: int, tp):
+    """``chunked_softmax_xent`` over the tp group, each rank holding V / T
+    vocab columns of ``w_out``: per chunk the local (B, C, V/T) logits
+    (``tp.column``), an ``all_reduce(MAX)`` of their detached row maxima
+    m, the sums of ``exp(logits - m)`` summed over the group (*g*),
+    ``lse = m + log(sum)``, and the gold logit from the rank whose
+    columns hold the label (zero on the others), summed over the group
+    (*g*). The same f32 loss on every rank."""
+    b, s, _ = h.shape
+    w = w_out.to(h.dtype)
+    n = w.shape[1]
+    lo_col = tp.rank * n
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, s, chunk):
+        hi = min(lo + chunk, s)
+        logits = tp_mod.column(h[:, lo:hi], [w], tp)[0].float()
+        m = tp_mod.all_max(logits.amax(dim=-1), tp)
+        sums = tp_mod.reduce_from(torch.exp(logits - m[..., None]).sum(
+            dim=-1), tp)
+        lse = m + torch.log(sums)
+        local = labels[:, lo:hi].reshape(-1).long() - lo_col
+        mine = (local >= 0) & (local < n)
+        flat = logits.reshape(-1, n)
+        rows = torch.arange(flat.shape[0], device=h.device)
+        gold = torch.where(mine, flat[rows, local.clamp(0, n - 1)], 0.0)
+        gold = tp_mod.reduce_from(gold, tp)
         total = total + ((lse - gold.reshape(lse.shape))
                          * mask[:, lo:hi].float()).sum()
     return total / mask.float().sum().clamp_min(1.0)

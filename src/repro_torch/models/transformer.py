@@ -43,6 +43,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, moe, rwkv, ssm
+from repro_torch.models import tp as tp_mod
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 EXTRAS = ("enc_embed", "vision_embed")     # the stub front ends' inputs
@@ -183,22 +184,25 @@ def init_params(gen: torch.Generator, cfg, device) -> dict[str, Any]:
     return params
 
 
-def ffn(bp, cfg, h, *, ep_axis=None, ep_size=1):
+def ffn(bp, cfg, h, *, ep_axis=None, ep_size=1, tp=None):
     """The block's FFN: (out, aux), aux the MoE load-balance loss or None
-    for a SwiGLU block."""
+    for a SwiGLU block. ``tp``: the SwiGLU's column and row blocks where
+    its ``w_gate`` is split (``models.tp.split``)."""
     if cfg.moe is not None:
         return moe.moe_ffn(bp["moe"], cfg, h, ep_axis=ep_axis,
                            ep_size=ep_size)
-    return common.swiglu(bp["mlp"], h), None
+    mlp = bp["mlp"]
+    return common.swiglu(mlp, h, tp_mod.split(
+        tp, mlp["w_gate"].shape[-1], cfg.d_ff)), None
 
 
 def _dense_block_fwd(bp, cfg, x, *, window=0, mpos=None, chunk=None,
-                     ep_axis=None, ep_size=1):
+                     ep_axis=None, ep_size=1, tp=None):
     h = common.rms_norm(x, bp["ln1"])
     x = x + attention.self_attention(bp["attn"], cfg, h, window=window,
-                                     mpos=mpos, chunk=chunk)
+                                     mpos=mpos, chunk=chunk, tp=tp)
     h, aux = ffn(bp, cfg, common.rms_norm(x, bp["ln2"]), ep_axis=ep_axis,
-                 ep_size=ep_size)
+                 ep_size=ep_size, tp=tp)
     return x + h, aux
 
 
@@ -288,12 +292,13 @@ def mrope_grid(n_vis: int) -> int:
     return int(n_vis ** 0.5) or 1
 
 
-def embed_inputs(params, cfg, tokens, extras=None):
+def embed_inputs(params, cfg, tokens, extras=None, tp=None):
     """(B, S) tokens -> (x (B, S', d) in ``cfg.adtype``, mpos): for a
     ``vlm`` with ``vision_embed`` in ``extras`` the projected vision
     embeddings come first (S' = n_vis + S) and ``mpos`` holds their
-    M-RoPE streams; otherwise S' = S and mpos is None."""
-    x = embed(params, cfg, tokens)
+    M-RoPE streams; otherwise S' = S and mpos is None. ``tp``:
+    ``embed``'s lookup (``embed``)."""
+    x = embed(params, cfg, tokens, tp)
     vis = (extras or {}).get("vision_embed")
     if cfg.family != "vlm" or vis is None:
         return x, None
@@ -311,9 +316,22 @@ def groups(cfg) -> list:
     return [range(g, min(g + per, n)) for g in range(0, n, per)]
 
 
-def embed(params, cfg, tokens):
-    """(B, S) int tokens -> (B, S, d) activations in ``cfg.adtype``."""
-    return params["embed"][tokens.long()].to(cfg.adtype)
+def embed(params, cfg, tokens, tp=None):
+    """(B, S) int tokens -> (B, S, d) activations in ``cfg.adtype``.
+
+    ``tp`` with ``embed`` split by vocab rows (rank t holds rows ``[t
+    V/T, (t + 1) V/T)``): a vocab-parallel lookup, the rank's rows for
+    the ids in its range and zero rows for the others, summed over the
+    group (*g*)."""
+    table = params["embed"]
+    tp = tp_mod.split(tp, table.shape[0], cfg.vocab)
+    if tp is None:
+        return table[tokens.long()].to(cfg.adtype)
+    n = table.shape[0]
+    local = tokens.long() - tp.rank * n
+    mine = ((local >= 0) & (local < n))[..., None]
+    x = torch.where(mine, table[local.clamp(0, n - 1)], 0.0)
+    return tp_mod.reduce_from(x.to(cfg.adtype), tp)
 
 
 def unstack_layers(layers: dict) -> list:
@@ -330,7 +348,8 @@ def unstack_layers(layers: dict) -> list:
 
 def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
                    remat: bool = False, ep_axis=None, ep_size: int = 1,
-                   attn_chunk=None, wkv_chunked=None, act_spec=None):
+                   attn_chunk=None, wkv_chunked=None, act_spec=None,
+                   tp=None):
     """Embeds ``tokens`` and runs the stack. Returns (hidden (B, S, d),
     aux_loss): the layers' MoE load-balance losses summed in f32 (a zero
     f32 scalar without MoE). ``extras``: ``enc_embed`` (audio, required)
@@ -346,14 +365,23 @@ def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
     (expert parallelism) raises in an MoE block (``moe.moe_ffn``) and is
     ignored elsewhere, as in the reference. ``act_spec`` is the
     reference's activation sharding constraint, the identity on one
-    device; only None is accepted."""
+    device; only None is accepted.
+
+    ``tp`` (a ``models.tp.TPContext``): ``params`` are this rank's blocks
+    of a dense model split over the tp group (``launch.mesh``), and the
+    layers run Megatron's tensor parallelism (``models.tp``): the same
+    hidden states on every rank. Other families raise
+    ``NotImplementedError`` (item 10 (b)); head counts T does not divide
+    raise ``ValueError`` (``tp.check``)."""
     if act_spec is not None:
         raise NotImplementedError(
             "act_spec (activations sharded over the fsdp x tp axes) is the "
             "tensor plane of ROADMAP.md, 'Modules still to port', item "
             "10 (b)")
     check_family(cfg)
-    x, mpos = embed_inputs(params, cfg, tokens, extras)
+    if tp is not None:
+        tp_mod.check(cfg, tp.size)
+    x, mpos = embed_inputs(params, cfg, tokens, extras, tp)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "audio":
         enc = encode(params, cfg, extras["enc_embed"], remat=remat,
@@ -376,8 +404,8 @@ def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
     else:
         body = functools.partial(_dense_block_fwd, cfg=cfg, window=window,
                                  mpos=mpos, chunk=attn_chunk,
-                                 ep_axis=ep_axis, ep_size=ep_size)
-    for lp in unstack_layers(params["layers"]):
+                                 ep_axis=ep_axis, ep_size=ep_size, tp=tp)
+    for lp in unstack_layers(_tp_norms(params["layers"], cfg, tp)):
         if remat:
             x, aux = checkpoint(body, lp, x=x, use_reentrant=False)
         else:
@@ -386,6 +414,19 @@ def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
             aux_total = aux_total + aux
     x = common.rms_norm(x, params["final_norm"])
     return x, aux_total
+
+
+def _tp_norms(layers: dict, cfg, tp) -> dict:
+    """``layers`` with ``attn``'s stacked ``q_norm``/``k_norm`` through
+    *f* under ``tp``: replicated, but each rank applies them to its own
+    heads only, so their gradients are summed over the group (one
+    ``all_reduce`` per stack)."""
+    if tp is None or not cfg.qk_norm:
+        return layers
+    attn = dict(layers["attn"])
+    for name in ("q_norm", "k_norm"):
+        attn[name] = tp_mod.copy_to(attn[name], tp)
+    return dict(layers, attn=attn)
 
 
 def _hybrid_forward(params, cfg, x, *, remat, window, attn_chunk):

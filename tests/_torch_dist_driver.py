@@ -37,6 +37,7 @@ from repro_torch.data.synthetic import token_batch
 from repro_torch.device import deterministic_algorithms
 from repro_torch.kernels import hier_agg, ops, ref
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models.model import build_model
 from repro_torch.runtime import (AsyncConfig, ChurnEvent, FaultSpec,
                                  StalenessBuffer)
 from repro_torch.sim import AsyncHFLEnv, EnvConfig, HFLEnv
@@ -57,6 +58,15 @@ SNAP_AT = 3               # events of the faulty trajectory before a snapshot
 TRAIN_REPS = (1, 2, 2)
 TRAIN_GRIDS = {1: [(1, 1, 1)], 2: [(1, 1, 2), (1, 2, 1)], 4: [(1, 2, 2)]}
 TRAIN_ARCH = "qwen3-1.7b"
+# the tensor plane: each replica over TP ranks; the rank grid of the
+# replicas at each world (world 4: Eq. 1 and Eq. 2 cross ranks at a
+# fixed tp coordinate), and the replicas of the placement case
+TP = 2
+TP_GRIDS = {2: (1, 1, 1), 4: (1, 1, 2)}
+TP_PLACE_REPS = {2: (1, 1, 1), 4: (1, 1, 2)}
+# the replicated leaves of a dense replica (no spec splits them)
+TP_REPLICATED = ("final_norm", "layers/ln1", "layers/ln2",
+                 "layers/attn/q_norm", "layers/attn/k_norm")
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +182,19 @@ def edge_round_inputs():
     seg = np.repeat(np.arange(4), 4).astype(np.int32)
     gvec = rng.normal(size=(15,)).astype(np.float32)
     return bank, x, y, sizes, seg, gvec
+
+
+def tp_config(pkg):
+    """Reduced qwen3 (4 heads, 2 kv heads, d_ff 512, vocab 512) with f32
+    activations, for either package's ``configs``."""
+    return dataclasses.replace(pkg.get_config(TRAIN_ARCH).reduce(),
+                               activ_dtype="float32")
+
+
+def tp_loss_batch(vocab: int) -> dict:
+    """The loss case's batch: 2 sequences of 32 tokens (seed 5), numpy."""
+    return {k: v.numpy() for k, v in token_batch(5, 2, 32, vocab,
+                                                 device="cpu").items()}
 
 
 def resync_inputs():
@@ -804,6 +827,106 @@ def case_train(world, inp):
     return out
 
 
+def _tp_mesh(world, reps=TRAIN_REPS):
+    return mesh_lib.make_hfl_mesh(reps, ranks=TP_GRIDS[world], tp=TP,
+                                  device="cpu")
+
+
+def case_tp(world, inp):
+    """The tensor plane at tp = 2 over this world (rank grid
+    ``TP_GRIDS``): (a) ``shardings``, ``place_params``, ``tp_blocks`` and
+    ``gather_params`` of ``tp_config``'s numpy parameters
+    (``inp["tp_params"]``, replica r scaled by r + 1) lifted to replicas
+    ``TP_PLACE_REPS``; (b) ``Model.loss(tp=)`` (remat at world 4) and
+    each rank's gradient blocks on ``tp_loss_batch``; (c) the reduced
+    train step (``case_train``'s config, settings and start) on replicas
+    (1, 2, 2): static plain, static deterministic twice, dynamic
+    deterministic, rank 0 returning replica (0, 0, 0) gathered whole,
+    every rank its launches (the wrappers' calls) and (d) its replicated
+    leaves; (e) the refusals."""
+    out = {}
+    # (a)
+    reps = TP_PLACE_REPS[world]
+    hm = _tp_mesh(world, reps)
+    cfg = tp_config(configs)
+    specs = mesh_lib.hfl_param_specs(cfg, train._meta_params(cfg), hm)
+    one = weights.tree_from_numpy(_nest(inp["tp_params"]), "cpu")
+    whole = train._map(lambda a: torch.stack([a * (r + 1) for r in range(
+        reps[2])]).reshape(reps + tuple(a.shape)), one)
+    placed = mesh_lib.place_params(whole, hm)
+    back = mesh_lib.gather_params(placed, hm, specs)
+    blocks = mesh_lib.tp_blocks(one, hm)
+    out["mesh"] = {"shape": hm.shape, "grid": hm.grid, "rank": hm.rank,
+                   "coords": hm.coords, "tp_rank": hm.tp_rank,
+                   "block": hm.block, "groups": (
+                       hm.tp_group is not None, hm.fl_group is not None,
+                       hm.replica_group is not None)}
+    out["place"] = _np(_flat(placed))
+    out["shardings"] = _flat(mesh_lib.shardings(hm, specs, whole))
+    out["gather"] = all(torch.equal(a, b) for a, b in zip(
+        train._leaves(back), train._leaves(whole)))
+    out["blocks"] = all(torch.equal(a, b[(0,) * 3] / (hm.coords[2] + 1))
+                        for a, b in zip(train._leaves(blocks),
+                                        train._leaves(placed)))
+    out["replica"] = all(torch.equal(a, b) for a, b in zip(
+        train._leaves(mesh_lib.gather_replica(blocks, hm, specs)),
+        train._leaves(one)))
+    # (b)
+    leaves = {k: v.requires_grad_(True)
+              for k, v in _flat(mesh_lib.tp_blocks(one, hm)).items()}
+    batch = {k: torch.from_numpy(v) for k, v in tp_loss_batch(
+        cfg.vocab).items()}
+    model = build_model(cfg)
+    with torch.enable_grad():
+        loss = model.loss(_nest(leaves), batch, attn_chunk=16,
+                          remat=world == 4, tp=hm.tp_context)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    out["loss"] = float(loss.detach())
+    out["grads"] = {k: _np(g) for k, g in zip(leaves, grads)}
+    # (c), (d)
+    cfg = tref.config(TRAIN_ARCH, "float32", configs)
+    hm = _tp_mesh(world)
+    p0 = mesh_lib.tp_blocks(weights.tree_from_numpy(
+        _nest(inp["train_init"]), "cpu"), hm)
+    batch = token_batch(0, tref.BATCH, tref.SEQ, cfg.vocab, device="cpu")
+    out["rounds"] = {}
+    for dynamic, det, run in ((False, False, 0), (False, True, 0),
+                              (False, True, 1), (True, True, 0)):
+        kw = dict(tref.STEP, mb_per_epoch=tref.MB_PER_EPOCH[TRAIN_ARCH])
+        kw.update(dict(dynamic=True, **tref.DYNAMIC) if dynamic
+                  else tref.STATIC)
+        step, specs, _ = train.make_hfl_train_step(cfg, hm, **kw)
+        args = (tref.G1E, tref.G2E) if dynamic else ()
+        params = train.lift_params(p0, *hm.block)
+        mode = deterministic_algorithms() if det else \
+            contextlib.nullcontext()
+        with mode, _kernel_calls() as launches:
+            params = step(params, batch, *args)
+        whole = _flat(mesh_lib.gather_params(params, hm, specs))
+        flat = _flat(params)
+        res = {"launches": launches, "block": hm.block, "coords": hm.coords,
+               "tp_rank": hm.tp_rank,
+               "replicated": {k: _np(flat[k]) for k in TP_REPLICATED},
+               "replicas_equal": all(
+                   torch.equal(r, a[0, 0, 0]) for a in whole.values()
+                   for r in a.reshape((4,) + a.shape[3:]))}
+        if hm.rank == 0:
+            res["replica0"] = {k: _np(a[0, 0, 0]) for k, a in whole.items()}
+        out["rounds"][(dynamic, det, run)] = res
+    # (e)
+    rwkv = tref.config("rwkv6-1.6b", "float32", configs)
+    out["errors"] = {
+        "fsdp": _raises(NotImplementedError, lambda: mesh_lib.make_hfl_mesh(
+            TRAIN_REPS, fsdp=2, device="cpu")),
+        "family": _raises(NotImplementedError, lambda: (
+            train.make_hfl_train_step(rwkv, hm)))}
+    if world == 4:
+        hm4 = mesh_lib.make_hfl_mesh(TRAIN_REPS, tp=4, device="cpu")
+        out["errors"]["heads"] = _raises(ValueError, lambda: (
+            train.make_hfl_train_step(tp_config(configs), hm4)))
+    return out
+
+
 def case_mesh(world, inp):
     """The mesh functions in this world: ``derive_hfl_mesh`` over the
     world's devices, ``rank_grid``, ``derive_bank_mesh``, ``shardings``
@@ -826,12 +949,12 @@ def case_mesh(world, inp):
         _raises(ValueError, lambda: m.make_hfl_mesh(TRAIN_REPS,
                                                     ranks=(1, 1, 4))),
         _raises(NotImplementedError, lambda: m.make_hfl_mesh(
-            TRAIN_REPS, tp=2, device="cpu")))
+            TRAIN_REPS, fsdp=2, device="cpu")))
     if world > 1:
         out["derived"] = m.derive_hfl_mesh(["cpu"] * world,
                                            (world, 1, 1, 1)).shape
-        out["derive_tp"] = _raises(NotImplementedError, lambda: (
-            m.derive_hfl_mesh(["cpu"] * world, (1, 1, 1, world))))
+        out["derive_tp"] = m.derive_hfl_mesh(["cpu"] * world,
+                                             (1, 1, 1, world)).shape
     full = {"a": {"w": torch.arange(4 * 6, dtype=torch.float32).reshape(
         1, 2, 2, 6)}, "b": torch.arange(4.0).reshape(1, 2, 2)}
     mine = m.place_params(full, hm)
@@ -871,7 +994,8 @@ CASES = [("context", (1,), case_context),
          ("snapshot", (1, 2, 4), case_snapshot),
          ("share", (4,), case_share),
          ("train", (1, 2, 4), case_train),
-         ("mesh", (1, 2, 4), case_mesh)]
+         ("mesh", (1, 2, 4), case_mesh),
+         ("tp", (2, 4), case_tp)]
 
 
 def card_aggregation(rank: int, world: int, port: int, outdir: str) -> None:
@@ -999,7 +1123,6 @@ def card_train_setup(dev):
     """The card's reduced train step: qwen3 with ``tests/
     _torch_train_ref.py``'s config and settings, seed-0 weights drawn on
     ``dev``, its batch; returns (cfg, params, batch, step kwargs)."""
-    from repro_torch.models.model import build_model
     cfg = tref.config(TRAIN_ARCH, "float32", configs)
     p0 = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
                                dev)
@@ -1033,6 +1156,46 @@ def card_train(rank: int, world: int, port: int, outdir: str) -> None:
                     "grid": grid, "round": {k: v.cpu()
                                             for k, v in whole.items()}},
                    os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def card_tp_train(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of a gloo group on the card (a spawn target of
+    ``tests/test_torch_cuda.py``): the reduced static (2, 2) round
+    (``card_train_setup``) on replicas (1, 2, 2), each replica over
+    ``world`` tp ranks: twice on the card in deterministic mode, the
+    launch counts set to 0 just before the first, then once on the CPU
+    from the same weights; writes replica (0, 0, 0) of each, gathered
+    whole (on the CPU), the replicated leaves and the launches to
+    ``outdir/rank<r>.pt``."""
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = {"rounds": [], "replicated": []}
+        for dev in ("cuda", "cuda", "cpu"):
+            hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, tp=world, device=dev)
+            cfg, p0, batch, kw = card_train_setup(torch.device("cuda"))
+            step, specs, _ = train.make_hfl_train_step(cfg, hm, **kw)
+            params = train.lift_params(mesh_lib.tp_blocks(p0, hm),
+                                       *hm.block)
+            batch = {k: v.to(hm.device) for k, v in batch.items()}
+            if not out["rounds"]:
+                ops.reset_launches()
+            mode = deterministic_algorithms() if dev == "cuda" else \
+                contextlib.nullcontext()
+            with mode:
+                params = step(params, batch)
+            if "launches" not in out:
+                out["launches"] = dict(ops.LAUNCHES)
+                out["device"] = str(hm.device)
+            whole = _flat(mesh_lib.gather_params(params, hm, specs))
+            flat = _flat(params)
+            out["rounds"].append({k: a[0, 0, 0].cpu()
+                                  for k, a in whole.items()})
+            out["replicated"].append({k: flat[k].cpu()
+                                      for k in TP_REPLICATED})
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 

@@ -1100,6 +1100,35 @@ def test_multi_rank_train_step_bitwise_on_card(cuda_dev, tmp_path, world):
                    for k, v in want.items())
 
 
+def test_tp_train_step_on_card(cuda_dev, tmp_path):
+    """The tensor plane on the card: the reduced qwen3 (2, 2) round (f32
+    activations, vocab 128) on replicas (1, 2, 2), each replica over tp
+    = 2 gloo ranks spawned on the one card, in deterministic mode:
+    bitwise run to run, replica (0, 0, 0) gathered whole within 1e-4 of
+    the same round's on the CPU (the plain versions), the replicated
+    leaves bitwise equal across the two ranks, (g2 + 1) ``segment_agg``
+    and ``segment_broadcast`` launches per leaf on each rank."""
+    import torch.multiprocessing as mp
+    import _torch_dist_driver as drv
+    mp.spawn(drv.card_tp_train, args=(2, _free_port(), str(tmp_path)),
+             nprocs=2, join=True)
+    res = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    _, _, _, kw = drv.card_train_setup(cuda_dev)
+    for r in res:
+        card, again, cpu = r["rounds"]
+        n = len(card) * (kw["g2"] + 1)
+        assert r["device"].startswith("cuda")
+        assert r["launches"]["segment_agg"] == n
+        assert r["launches"]["segment_broadcast"] == n
+        assert all(torch.equal(card[k], again[k]) for k in card)
+        assert all(torch.allclose(card[k], cpu[k], atol=1e-4, rtol=1e-4)
+                   for k in card)
+        for i in range(3):
+            assert all(torch.equal(v, res[0]["replicated"][i][k])
+                       for k, v in r["replicated"][i].items())
+
+
 # ---------------------------------------------------------------------------
 # the LLM train step
 # ---------------------------------------------------------------------------

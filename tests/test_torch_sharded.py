@@ -33,6 +33,7 @@ from _torch_parity import (jax_async_perm_sources, jax_env_perm_source,
 
 from repro import configs as jconfigs
 from repro.core import hfl as jhfl
+from repro.launch import mesh as jmesh
 from repro.core import sync as jsync
 from repro.kernels import ref as jref
 from repro.models import build_model as j_build_model
@@ -67,6 +68,31 @@ def _flat_tree(tree, prefix=""):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _tp_params():
+    """The tensor plane's numpy parameters of ``drv.tp_config`` in the
+    reference's tree (shapes from ``jax.eval_shape`` of its init, seed
+    7): norm scales 1 + 0.1 z (so that ``q_norm``'s and ``k_norm``'s
+    gradients differ by head), the embedding 0.02 z, other weights z /
+    sqrt(fan-in); as (the JAX tree, the flat numpy leaves)."""
+    jcfg = drv.tp_config(jconfigs)
+    rng = np.random.default_rng(7)
+    shapes = jax.eval_shape(j_build_model(jcfg).init, jax.random.PRNGKey(0))
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name.startswith("ln") or name.endswith("norm"):
+            a = 1.0 + 0.1 * rng.normal(size=leaf.shape)
+        elif name == "embed":
+            a = rng.normal(size=leaf.shape) * 0.02
+        else:
+            a = rng.normal(size=leaf.shape) / np.sqrt(leaf.shape[-2])
+        return a.astype(leaf.dtype)
+
+    tree = jax.tree_util.tree_map_with_path(draw, shapes)
+    return jax.tree.map(jnp.asarray, tree), _flat_tree(tree)
+
+
 def _inputs() -> dict:
     """The reference's draws for the rounds and the envs, as numpy."""
     perm_source, edge_perm_source = jax_async_perm_sources(
@@ -88,6 +114,7 @@ def _inputs() -> dict:
         "train_init": _flat_tree(jax.jit(j_build_model(tref.config(
             drv.TRAIN_ARCH, "float32", jconfigs)).init)(
                 jax.random.PRNGKey(0))),
+        "tp_params": _tp_params()[1],
     }
 
 
@@ -914,9 +941,10 @@ def test_mesh_functions_over_the_ranks(runs, world):
     """``rank_grid`` fills the fl axis first; the HFL mesh's replicas,
     rank grid, rank order (row-major), coordinates, blocks and fl group;
     ``derive_bank_mesh`` (pod 0's ``(edge, fl)`` plane) placing and
-    gathering bank rows; ``derive_hfl_mesh`` over the world's devices and
-    its ``ValueError``/``NotImplementedError`` (fsdp/tp above 1: the
-    tensor plane); ``shardings`` of replica specs, ``place_params`` and
+    gathering bank rows; ``derive_hfl_mesh`` over the world's devices,
+    its replicas or its tp ranks, and its ``ValueError``/
+    ``NotImplementedError`` (fsdp above 1: the tensor plane);
+    ``shardings`` of replica specs, ``place_params`` and
     ``gather_params``; a tp-sharded spec raising; the production mesh
     raising below 256 ranks."""
     grid = {1: (1, 1, 1), 2: (1, 1, 2), 4: (1, 2, 2)}[world]
@@ -938,8 +966,159 @@ def test_mesh_functions_over_the_ranks(runs, world):
         if world > 1:
             assert m["derived"] == {"pod": 1, "edge": world, "fl": 1,
                                     "fsdp": 1, "tp": 1}
-            assert m["derive_tp"]
+            assert m["derive_tp"] == {"pod": 1, "edge": 1, "fl": 1,
+                                      "fsdp": 1, "tp": world}
         assert m["shardings"] == {"a": {"w": idx + (slice(None),)},
                                   "b": idx}
         assert _same(m["place"][0], whole[idx]) and m["place"][1]
         assert m["gather"] and m["shardings_tp"] and m["production"]
+
+
+# ---------------------------------------------------------------------------
+# the tensor plane: each replica over tp = 2 ranks (case "tp" of the driver)
+# ---------------------------------------------------------------------------
+
+def _tp_axes(jcfg, lifted: bool, reps=(1, 1, 1)) -> dict:
+    """{leaf path: the dimension the reference's ``hfl_param_specs``
+    splits over "tp" at tp = 2 (None: whole)}, counted in the lifted
+    leaf (``lifted``) or in the replica's own."""
+    shapes = jax.eval_shape(j_build_model(jcfg).init, jax.random.PRNGKey(0))
+
+    class Sizes:             # all the reference's guard reads of a mesh
+        shape = dict(zip(jmesh.HFL_AXES, reps + (1, drv.TP)))
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        jmesh.hfl_param_specs(jcfg, shapes, Sizes),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    out = {}
+    for path, spec in flat:
+        axis = next((i for i, e in enumerate(spec) if e is not None and "tp"
+                     in (e if isinstance(e, tuple) else (e,))), None)
+        out["/".join(k.key for k in path)] = (
+            axis if axis is None or lifted else axis - 3)
+    return out
+
+
+def _tp_ranks(world):
+    """(rank, replica coordinates, tp coordinate) of every rank: tp the
+    fastest axis of the rank grid."""
+    grid = drv.TP_GRIDS[world] + (1, drv.TP)
+    return [(r, tuple(int(c) for c in np.unravel_index(r, grid)[:3]),
+             r % drv.TP) for r in range(world)]
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_tp_placement_matches_reference_specs(runs, world):
+    """At tp = 2 over rank grid ``drv.TP_GRIDS[world]`` (tp the fastest
+    rank axis): every rank's coordinates and groups; ``place_params`` of
+    the whole lifted tree (replica r scaled by r + 1) is each leaf's
+    replica block and, on the dimension the reference's
+    ``hfl_param_specs`` splits over "tp", ``np.split(leaf, 2,
+    axis)[t]``; ``shardings`` gives the same index; ``gather_params``
+    and ``gather_replica`` invert the placement bitwise and
+    ``tp_blocks`` of one replica is its placed block."""
+    jcfg = drv.tp_config(jconfigs)
+    reps = drv.TP_PLACE_REPS[world]
+    axes = _tp_axes(jcfg, True, reps)
+    one = _tp_params()[1]
+    whole = {k: np.stack([v * (r + 1) for r in range(reps[2])]).reshape(
+        reps + v.shape) for k, v in one.items()}
+    assert sorted(axes) == sorted(one)
+    for rank, coords, t in _tp_ranks(world):
+        res = runs[world][rank]["tp"]
+        m = res["mesh"]
+        block = tuple(d // g for d, g in zip(reps, drv.TP_GRIDS[world]))
+        assert (m["shape"], m["grid"], m["rank"], m["coords"],
+                m["tp_rank"], m["block"]) == (
+            dict(zip(jmesh.HFL_AXES, reps + (1, drv.TP))),
+            drv.TP_GRIDS[world], rank, coords, t, block)
+        assert m["groups"] == (True, drv.TP_GRIDS[world][2] > 1, world > 2)
+        idx = tuple(slice(c * b, (c + 1) * b) for c, b in zip(coords, block))
+        for k, v in whole.items():
+            want = v[idx]
+            if axes[k] is not None:
+                want = np.split(want, drv.TP, axes[k])[t]
+            assert _same(res["place"][k], want), k
+            assert _same(res["place"][k], v[res["shardings"][k]]), k
+        assert res["gather"] and res["blocks"] and res["replica"]
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_tp_loss_and_grads_match_reference(runs, world):
+    """``Model.loss(tp=)`` of reduced qwen3 (4 heads over 2 kv heads,
+    d_ff 512, vocab 512, f32 activations) at tp = 2, KV chunks of 16
+    over 32 tokens (remat at world 4), on every rank against
+    ``jax.value_and_grad`` of the reference's ``Model.loss`` on the same
+    numpy parameters and batch: the loss, and each rank's gradient of
+    every leaf against its block (``np.split`` on the split dimension,
+    the whole gradient of a replicated leaf), within 1e-4 (summation
+    order: the split products and the vocab-parallel loss sum in
+    another order)."""
+    jcfg = drv.tp_config(jconfigs)
+    jp = _tp_params()[0]
+    jb = {k: jnp.asarray(v) for k, v in drv.tp_loss_batch(jcfg.vocab).items()}
+    jval, jg = jax.jit(jax.value_and_grad(
+        lambda q: j_build_model(jcfg).loss(q, jb, attn_chunk=16)))(jp)
+    jg = _flat_tree(jax.tree.map(np.asarray, jg))
+    axes = _tp_axes(jcfg, False)
+    for rank, _, t in _tp_ranks(world):
+        res = runs[world][rank]["tp"]
+        _close(res["loss"], float(jval), F32_TOL, F32_TOL)
+        assert sorted(res["grads"]) == sorted(jg)
+        for k, g in jg.items():
+            want = g if axes[k] is None else np.split(g, drv.TP, axes[k])[t]
+            _close(res["grads"][k], want, F32_TOL, F32_TOL)
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("world", (2, 4))
+def test_tp_train_step_matches_reference(runs, world, dynamic):
+    """Reduced qwen3 (``case_train``'s f32 settings and start) on
+    replicas (1, 2, 2) over rank grid ``drv.TP_GRIDS[world]``, each
+    replica over tp = 2 ranks (world 4: Eq. 1 and Eq. 2 cross ranks at a
+    fixed tp coordinate): replica (0, 0, 0) of a static round (plain and
+    deterministic) and of the dynamic round (deterministic), gathered
+    whole, within 1e-4 of the reference's one-device jitted step; the
+    four replicas bitwise equal; the replicated leaves (norms,
+    ``q_norm``, ``k_norm``) bitwise equal across the ranks of each tp
+    group; the deterministic static round bitwise run to run; each
+    rank's launches as its edges imply (its tp block's leaves, one
+    launch each)."""
+    want = np.load(runs["dirs"]["train_ref"] / f"{TRAIN_CASES[dynamic]}.npz")
+    keys = sorted(k for k in want.files if k != "__replicas_equal__")
+    grid = drv.TP_GRIDS[world]
+    block = tuple(d // g for d, g in zip(drv.TRAIN_REPS, grid))
+    runs_ = [(True, True, 0)] if dynamic else [(False, False, 0),
+                                               (False, True, 0)]
+    for key in runs_:
+        res = [r["tp"]["rounds"][key] for r in runs[world]]
+        got = res[0]["replica0"]
+        assert sorted(got) == keys
+        for k in keys:
+            _close(got[k], want[k], F32_TOL, F32_TOL)
+        for rank, coords, t in _tp_ranks(world):
+            r = res[rank]
+            assert r["replicas_equal"] and r["block"] == block
+            assert (r["coords"], r["tp_rank"]) == (coords, t)
+            assert r["launches"] == _train_launches(block, coords, dynamic,
+                                                    len(keys))
+            peer = res[rank - t]             # tp coordinate 0 of the group
+            assert _same(r["replicated"], peer["replicated"])
+    if not dynamic:
+        for r in runs[world]:
+            a, b = (r["tp"]["rounds"][(False, True, i)] for i in (0, 1))
+            assert _same(a["replicated"], b["replicated"])
+            assert a.get("replica0") is None or _same(a["replica0"],
+                                                      b["replica0"])
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_tp_refusals(runs, world):
+    """fsdp above 1 and a non-dense family (rwkv6) at tp = 2 raise
+    ``NotImplementedError`` (the tensor plane of item 10 (b)); tp = 4 on
+    reduced qwen3 (2 kv heads) raises ``ValueError``."""
+    for r in runs[world]:
+        errs = r["tp"]["errors"]
+        assert errs["fsdp"] and errs["family"]
+        if world == 4:
+            assert errs["heads"]

@@ -471,12 +471,14 @@ def test_guard_divisibility_matches_reference():
 
 def test_hfl_mesh_one_device():
     """``make_hfl_mesh`` with no rank grid puts every replica on one
-    device (fsdp = tp = 1; more raises, the tensor plane of item 10
-    (b)); ``derive_hfl_mesh`` raises ValueError when the topology does
-    not factor the devices, as the reference does, and over two devices
-    needs a two-rank process group (``tests/test_torch_sharded.py::
-    test_mesh_functions_over_the_ranks`` runs it in one) instead of
-    raising NotImplementedError."""
+    device (fsdp = tp = 1; fsdp above 1 raises NotImplementedError, the
+    tensor plane of item 10 (b); tp above 1 needs a process group of
+    that many ranks, ValueError without one); ``derive_hfl_mesh`` raises
+    ValueError when the topology does not factor the devices, as the
+    reference does, and over two devices, replicas or tp ranks, needs a
+    two-rank process group (``tests/test_torch_sharded.py::
+    test_mesh_functions_over_the_ranks`` runs it in one); F above 1
+    raises NotImplementedError."""
     hm = mesh.make_hfl_mesh((1, 2, 2), device="cpu")
     assert hm.axis_names == mesh.HFL_AXES == jmesh.HFL_AXES
     assert hm.shape == {"pod": 1, "edge": 2, "fl": 2, "fsdp": 1, "tp": 1}
@@ -486,13 +488,17 @@ def test_hfl_mesh_one_device():
     assert (mesh.REPLICA_AXES, mesh.TENSOR_AXES, mesh.SERVE_AXES) == \
         (jmesh.REPLICA_AXES, jmesh.TENSOR_AXES, jmesh.SERVE_AXES)
     with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+        mesh.make_hfl_mesh((1, 2, 2), fsdp=2, device="cpu")
+    with pytest.raises(ValueError, match="process group of 4 ranks"):
         mesh.make_hfl_mesh((1, 2, 2), tp=4, device="cpu")
     with pytest.raises(ValueError, match="does not factor"):
         mesh.derive_hfl_mesh(["cpu"], (2, 1, 1, 1))
     with pytest.raises(ValueError, match="process group of 2 ranks"):
         mesh.derive_hfl_mesh(["cpu", "cpu"], (2, 1, 1, 1))
-    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         mesh.derive_hfl_mesh(["cpu", "cpu"], (1, 1, 1, 2))
+    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+        mesh.derive_hfl_mesh(["cpu", "cpu"], (1, 1, 2, 1))
     assert mesh.derive_hfl_mesh(["cpu"], (1, 1, 1, 1)).shape["edge"] == 1
     if not torch.cuda.is_available():         # the default is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -506,9 +512,11 @@ def test_production_layouts_match_reference():
     order; below 256 (512) ranks they raise ValueError, as
     ``jax.make_mesh`` does. The reference's ``derive_hfl_mesh(m2, (4, 4,
     1, 16))`` shards each replica over tp = 16 (``{"pod": 2, "edge": 4,
-    "fl": 4, "fsdp": 1, "tp": 16}``): the port raises NotImplementedError
-    there (the tensor plane), and so does ``shardings`` of a tp-sharded
-    spec over the serve layout."""
+    "fl": 4, "fsdp": 1, "tp": 16}``): the port needs a process group of
+    512 ranks for it (ValueError without one); a topology with fsdp
+    above 1 (qwen2-72b's (4, 2, 2, 16)) raises NotImplementedError (the
+    tensor plane), and so does ``shardings`` of a tp-sharded spec over
+    the serve layout (mesh serving)."""
     m1 = mesh.make_production_mesh(n_ranks=512)
     assert m1.shape == {"data": 16, "model": 16}
     assert np.array_equal(m1.ranks, np.arange(256).reshape(16, 16))
@@ -526,8 +534,10 @@ def test_production_layouts_match_reference():
         mesh.make_production_mesh()
     with pytest.raises(ValueError, match="does not divide"):
         mesh.derive_serve_mesh(m1, 7)
-    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+    with pytest.raises(ValueError, match="process group of 512 ranks"):
         mesh.derive_hfl_mesh(["cpu"] * 512, (4, 4, 1, 16), n_pods=2)
+    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+        mesh.derive_hfl_mesh(["cpu"] * 512, (4, 2, 2, 16), n_pods=2)
     with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
         mesh.shardings(s, {"w": (None, "tp")})
     assert mesh.rank_grid((1, 2, 2), 2) == (1, 1, 2)
@@ -607,7 +617,9 @@ def test_dynamic_with_constant_gammas_is_bitwise_static():
 
 def test_main_runs_on_the_cpu(capsys):
     """``main(["--device", "cpu", ...])``: reduced qwen3 at replicas
-    (1, 2, 2), one static round and one dynamic, a finite loss each."""
+    (1, 2, 2), one static round and one dynamic, a finite loss each;
+    ``--mesh single`` in a world smaller than its 256 ranks raises
+    ValueError."""
     train.main(["--device", "cpu", "--rounds", "1", "--seq", "16",
                 "--batch", "4", "--g1", "1", "--g2", "1"])
     train.main(["--device", "cpu", "--rounds", "1", "--seq", "16",
@@ -618,5 +630,5 @@ def test_main_runs_on_the_cpu(capsys):
     assert len(lines) == 2
     assert all(np.isfinite(float(ln.split("loss=")[1].split()[0]))
                for ln in lines)
-    with pytest.raises(NotImplementedError, match="256"):
+    with pytest.raises(ValueError, match="256"):
         train.main(["--device", "cpu", "--mesh", "single"])
