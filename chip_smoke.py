@@ -133,7 +133,7 @@ Phases, each fatal on failure (the script exits non-zero):
    (b) full-width qwen3-1.7b (f32 weights from seed 0, bf16
    activations) on replicas (1, 2, 2), the reference
    main's settings (batch 8 x seq 128, lr 3e-3, 2 minibatches per epoch,
-   remat, KV chunks of 128): one static (2, 2) round, the
+   remat, KV chunks of 128): one static ``FULL_G`` = (1, 1) round, the
    ``segment_agg`` and ``segment_broadcast`` launches held to (g2 + 1)
    per leaf, every leaf bitwise equal across the replicas, replica 0's
    loss before and after, seconds per round and per SGD step, peak
@@ -141,15 +141,21 @@ Phases, each fatal on failure (the script exits non-zero):
    chunks of 64, another summation order: replica 0's loss and per-leaf
    sums against (b)'s, the bf16 round's own response to a reordering,
    which bounds phase 3l's loss; (c) in deterministic mode a
-   dynamic round at g1e = g2e = 2 bitwise the static (2, 2) round, then
+   dynamic round at g1e = g2e = 1 bitwise the static (1, 1) round, then
    a dynamic round with the reference main's seeded draws, launches
    held; (d) one (1, 1) round at seq 4096 (train_4k), one sequence per
-   replica; (e) full-width rwkv6-1.6b, one (1, 1) round through
-   ``wkv_chunked``;
+   replica; (e) full-width rwkv6-1.6b (f32 weights from seed 0, bf16
+   activations), one static (1, 1) round on replicas (1, 2, 2) at the
+   reference main's settings through ``wkv_chunked``: launches held,
+   replicas bitwise equal, replica 0's loss and per-leaf sums kept for
+   phase 3m; (e') the same round through ``wkv_scan``, another summation
+   order: its loss and per-leaf sums against (e)'s, the bf16 round's own
+   response to a reordering, which bounds phase 3m's loss;
 3k. the replica plane over ``torch.distributed`` (``checkpoint.store`` on
    a sharded env, ``sync.share_topology``, the multi-rank ``HFLMesh`` of
    ``launch.mesh`` and ``launch.train``), on a 120 s budget, gloo ranks
-   spawned on the one card (4, then 2) against one-device references
+   spawned on the one card (2; 4 for (c)'s reduced round until phase 3m
+   came) against one-device references
    computed in this process first: (a) phase 3e's faulty CIFAR
    ``AsyncHFLEnv`` in deterministic mode at action (1, 1) on 2 ranks,
    ``save_runtime`` after 10 events, ``load_runtime`` into a fresh
@@ -159,13 +165,13 @@ Phases, each fatal on failure (the script exits non-zero):
    and load seconds; (b) ``share_topology`` at the MNIST defaults on 2
    ranks equal to the one-device assignment and the deterministic round
    after it bitwise the one-device round; (c) reduced qwen3 (f32
-   activations, vocab 128) on replicas (1, 2, 2) over rank grids (1, 2,
-   2) at 4 ranks and (1, 1, 2) at 2, one deterministic (2, 2) round
+   activations, vocab 128) on replicas (1, 2, 2) over rank grid (1, 1,
+   2) at 2 ranks, one deterministic (2, 2) round
    bitwise the one-device card round with (g2 + 1) launches of each
    kernel per leaf on every rank; then full-width qwen3-1.7b (f32
    weights from seed 0, bf16 activations) at phase 3g (b)'s settings on
    2 ranks of 2 replicas each, so both Eq. 1 and Eq. 2 cross the ranks:
-   one static (2, 2) round, launches held, every replica bitwise rank
+   one static (1, 1) round, launches held, every replica bitwise rank
    0's replica (0, 0, 0), replica 0's loss, per-leaf sums of squares and
    sums within 1e-4 of 3g (b)'s round, seconds per round and per SGD
    step, the gloo ``all_reduce`` milliseconds of one Eq. 1 and one
@@ -177,16 +183,34 @@ Phases, each fatal on failure (the script exits non-zero):
    split over 4 gloo tp ranks spawned on the one card (the published
    topology's T = 4; NCCL cannot put several ranks on one card), each
    rank drawing the seed-0 replica on the card in turn and keeping its
-   tp blocks: one static (2, 2) round at phase 3g (b)'s settings,
+   tp blocks: one static (1, 1) round at phase 3g (b)'s settings,
    (g2 + 1) launches of each kernel per leaf on every rank (Eq. 1 and
    Eq. 2 on the rank's blocks of its 4 replicas), every replica and
    every replicated leaf (norms, ``q_norm``, ``k_norm``) bitwise equal
    across the ranks, replica (0, 0, 0) gathered whole on rank 0, its
    per-leaf sums of squares and sums within ``REPLICA_REL`` of 3g (b)'s
-   round and its loss no farther from 3g (b)'s than 3g (b')'s (a split
-   product sums in another order, and a bf16 round's loss moves with
-   any summation order); the round's wall, the gloo ``all_reduce`` seconds
+   round (or 3g (b')'s largest per-leaf response, were it larger) and
+   its loss no farther from 3g (b)'s than 3g (b')'s (a split product
+   sums in another order, and a bf16 round's loss moves with any
+   summation order); the round's wall, the gloo ``all_reduce`` seconds
    over the tp group and each rank's peak memory within ``TP_MEM_GB``;
+3m. the tensor plane of the ssm family (``models.rwkv`` under ``tp=``):
+   phase 3l's setup for full-width rwkv6-1.6b at its published T = 4
+   (f32 weights from seed 0, bf16 activations; replicas (1, 2, 2) on
+   every one of 4 gloo tp ranks sharing the card, the seed-0 replica
+   drawn one rank at a time): one static (1, 1) round at phase 3g (e)'s
+   settings through ``wkv_chunked``, (g2 + 1) launches of each kernel
+   per leaf on every rank, every replica and every leaf no spec splits
+   (``mu_*``, the low-rank lerp and decay leaves, the group norm's,
+   ``ln1``/``ln2``, ``final_norm``) bitwise equal across the ranks,
+   replica (0, 0, 0) gathered whole: its loss no farther from 3g (e)'s
+   round than 3g (e')'s, its per-leaf sums of squares and sums within
+   the larger of ``REPLICA_REL`` and 3g (e')'s largest per-leaf response
+   (rwkv6's round is ill-conditioned: its zero-initialised group-norm
+   bias ``ln_b`` moves by tens of percent under any summation order),
+   the leaf at each largest printed; the round's wall, the gloo
+   ``all_reduce`` and ``all_gather`` calls and seconds over the tp group
+   and each rank's peak memory within ``TP_RWKV_MEM_GB``;
 3b. the LLM serving path: a reduced qwen3, rwkv6, olmoe, zamba2,
    whisper and qwen2-vl (f32 activations; the last two with their stub
    inputs) served on the card against the CPU; then the main path,
@@ -461,7 +485,9 @@ LLM_AGG = ("llm-edge-mean", 4, 28 * 2048 * 6144, 2)
 # (segment_sum_partial) over its 2 replicas of that leaf, one per edge
 LLM_PARTIAL = ("llm-eq1-partial-k2", 2, 28 * 2048 * 6144, 2)
 # phase 3l's Eq. 1 on a tp rank: its quarter of that leaf (w_gate's
-# columns split over 4 tp ranks) over the 4 replicas it holds
+# columns split over 4 tp ranks) over the 4 replicas it holds; also phase
+# 3m's largest block, rwkv6-1.6b's cmix w_k (24 x 2048 x 7168 / 4, the
+# same 88,080,384 elements)
 LLM_TP = ("llm-edge-mean-tp4", 4, 28 * 2048 * 6144 // 4, 2)
 
 
@@ -1292,8 +1318,9 @@ def async_runtime(torch, ops, ref, env_mod, sync, hfl, flatbank,
 # events of the no-perturbation and resume runs (save at half of them),
 # at action (1, 1): in deterministic mode a landed upload trains its
 # edge's 10-row call for gamma1 gamma2 epochs; the phase prints its wall
-# against its 90 s budget
-OBS_EVENTS = 16
+# against its 90 s budget. 16 until phase 3m came (the first cut that
+# made room for it)
+OBS_EVENTS = 8
 OBS_ACTION = np.array([1.0, 1.0])
 
 
@@ -1718,6 +1745,11 @@ TRAIN_MB = {"qwen3-1.7b": 2, "rwkv6-1.6b": 1, "olmoe-1b-7b": 2}
 # over replicas (1, 2, 2), 2 minibatches of one sequence per epoch, remat
 TRAIN_KW = dict(lr=3e-3, mb_per_epoch=2, remat=True)
 TRAIN_REPS = (1, 2, 2)
+# (g1, g2) of the full-width qwen3-1.7b rounds of phases 3g (b)-(c), 3k (c)
+# and 3l: (1, 1), 8 SGD steps a round on one device or a tp rank, 4 on
+# each of 3k's 2 ranks. They ran the reference main's (2, 2) until phase
+# 3m came: the depth cut that made room for it (PERF.md section 5)
+FULL_G = 1
 # four f32 replicas of qwen3-1.7b (32.5 GB), one replica's gradients
 # (8.1 GB) and the largest per-leaf aggregation transient (2.8 GB)
 TRAIN_MEM_GB = 45.0
@@ -1791,7 +1823,7 @@ def _full_round(torch, ops, train, step, params, batch, args=()):
 def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
               dev) -> dict:
     """Phase 3g: (a) reduced rounds card vs CPU; (b) full-width
-    qwen3-1.7b, one static (2, 2) round on replicas (1, 2, 2); (c)
+    qwen3-1.7b, one static ``FULL_G`` round on replicas (1, 2, 2); (c)
     dynamic = static bitwise in deterministic mode, then a dynamic round
     with the reference main's draws; (d) one round at train_4k's length;
     (e) full-width rwkv6-1.6b, one (1, 1) round through ``wkv_chunked``.
@@ -1826,11 +1858,12 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
     params = init()
     n_leaves = len(train._leaves(params))
     loss0 = loss_of(params, evalb)
-    step, specs, _ = train.make_hfl_train_step(cfg, hm, g1=2, g2=2, **kw)
+    step, specs, _ = train.make_hfl_train_step(cfg, hm, g1=FULL_G,
+                                               g2=FULL_G, **kw)
     torch.cuda.reset_peak_memory_stats(dev)
     params, wall, counts = _full_round(torch, ops, train, step, params, batch)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    want = _agg_launches(n_leaves, 2)
+    want = _agg_launches(n_leaves, FULL_G)
     check(counts == want, f"phase 3g (b): launches {counts} != {want}")
     check(_replicas_equal(torch, train, params), "phase 3g (b): replicas "
           "differ after the cloud round")
@@ -1838,12 +1871,14 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
     check(np.isfinite(loss0) and np.isfinite(loss1),
           f"phase 3g (b): loss {loss0} -> {loss1}")
     # phase 3k's full-width round on 2 ranks is held against these
-    full = {"loss": loss1, "stats": [_leaf_stats(torch, a[0, 0, 0])
-                                     for a in train._leaves(params)]}
-    n_sgd = 2 * 2 * reps * TRAIN_KW["mb_per_epoch"]
+    full = {"loss": loss1, "names": list(_flat(params)),
+            "stats": [_leaf_stats(torch, a[0, 0, 0])
+                      for a in train._leaves(params)]}
+    n_sgd = FULL_G ** 2 * reps * TRAIN_KW["mb_per_epoch"]
     print(f"  (b) qwen3-1.7b full width ({cfg.n_params():,} parameters, f32 "
           f"weights, bf16 activations), replicas {TRAIN_REPS}, batch 8 x "
-          f"seq 128, (g1, g2) = (2, 2), remat, KV chunks of 128: round "
+          f"seq 128, (g1, g2) = ({FULL_G}, {FULL_G}), remat, KV chunks of "
+          f"128: round "
           f"{wall:.3f} s, {n_sgd} SGD steps, {wall / n_sgd:.4f} s per step "
           f"(aggregations included); replica 0's loss on token_batch(9999) "
           f"{loss0:.4f} -> {loss1:.4f}; peak memory {peak:.2f} GB "
@@ -1854,7 +1889,7 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
 
     # (b') the same round with KV chunks of 64: another summation order,
     # the round's own response to it, which bounds phase 3l's loss
-    ctl, _, _ = train.make_hfl_train_step(cfg, hm, g1=2, g2=2,
+    ctl, _, _ = train.make_hfl_train_step(cfg, hm, g1=FULL_G, g2=FULL_G,
                                           **dict(kw, attn_chunk=64))
     params, w_ctl, _ = _full_round(torch, ops, train, ctl, init(), batch)
     ctl_loss = loss_of(params, evalb)
@@ -1876,18 +1911,19 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
                                                  init(), batch)
         ref0 = [leaf[0, 0, 0].cpu() for leaf in train._leaves(params)]
         del params
-        g = np.full(TRAIN_REPS[1], 2)
+        g = np.full(TRAIN_REPS[1], FULL_G)
         params, w_dyn, c_dyn = _full_round(torch, ops, train, dyn, init(),
                                            batch, (g, g))
     same = c_dyn == c_static and all(
         torch.equal(leaf[0, 0, 0].cpu(), r)
         for leaf, r in zip(train._leaves(params), ref0))
-    check(same and _replicas_equal(torch, train, params), "phase 3g (c): the "
-          "dynamic round at g1e = g2e = 2 is not bitwise the static (2, 2) "
-          "round")
+    check(same and _replicas_equal(torch, train, params), f"phase 3g (c): "
+          f"the dynamic round at g1e = g2e = {FULL_G} is not bitwise the "
+          f"static ({FULL_G}, {FULL_G}) round")
     del ref0
-    print(f"  (c) deterministic mode: dynamic round (g1e = g2e = 2, bounds "
-          f"(3, 3)) bitwise the static (2, 2) round, launches equal; walls "
+    print(f"  (c) deterministic mode: dynamic round (g1e = g2e = {FULL_G}, "
+          f"bounds (3, 3)) bitwise the static ({FULL_G}, {FULL_G}) round, "
+          f"launches equal; walls "
           f"static {w_static:.3f} s, dynamic {w_dyn:.3f} s")
     rng = np.random.default_rng(0)        # the reference main's draws
     g1e, g2e = rng.integers(1, 3, 2), rng.integers(1, 3, 2)
@@ -1930,36 +1966,77 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
     del params
     torch.cuda.empty_cache()
 
-    # (e) rwkv6-1.6b at full width through wkv_chunked
-    rcfg = configs.get_config("rwkv6-1.6b")
-    rmodel = model_mod.build_model(rcfg)
-    p1 = rmodel.init(torch.Generator(device=dev).manual_seed(0), dev)
-    params = train.lift_params(p1, *TRAIN_REPS)
-    del p1
-    rstep, _, _ = train.make_hfl_train_step(rcfg, hm, g1=1, g2=1,
-                                            wkv_chunked=True, **kw)
-    rn = len(train._leaves(params))
-    params, w_r, c_r = _full_round(torch, ops, train, rstep, params,
-                                   token_batch(0, 8, 128, rcfg.vocab,
-                                               device=dev))
-    check(c_r == _agg_launches(rn, 1), f"phase 3g (e): launches {c_r}")
-    check(_replicas_equal(torch, train, params), "phase 3g (e): replicas "
-          "differ")
-    with torch.no_grad():
-        rloss = float(rmodel.loss(train._map(lambda a: a[0, 0, 0], params),
-                                  token_batch(9999, 8, 128, rcfg.vocab,
-                                              device=dev), wkv_chunked=True))
-    check(np.isfinite(rloss), f"phase 3g (e): loss {rloss}")
-    n_r = reps * TRAIN_KW["mb_per_epoch"]
-    print(f"  (e) rwkv6-1.6b full width ({rcfg.n_params():,} parameters), "
-          f"(1, 1) round, batch 8 x seq 128, wkv_chunked: {w_r:.3f} s "
-          f"({w_r / n_r:.4f} s per SGD step), launches {c_r}, loss "
-          f"{rloss:.4f}")
-    del params
-    torch.cuda.empty_cache()
+    # (e), (e') rwkv6-1.6b at full width
+    rwkv = rwkv_rounds(torch, ops, configs, model_mod, train, mesh_lib,
+                       token_batch, dev)
     wall = time.perf_counter() - t_phase
     print(f"  phase 3g took {wall:.1f} s (budget {TRAIN_BUDGET_S:.0f} s)")
-    return {"launches": counts, "full": full}
+    return {"launches": counts, "full": full, "rwkv": rwkv}
+
+
+def rwkv_rounds(torch, ops, configs, model_mod, train, mesh_lib,
+                token_batch, dev) -> dict:
+    """Phase 3g (e): full-width rwkv6-1.6b (f32 weights from seed 0, bf16
+    activations), one static (1, 1) round of replicas (1, 2, 2) at the
+    reference main's settings (batch 8 x seq 128) through
+    ``wkv_chunked``; (e') the same round through ``wkv_scan`` (the
+    reference's ``use_chunked=False``; without remat, which changes no
+    value): only a summation order changes,
+    so (e')'s distance from (e) is the bf16 round's own response to one,
+    which bounds phase 3m's loss. Returns (e)'s replica 0 loss and
+    per-leaf stats (``_leaf_stats``) and (e')'s response
+    (``_replica_rel``)."""
+    cfg = configs.get_config("rwkv6-1.6b")
+    model = model_mod.build_model(cfg)
+    hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, device=dev)
+    batch = token_batch(0, 8, 128, cfg.vocab, device=dev)
+    evalb = token_batch(9999, 8, 128, cfg.vocab, device=dev)
+    n_sgd = int(np.prod(TRAIN_REPS)) * TRAIN_KW["mb_per_epoch"]
+    out = {}
+    for label, chunked in (("e", True), ("e'", False)):
+        p1 = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        params = train.lift_params(p1, *TRAIN_REPS)
+        del p1
+        # (e') without remat: a recomputed layer gives the same values, so
+        # only the WKV route changes, and the 128 sequential token steps
+        # of wkv_scan run once forward instead of twice
+        step, _, _ = train.make_hfl_train_step(
+            cfg, hm, g1=1, g2=1, wkv_chunked=chunked,
+            **dict(TRAIN_KW, attn_chunk=128, remat=chunked))
+        n = len(train._leaves(params))
+        n_params = sum(a[0, 0, 0].numel() for a in train._leaves(params))
+        params, wall, counts = _full_round(torch, ops, train, step, params,
+                                           batch)
+        check(counts == _agg_launches(n, 1),
+              f"phase 3g ({label}): launches {counts}")
+        check(_replicas_equal(torch, train, params),
+              f"phase 3g ({label}): replicas differ")
+        with torch.no_grad():
+            loss = float(model.loss(train._map(lambda a: a[0, 0, 0], params),
+                                    evalb, wkv_chunked=True))
+        check(np.isfinite(loss), f"phase 3g ({label}): loss {loss}")
+        res = {"loss": loss, "names": list(_flat(params)),
+               "stats": [_leaf_stats(torch, a[0, 0, 0])
+                         for a in train._leaves(params)]}
+        del params
+        torch.cuda.empty_cache()
+        route = "wkv_chunked" if chunked else "wkv_scan"
+        if chunked:
+            out = res
+            print(f"  (e) rwkv6-1.6b full width ({n_params:,} "
+                  f"parameters, f32 weights, bf16 activations), (1, 1) "
+                  f"round, batch 8 x seq 128, remat, {route}: {wall:.3f} s "
+                  f"({wall / n_sgd:.4f} s per SGD step), launches {counts}, "
+                  f"replica 0's loss on token_batch(9999) {loss:.6f}")
+            continue
+        out["reorder_rel"] = _replica_rel(res, out)
+        worst = _worst_leaves(res, out)
+        print(f"  (e') the same round through {route} ({wall:.3f} s): loss "
+              f"{loss:.6f}; its response to that summation order: loss "
+              f"{out['reorder_rel'][0]:.3e}, per-leaf sums of squares "
+              f"{out['reorder_rel'][1]:.3e} ({worst[0]}), sums over L1 "
+              f"{out['reorder_rel'][2]:.3e} ({worst[1]}) (relative to (e))")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1972,10 +2049,12 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
 # and 20 until phase 3l came)
 REPLICA_EVENTS = 20
 SNAP_EVENTS = 10
-# (c) the reduced round's rank grids at 4 and 2 ranks (mesh.rank_grid), and
-# the full-width round's at 2: replicas (1, 2, 2) as blocks of (1, 2, 1),
-# so both Eq. 1 and Eq. 2 cross the ranks
-REPLICA_WORLDS = (4, 2)
+# (c) the reduced round's rank grid at 2 ranks (mesh.rank_grid), and the
+# full-width round's: replicas (1, 2, 2) as blocks of (1, 2, 1), so both
+# Eq. 1 and Eq. 2 cross the ranks. A 4-rank world ran the reduced round
+# too until phase 3m came (the second cut that made room for it; tests/
+# test_torch_cuda.py's multi-rank card test keeps 4 ranks)
+REPLICA_WORLDS = (2,)
 # full width against phase 3g (b)'s one-device round: replica 0's loss, and
 # per leaf the f64 sum of squares relative to itself and the f64 sum
 # relative to the leaf's L1 norm (a sum near 0 has no relative scale of
@@ -1989,12 +2068,12 @@ REPLICA_BUDGET_S = 120.0
 
 
 def _replica_round(torch, ops, train, cfg, hm, kw, init, batch,
-                   deterministic: bool):
-    """One static (2, 2) round of ``cfg`` on ``hm`` from ``init()`` (one
+                   deterministic: bool, g: int = 2):
+    """One static (g, g) round of ``cfg`` on ``hm`` from ``init()`` (one
     replica's tree), the launch counts set to 0 just before and read
     just after; returns (this rank's params, wall s, launches)."""
     from repro_torch import device as device_mod
-    step, _, _ = train.make_hfl_train_step(cfg, hm, g1=2, g2=2, **kw)
+    step, _, _ = train.make_hfl_train_step(cfg, hm, g1=g, g2=g, **kw)
     p1 = init()
     params = train.lift_params(p1, *hm.block)
     del p1
@@ -2020,33 +2099,41 @@ def _small_train_setup(torch, configs, model_mod, token_batch, dev):
 
 
 class _AllReduceTimer:
-    """Wraps ``torch.distributed.all_reduce`` while on: each call
-    synchronised and timed, keyed by its group (None: the world)."""
+    """Wraps the ``torch.distributed`` collectives ``names`` (default:
+    ``all_reduce``) while on: each call synchronised and timed, its
+    milliseconds listed by its group (None: the world) in ``ms`` and
+    counted by (name, group) in ``calls``."""
 
-    def __init__(self, torch, dist):
-        self.torch, self.dist, self.ms = torch, dist, {}
+    def __init__(self, torch, dist, names=("all_reduce",)):
+        self.torch, self.dist, self.names = torch, dist, names
+        self.ms, self.calls = {}, {}
 
-    def __enter__(self):
-        self.saved = fn = self.dist.all_reduce
-
-        def timed(tensor, *args, group=None, **kw):
+    def _timed(self, name, fn):
+        def timed(*args, group=None, **kw):
             t0 = sync_time(self.torch)
-            out = fn(tensor, *args, group=group, **kw)
+            out = fn(*args, group=group, **kw)
             self.ms.setdefault(group, []).append(
                 (sync_time(self.torch) - t0) * 1e3)
+            key = (name, group)
+            self.calls[key] = self.calls.get(key, 0) + 1
             return out
+        return timed
 
-        self.dist.all_reduce = timed
+    def __enter__(self):
+        self.saved = {n: getattr(self.dist, n) for n in self.names}
+        for n, fn in self.saved.items():
+            setattr(self.dist, n, self._timed(n, fn))
         return self
 
     def __exit__(self, *exc):
-        self.dist.all_reduce = self.saved
+        for n, fn in self.saved.items():
+            setattr(self.dist, n, fn)
 
 
 def _replica_full(torch, dist, ops, configs, model_mod, train, mesh_lib,
                   token_batch, hm) -> dict:
     """(c) full width on this rank: qwen3-1.7b (f32 weights from seed 0,
-    bf16 activations) at phase 3g (b)'s settings, one static (2, 2)
+    bf16 activations) at phase 3g (b)'s settings, one static ``FULL_G``
     round of this rank's block; its wall, peak memory, launches, the
     all_reduce milliseconds of Eq. 1 (the fl group) and Eq. 2 (the
     world), whether every leaf of every replica equals rank 0's replica
@@ -2061,7 +2148,7 @@ def _replica_full(torch, dist, ops, configs, model_mod, train, mesh_lib,
     with _AllReduceTimer(torch, dist) as timer:
         params, wall, counts = _replica_round(
             torch, ops, train, cfg, hm, dict(TRAIN_KW, attn_chunk=128), init,
-            token_batch(0, 8, 128, cfg.vocab, device=dev), False)
+            token_batch(0, 8, 128, cfg.vocab, device=dev), False, FULL_G)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     leaves = train._leaves(params)
     same = True
@@ -2074,7 +2161,8 @@ def _replica_full(torch, dist, ops, configs, model_mod, train, mesh_lib,
         del r0
     out = {"wall": wall, "peak": peak, "counts": counts, "same": same,
            "n_leaves": len(leaves), "block": hm.block,
-           "eq1_ms": float(np.sum(timer.ms.get(hm.fl_group, [0.0]))) / 2,
+           "eq1_ms": float(np.sum(timer.ms.get(hm.fl_group, [0.0])))
+           / FULL_G,
            "eq2_ms": float(np.sum(timer.ms.get(None, [0.0])))}
     if hm.rank == 0:
         with torch.no_grad():
@@ -2105,11 +2193,20 @@ def _replica_rel(got: dict, ref: dict) -> tuple:
                 for a, b in zip(got["stats"], ref["stats"])))
 
 
+def _worst_leaves(got: dict, ref: dict) -> tuple:
+    """The leaves (by ``ref["names"]``) at ``_replica_rel``'s largest
+    per-leaf sum of squares and largest sum over L1."""
+    sq = [abs(a[2] - b[2]) / b[2] for a, b in zip(got["stats"], ref["stats"])]
+    sm = [abs(a[0] - b[0]) / b[1] for a, b in zip(got["stats"], ref["stats"])]
+    return ref["names"][int(np.argmax(sq))], ref["names"][int(np.argmax(sm))]
+
+
 def _replica_rank(rank: int, world: int, port: int, outdir: str) -> None:
     """One rank of phase 3k, a ``torch.multiprocessing.spawn`` target: a
-    gloo group of ``world`` ranks on the one card. At 4 ranks (c)'s
-    reduced round; at 2 ranks (a), (b), (c)'s reduced round and the
-    full-width round. Writes its results to ``outdir/rank<r>-<world>.pt``."""
+    gloo group of ``world`` ranks on the one card. At 2 ranks (a), (b),
+    (c)'s reduced round and the full-width round; at any other world
+    (c)'s reduced round alone. Writes its results to
+    ``outdir/rank<r>-<world>.pt``."""
     sys.path.insert(0, SRC)
     import torch
     import torch.distributed as dist
@@ -2191,9 +2288,9 @@ def _replica_rank(rank: int, world: int, port: int, outdir: str) -> None:
 
 def replica_plane(torch, ops, env_mod, runtime, sync, flatbank, store,
                   configs, model_mod, train, mesh_lib, trained, dev) -> dict:
-    """Phase 3k: gloo ranks spawned on the one card, 4 (the reduced
-    round) and 2 (all of (a)-(c), the full-width round last), both
-    worlds at once; meanwhile, in this process, the one-device
+    """Phase 3k: gloo ranks spawned on the one card, each world of
+    ``REPLICA_WORLDS`` (2: all of (a)-(c), the full-width round last),
+    all at once; meanwhile, in this process, the one-device
     references: (a)'s deterministic faulty CIFAR run with its snapshot
     at SNAP_EVENTS, (b)'s ``share_topology`` and round at the MNIST
     defaults, (c)'s reduced round on the card in deterministic mode.
@@ -2314,7 +2411,7 @@ def replica_plane(torch, ops, env_mod, runtime, sync, flatbank, store,
         full = [r["full"] for r in ranks[2]]
         ref = trained["full"]
         n = full[0]["n_leaves"]
-        want = _agg_launches(n, 2)
+        want = _agg_launches(n, FULL_G)
         for r in full:
             got = {k: r["counts"][k] for k in want}
             check(got == want, f"phase 3k (c) full width: launches {got} "
@@ -2326,12 +2423,13 @@ def replica_plane(torch, ops, env_mod, runtime, sync, flatbank, store,
               f"phase 3k (c) full width: vs 3g (b) loss {rel_loss:.3e}, sum "
               f"of squares {rel_sq:.3e}, sum {rel_sum:.3e} > {REPLICA_REL}")
         wall = max(r["wall"] for r in full)
-        n_sgd = 2 * 2 * int(np.prod(full[0]["block"])) * TRAIN_KW[
+        n_sgd = FULL_G ** 2 * int(np.prod(full[0]["block"])) * TRAIN_KW[
             "mb_per_epoch"]
         print(f"  (c) qwen3-1.7b full width (f32 weights, bf16 activations),"
               f" replicas {TRAIN_REPS} as blocks of {full[0]['block']} on 2 "
-              f"ranks, batch 8 x seq 128, (2, 2), remat, KV chunks of 128, "
-              f"plain mode: round {wall:.3f} s, {n_sgd} SGD steps per rank "
+              f"ranks, batch 8 x seq 128, ({FULL_G}, {FULL_G}), remat, KV "
+              f"chunks of 128, plain mode: round {wall:.3f} s, {n_sgd} SGD "
+              f"steps per rank "
               f"({wall / n_sgd:.4f} s per step, the ranks sharing the card); "
               f"gloo all_reduce per Eq. 1 {full[0]['eq1_ms']:.1f} / "
               f"{full[1]['eq1_ms']:.1f} ms, per Eq. 2 "
@@ -2359,19 +2457,37 @@ def replica_plane(torch, ops, env_mod, runtime, sync, flatbank, store,
 # phase 3l: the tensor plane, each replica over 4 gloo tp ranks on the card
 # ---------------------------------------------------------------------------
 
-# qwen3-1.7b's published topology (8, 8, 1, 4) splits each replica over
-# T = 4 tp ranks; here replicas (1, 2, 2), all on every rank (rank grid
-# (1, 1, 1)), one rank per tp coordinate
+# qwen3-1.7b's and rwkv6-1.6b's published topology (8, 8, 1, 4) splits
+# each replica over T = 4 tp ranks; here replicas (1, 2, 2), all on every
+# rank (rank grid (1, 1, 1)), one rank per tp coordinate
 TP_WORLD = 4
-# the leaves no spec splits: every rank of a tp group holds them whole
-TP_REPLICATED = ("final_norm", "layers/ln1", "layers/ln2",
-                 "layers/attn/q_norm", "layers/attn/k_norm")
-# per rank: its quarter of four f32 replicas (8.1 GB), of one replica's
-# gradients (2.0 GB), remat's activations and bf16 casts (< 1 GB) and
-# Eq. 1's means of the largest leaf's block (0.7 GB); the staggered draw
-# of one whole replica (8.1 GB) comes before the round
-TP_MEM_GB = 14.0
-TP_BUDGET_S = 150.0
+# per phase: the model, its (g, g) round at phase 3g's settings (3l:
+# 3g (b)'s; 3m: 3g (e)'s, through wkv_chunked), the loss's own options
+# and the key of its one-device reference in phase 3g's results. The
+# reference's train step is the reference main's (batch 8 x seq 128, lr
+# 3e-3, 2 minibatches per epoch, remat)
+TP_RUNS = {
+    "3l": dict(arch="qwen3-1.7b", g=FULL_G,
+               kw=dict(TRAIN_KW, attn_chunk=128),
+               loss_kw={}, ref="full", ref_name="3g (b)",
+               reorder="3g (b')'s KV chunks of 64"),
+    "3m": dict(arch="rwkv6-1.6b", g=1,
+               kw=dict(TRAIN_KW, attn_chunk=128, wkv_chunked=True),
+               loss_kw=dict(wkv_chunked=True), ref="rwkv", ref_name="3g (e)",
+               reorder="3g (e')'s wkv_scan")}
+# per rank. 3l: its quarter of four f32 replicas of qwen3-1.7b (8.1 GB),
+# of one replica's gradients (2.0 GB), remat's activations and bf16 casts
+# (< 1 GB) and Eq. 1's means of the largest leaf's block (0.7 GB). 3m:
+# rwkv6-1.6b's tree holds 1,599,768,576 parameters (6.40 GB f32; the
+# config's analytic n_params, 1,980,104,704, also counts attention
+# projections an RWKV block does not have), a rank's blocks 416,937,984
+# of them (the leaves no spec splits, 22.7 M, whole on every rank): four
+# replicas' blocks 6.67 GB, one's gradients 1.67 GB, Eq. 1's means of
+# the largest block (4 x 88,080,384 -> 2, 0.7 GB) and remat's
+# activations and casts (< 1 GB). The staggered draw of one whole replica
+# comes before the round
+TP_MEM_GB = {"3l": 14.0, "3m": 12.0}
+TP_BUDGET_S = {"3l": 150.0, "3m": 120.0}
 
 
 def _flat(tree, prefix="") -> dict:
@@ -2389,14 +2505,24 @@ def _one_leaf(path: str, leaf) -> dict:
     return leaf
 
 
-def _tp_rank(rank: int, world: int, port: int, outdir: str) -> None:
-    """One rank of phase 3l, a ``torch.multiprocessing.spawn`` target:
-    a gloo group of ``world`` tp ranks on the one card. Draws the seed-0
-    qwen3-1.7b replica on the card one rank at a time and keeps its tp
-    blocks, runs one static (2, 2) round of replicas (1, 2, 2) at phase
-    3g (b)'s settings with the launch counts set to 0 just before, then
-    gathers replica (0, 0, 0) whole on rank 0 leaf by leaf and takes its
-    loss and per-leaf stats there. Writes its results to
+def _unsplit(specs) -> list:
+    """The paths of the leaves whose spec names no "tp" axis: every rank
+    of a tp group holds them whole."""
+    return [k for k, spec in _flat(specs).items() if not any(
+        e is not None and "tp" in (e if isinstance(e, tuple) else (e,))
+        for e in spec)]
+
+
+def _tp_rank(rank: int, world: int, port: int, outdir: str,
+             phase: str) -> None:
+    """One rank of phase 3l or 3m (``TP_RUNS[phase]``), a
+    ``torch.multiprocessing.spawn`` target: a gloo group of ``world`` tp
+    ranks on the one card. Draws the seed-0 replica on the card one rank
+    at a time and keeps its tp blocks, runs one static round of replicas
+    (1, 2, 2) with the launch counts set to 0 just before and the tp
+    group's ``all_reduce`` and ``all_gather`` calls timed, then gathers
+    replica (0, 0, 0) whole on rank 0 leaf by leaf and takes its loss
+    and per-leaf stats there. Writes its results to
     ``outdir/rank<r>.pt``."""
     sys.path.insert(0, SRC)
     import torch
@@ -2407,12 +2533,14 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str) -> None:
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import train
     from repro_torch.models import model as model_mod
+    run = TP_RUNS[phase]
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
         hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, tp=world)
         dev = hm.device
-        cfg = configs.get_config("qwen3-1.7b")
+        cfg = dataclasses.replace(configs.get_config(run["arch"]),
+                                  **run.get("cfg", {}))
         model = model_mod.build_model(cfg)
         t0 = time.perf_counter()
         for r in range(world):           # one whole replica at a time
@@ -2427,11 +2555,12 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str) -> None:
         del blocks
         t_init = time.perf_counter() - t0
         step, specs, _ = train.make_hfl_train_step(
-            cfg, hm, g1=2, g2=2, **dict(TRAIN_KW, attn_chunk=128))
+            cfg, hm, g1=run["g"], g2=run["g"], **run["kw"])
         batch = token_batch(0, 8, 128, cfg.vocab, device=dev)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        with _AllReduceTimer(torch, dist) as timer:
+        with _AllReduceTimer(torch, dist,
+                             ("all_reduce", "all_gather")) as timer:
             ops.reset_launches()
             t0 = sync_time(torch)
             params = step(params, batch)
@@ -2440,7 +2569,8 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str) -> None:
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         flat = _flat(params)
         same_rep = True
-        for k in TP_REPLICATED:
+        whole_leaves = _unsplit(specs)
+        for k in whole_leaves:
             r0 = flat[k].clone()
             dist.broadcast(r0, src=0)
             same_rep = same_rep and torch.equal(r0, flat[k])
@@ -2449,8 +2579,10 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str) -> None:
                "init_s": t_init, "n_leaves": len(flat),
                "replicas_equal": _replicas_equal(torch, train, params),
                "replicated_equal": same_rep, "block": hm.block,
+               "n_whole": len(whole_leaves),
                "tp_rank": hm.tp_rank, "gloo_s": float(np.sum(tp_ms)) / 1e3,
                "gloo_calls": len(tp_ms),
+               "gathers": timer.calls.get(("all_gather", hm.tp_group), 0),
                "shard_gb": sum(a.numel() * a.element_size()
                                for a in flat.values()) / 1e9}
         whole = {}
@@ -2474,82 +2606,105 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str) -> None:
                 d[last] = a
             with torch.no_grad():
                 out["loss"] = float(model.loss(
-                    one, token_batch(9999, 8, 128, cfg.vocab, device=dev)))
-            # in the tree's order, as 3g (b) takes them
+                    one, token_batch(9999, 8, 128, cfg.vocab, device=dev),
+                    **run["loss_kw"]))
+            # in the tree's order, as phase 3g takes them
             out["stats"] = [_leaf_stats(torch, a) for a in whole.values()]
+            out["names"] = list(whole)
             del one, whole
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def tensor_plane(torch, trained) -> dict:
-    """Phase 3l: full-width qwen3-1.7b, each of replicas (1, 2, 2) split
-    over ``TP_WORLD`` gloo tp ranks spawned on the one card, one static
-    (2, 2) round at phase 3g (b)'s settings; held to (g2 + 1) launches of
-    each kernel per leaf on every rank, every replica and every
-    replicated leaf bitwise equal across the ranks, and replica (0, 0,
-    0) gathered whole against 3g (b)'s one-device round by
-    ``REPLICA_REL``. Returns the launches summed over the ranks."""
+def tensor_plane(torch, trained, phase: str) -> dict:
+    """Phase 3l (full-width qwen3-1.7b, one static ``FULL_G`` round at
+    phase 3g (b)'s settings) or 3m (full-width rwkv6-1.6b, one static (1,
+    1) round at 3g (e)'s): each of replicas (1, 2, 2) split over
+    ``TP_WORLD`` gloo tp ranks spawned on the one card (``_tp_rank``);
+    held to (g2 + 1) launches of each kernel per leaf on every rank,
+    every replica and every leaf no spec splits bitwise equal across the
+    ranks, replica (0, 0, 0) gathered whole against phase 3g's
+    one-device round: the loss by the larger of ``REPLICA_REL`` and that
+    round's own response to another summation order, the per-leaf sums
+    by the larger of ``REPLICA_REL`` and that round's largest per-leaf
+    response, and each rank's peak by ``TP_MEM_GB``. Returns the
+    launches summed over the ranks."""
     import torch.multiprocessing as mp
+    run = TP_RUNS[phase]
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_3l_", dir=os.path.join(
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_", dir=os.path.join(
         ROOT, "build"))
     try:
         torch.cuda.empty_cache()
-        mp.spawn(_tp_rank, args=(TP_WORLD, _free_port(), tmp),
+        mp.spawn(_tp_rank, args=(TP_WORLD, _free_port(), tmp, phase),
                  nprocs=TP_WORLD, join=True)
         res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                           weights_only=False) for r in range(TP_WORLD)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    want = _agg_launches(res[0]["n_leaves"], 2)
+    want = _agg_launches(res[0]["n_leaves"], run["g"])
     for r in res:
         got = {k: r["counts"][k] for k in want}
-        check(got == want, f"phase 3l: rank {r['tp_rank']} launches {got} "
-              f"!= {want}")
-        check(r["replicas_equal"], "phase 3l: a rank's replicas differ "
-              "after the cloud round")
-        check(r["replicated_equal"], "phase 3l: a replicated leaf differs "
-              "from tp rank 0's")
-    ref = trained["full"]
+        check(got == want, f"phase {phase}: rank {r['tp_rank']} launches "
+              f"{got} != {want}")
+        check(r["replicas_equal"], f"phase {phase}: a rank's replicas "
+              f"differ after the cloud round")
+        check(r["replicated_equal"], f"phase {phase}: a replicated leaf "
+              f"differs from tp rank 0's")
+    ref = trained[run["ref"]]
     got = res[0]
+    check(got["names"] == ref["names"], f"phase {phase}: the gathered "
+          f"replica's leaves differ from {run['ref_name']}'s")
     rel_loss, rel_sq, rel_sum = _replica_rel(got, ref)
+    worst = _worst_leaves(got, ref)
+    # the reference round's own response to a reordering bounds what no
+    # split summation order can hold at REPLICA_REL: its loss the loss,
+    # its largest per-leaf response the per-leaf sums
     loss_bound = max(REPLICA_REL, ref["reorder_rel"][0])
+    sums_bound = max(REPLICA_REL, *ref["reorder_rel"][1:])
     wall = max(r["wall"] for r in res)
-    n_sgd = 2 * 2 * int(np.prod(TRAIN_REPS)) * TRAIN_KW["mb_per_epoch"]
+    n_sgd = run["g"] ** 2 * int(np.prod(TRAIN_REPS)) * \
+        TRAIN_KW["mb_per_epoch"]
 
     def per_rank(key, spec):
         return ", ".join(format(r[key], spec) for r in res)
 
-    print(f"  qwen3-1.7b full width (f32 weights, bf16 activations), "
+    chunks = ", wkv_chunked" if run["kw"].get("wkv_chunked") else \
+        f", KV chunks of {run['kw']['attn_chunk']}"
+    print(f"  {run['arch']} full width (f32 weights, bf16 activations), "
           f"replicas {TRAIN_REPS} on every rank, each split over "
           f"{TP_WORLD} gloo tp ranks sharing the card, batch 8 x seq 128, "
-          f"(2, 2), remat, KV chunks of 128, plain mode: round "
+          f"({run['g']}, {run['g']}), remat{chunks}, plain mode: round "
           f"{wall:.3f} s (ranks {per_rank('wall', '.3f')}), {n_sgd} SGD "
-          f"steps per rank ({wall / n_sgd:.4f} s per step); gloo "
-          f"all_reduce over the tp group {res[0]['gloo_calls']} calls, "
+          f"steps per rank ({wall / n_sgd:.4f} s per step); gloo over the "
+          f"tp group {res[0]['gloo_calls']} calls a rank "
+          f"({res[0]['gathers']} of them all_gather, the rest all_reduce), "
           f"{per_rank('gloo_s', '.3f')} s per rank; blocks "
           f"{res[0]['shard_gb']:.2f} GB a rank; draw and split "
           f"{res[0]['init_s']:.1f} s (one rank at a time), replica 0 "
           f"gathered in {res[0]['gather_s']:.1f} s; peak memory "
           f"{per_rank('peak', '.2f')} GB (reckoned "
-          f"{TP_MEM_GB:.0f} GB); launches per rank {res[0]['counts']}; "
-          f"every replica bitwise equal, every replicated leaf bitwise tp "
-          f"rank 0's; replica (0, 0, 0) gathered vs 3g (b)'s one-device "
-          f"round: loss {got['loss']:.6f} vs {ref['loss']:.6f} (relative "
-          f"{rel_loss:.3e}, bound {loss_bound:.3e}: 3g (b)'s own response "
-          f"to KV chunks of 64), per leaf sum of squares {rel_sq:.3e}, sum "
-          f"over L1 {rel_sum:.3e} (bound {REPLICA_REL})")
-    check(max(rel_sq, rel_sum) <= REPLICA_REL and rel_loss <= loss_bound,
-          f"phase 3l: vs 3g (b) loss {rel_loss:.3e} (bound "
+          f"{TP_MEM_GB[phase]:.0f} GB); launches per rank "
+          f"{res[0]['counts']}; every replica bitwise equal, every one of "
+          f"the {res[0]['n_whole']} leaves no spec splits bitwise tp rank "
+          f"0's; replica (0, 0, 0) gathered vs {run['ref_name']}'s "
+          f"one-device round: loss {got['loss']:.6f} vs "
+          f"{ref['loss']:.6f} (relative {rel_loss:.3e}, bound "
+          f"{loss_bound:.3e}: {run['reorder']}), per leaf sum of squares "
+          f"{rel_sq:.3e} ({worst[0]}), sum over L1 {rel_sum:.3e} "
+          f"({worst[1]}) (bound {sums_bound:.3e}: the larger of "
+          f"{REPLICA_REL} and {run['reorder']}'s largest per-leaf "
+          f"response)")
+    check(max(rel_sq, rel_sum) <= sums_bound and rel_loss <= loss_bound,
+          f"phase {phase}: vs {run['ref_name']} loss {rel_loss:.3e} (bound "
           f"{loss_bound:.3e}), sum of squares {rel_sq:.3e}, sum "
-          f"{rel_sum:.3e} (bound {REPLICA_REL})")
-    check(max(r["peak"] for r in res) <= TP_MEM_GB,
-          f"phase 3l: peak memory over {TP_MEM_GB} GB")
-    print(f"  phase 3l took {time.perf_counter() - t_phase:.1f} s (budget "
-          f"{TP_BUDGET_S:.0f} s); ranks sharing one card say nothing of "
-          f"multi-GPU scaling")
+          f"{rel_sum:.3e} (bound {sums_bound:.3e})")
+    check(max(r["peak"] for r in res) <= TP_MEM_GB[phase],
+          f"phase {phase}: peak memory over {TP_MEM_GB[phase]} GB")
+    print(f"  phase {phase} took {time.perf_counter() - t_phase:.1f} s "
+          f"(budget {TP_BUDGET_S[phase]:.0f} s); ranks sharing one card "
+          f"say nothing of multi-GPU scaling")
     return {k: sum(r["counts"][k] for r in res)
             for k in ("segment_agg", "segment_broadcast")}
 
@@ -3820,7 +3975,11 @@ def main() -> int:
 
     print(f"phase 3l: the tensor plane, each replica over {TP_WORLD} gloo tp "
           f"ranks on the one card ({smi})")
-    tensor = tensor_plane(torch, trained)
+    tensor = tensor_plane(torch, trained, "3l")
+
+    print(f"phase 3m: the tensor plane of the ssm family, each rwkv6-1.6b "
+          f"replica over {TP_WORLD} gloo tp ranks on the one card ({smi})")
+    tensor_rwkv = tensor_plane(torch, trained, "3m")
 
     print(f"phase 3h: MoE and ring-buffer serving ({smi})")
     served.update(serve_moe_and_ring(torch, ops, flash_attention, configs,
@@ -3849,10 +4008,11 @@ def main() -> int:
     # the LLM edge mean: the largest leaf of phase 3g (b)'s round, its
     # launches those of that round (every leaf, Eq. 1 and Eq. 2); a rank's
     # partial of phase 3k's full-width Eq. 1, its launches those of both
-    # ranks' round; a tp rank's block of that leaf in phase 3l, its
-    # launches those of the 4 ranks' round
+    # ranks' round; a tp rank's block of that leaf in phase 3l, the same
+    # shape as rwkv6-1.6b's largest block (cmix w_k, 24 x 2048 x 7168 / 4)
+    # in phase 3m, its launches those of both phases' rounds on 4 ranks
     launches = {LLM_AGG[0]: trained["launches"], LLM_PARTIAL[0]: replicas,
-                LLM_TP[0]: tensor}
+                LLM_TP[0]: {k: tensor[k] + tensor_rwkv[k] for k in tensor}}
     for (k, shape), t in time_llm_agg(torch, hier_agg, ops, ref,
                                       dev).items():
         kern = "segment_agg" if k == "segment_sum_partial" else k

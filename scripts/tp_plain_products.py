@@ -22,7 +22,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 
-def plain_rank(rank, world, port, outdir):
+def plain_rank(rank, world, port, outdir, phase):
     """``chip_smoke._tp_rank`` with the plain products when
     ``TP_PLAIN`` is 1."""
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
@@ -32,7 +32,7 @@ def plain_rank(rank, world, port, outdir):
                                              for w in ws)
         tp.row = lambda x, w, ctx: tp.reduce_from(x @ w, ctx)
     import chip_smoke
-    chip_smoke._tp_rank(rank, world, port, outdir)
+    chip_smoke._tp_rank(rank, world, port, outdir, phase)
 
 
 def main() -> int:
@@ -81,7 +81,7 @@ def main() -> int:
         print(f"phase 3l, {'plain' if plain == '1' else 'port'} products:",
               flush=True)
         try:
-            cs.tensor_plane(torch, {"full": full})
+            cs.tensor_plane(torch, {"full": full}, "3l")
         except RuntimeError as e:        # chip_smoke.check's failure
             print(f"  {e}")
     return 0

@@ -17,10 +17,10 @@ axes of each parameter leaf (one device holds them all, grid ``(1, 1,
 1)``, ``launch.train.lift_params``), and of each leaf that the
 reference's specs split over ``"tp"`` its t-th of T equal contiguous
 blocks (``place_params``, ``tp_blocks``): Megatron-style tensor
-parallelism, which the dense family's layers run by hand
+parallelism, which the dense and ssm families' layers run by hand
 (``models.tp``). fsdp stays 1: fsdp above 1, and tp above 1 outside the
-dense family, is the rest of the tensor plane of ROADMAP item 10 (b)
-and raises ``NotImplementedError``. The mesh owns the process groups
+dense and ssm families, is the rest of the tensor plane of ROADMAP item
+10 (b) and raises ``NotImplementedError``. The mesh owns the process groups
 its collectives cross: the tp group of each replica block (the T
 consecutive ranks that share it), and at each tp coordinate the fl
 group of each ``(pod, edge)`` block of ranks (Eq. 1; none when f_r = 1)

@@ -13,7 +13,7 @@ parameter leaf, the reference's layout (``lift_params``), laid over the
 ranks of an ``HFLMesh`` (``launch.mesh.make_hfl_mesh``): each rank holds
 its block of them, one device all of them. On a mesh with T > 1 tp
 ranks each replica is split over T ranks as the reference's specs
-split it (a dense model only: ``models.tp``), each rank holding its tp
+split it (a dense or ssm model: ``models.tp``), each rank holding its tp
 blocks of its block's replicas and training them with the tp context
 (``Model.loss(tp=)``). A local epoch is
 ``mb_per_epoch`` minibatches through ``Model.loss`` and autograd, one
@@ -220,8 +220,8 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
     round. With T > 1 tp ranks the forward and backward run Megatron's
     collectives over the tp group (``models.tp``; the replicated leaves
     stay bitwise equal across it), a split product sums in another order
-    than the one-device product, and a dense model whose heads T does
-    not divide raises ``ValueError``, another family
+    than the one-device product, and a dense or ssm model whose heads T
+    does not divide raises ``ValueError``, another family
     ``NotImplementedError`` (``models.tp.check``).
 
     Dynamic rounds: in epoch t1 of edge period t2 a replica of edge j
@@ -384,7 +384,7 @@ def main(argv=None):
                     512-rank production mesh, replicas and tp from the
                     config's ``hfl_topology`` (``mesh.derive_hfl_mesh``):
                     ``ValueError`` in a smaller world; fsdp above 1, or
-                    tp above 1 outside the dense family, raise
+                    tp above 1 outside the dense and ssm families, raise
                     ``NotImplementedError`` (item 10 (b))
     --dynamic uses the masked per-edge-frequency step with a Var-Freq-B
     style schedule (the Arena agent plugs in through the same signature).

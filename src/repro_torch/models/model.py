@@ -64,8 +64,8 @@ class Model:
         ``wkv_chunked`` else ``wkv_scan``, Mamba2's SSD ``ssd_chunked``;
         no kernel is reached. ``ep_axis`` (expert parallelism) raises in
         an MoE model (item 10 (b)). ``tp`` (a ``models.tp.TPContext``):
-        ``params`` are this rank's blocks of a dense model split over
-        the tp group (``transformer.forward_hidden``), the loss
+        ``params`` are this rank's blocks of a dense or ssm model split
+        over the tp group (``transformer.forward_hidden``), the loss
         vocab-parallel where the output projection is split; every rank
         of the group returns the same loss."""
         cfg = self.cfg

@@ -15,6 +15,18 @@ one-token decode update) runs ``wkv_scan``. ``False`` / ``True`` (set by
 ``transformer.forward_hidden(wkv_chunked=)``, the training route) run the
 reference's plain ``wkv_scan`` / ``wkv_chunked`` in tensor code,
 differentiated by autograd; they never reach the kernel.
+
+``tp=`` (a ``models.tp.TPContext``, training only): the blocks are this
+rank's tp blocks (``launch.mesh``'s split of the reference's specs). The
+token shift and the low-rank lerp run whole on every rank; the time mix
+runs its column blocks of ``w_r``/``w_k``/``w_v``/``w_g`` and its
+channels of the decay (``decay_B``'s and ``decay_w0``'s, replicated, as
+their columns), the WKV and the group norm on its nh/T heads, and ``w_o``
+as a row product; the channel mix runs ``w_k``/``w_r`` as column
+products, ``w_v`` as a row product and joins the gate's columns
+(``tp.gather``). The replicated leaves sliced to a rank's channels
+(``ln_w``, ``ln_b``, ``decay_w0``, ``decay_B``) take *f* on their stacks
+(``transformer.forward_hidden``).
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import common
+from repro_torch.models import tp as tp_mod
 
 LORA_R = 32
 STREAMS = ("w", "k", "v", "r", "g")
@@ -163,12 +176,13 @@ def wkv_chunked(r, k, v, w, u, state=None, chunk: int = 64):
 
 
 def time_mix_forward(p, cfg, x, state=None, return_state: bool = False,
-                     use_chunked=None):
+                     use_chunked=None, tp=None):
     """x: (B, S, d). state: (last_x (B, d), S (B, nh, hd, hd)) or None.
     ``use_chunked``: the WKV route (module docstring): None the serving
     route (the ``wkv6`` kernel from a zero state), False ``wkv_scan``,
     True ``wkv_chunked`` (``wkv_scan`` for one token), as the
-    reference's ``use_chunked``."""
+    reference's ``use_chunked``. ``tp``: this rank's heads (module
+    docstring); the output is whole on every rank."""
     b, s, d = x.shape
     nh, hd = rwkv_dims(cfg)
     if state is None:
@@ -179,12 +193,23 @@ def time_mix_forward(p, cfg, x, state=None, return_state: bool = False,
     shifted = torch.cat([last_x[:, None, :], x[:, :-1, :]], dim=1)
     xx = shifted - x
     mix = _ddlerp(p, x, xx)
-    r = mix["r"] @ p["w_r"].to(x.dtype)
-    k = mix["k"] @ p["w_k"].to(x.dtype)
-    v = mix["v"] @ p["w_v"].to(x.dtype)
-    g = F.silu(mix["g"] @ p["w_g"].to(x.dtype))
-    dec = p["decay_w0"] + torch.tanh(mix["w"].float() @ p["decay_A"]) \
-        @ p["decay_B"]
+    w_r, w_k, w_v, w_g, w_o = (p[n].to(x.dtype) for n in (
+        "w_r", "w_k", "w_v", "w_g", "w_o"))
+    low = torch.tanh(mix["w"].float() @ p["decay_A"])
+    if tp is None:
+        r, k, v = mix["r"] @ w_r, mix["k"] @ w_k, mix["v"] @ w_v
+        g = mix["g"] @ w_g
+        dec = p["decay_w0"] + low @ p["decay_B"]
+        ln_w, ln_b = p["ln_w"], p["ln_b"]
+    else:
+        nh //= tp.size
+        mine = slice(tp.rank * nh * hd, (tp.rank + 1) * nh * hd)
+        r, k, v, g, dd = tp_mod.column_pairs(
+            [(mix["r"], w_r), (mix["k"], w_k), (mix["v"], w_v),
+             (mix["g"], w_g), (low, p["decay_B"][:, mine])], tp)
+        dec = p["decay_w0"][mine] + dd
+        ln_w, ln_b = p["ln_w"][mine], p["ln_b"][mine]
+    g = F.silu(g)
     w = torch.exp(-torch.exp(dec.float()))                    # (B, S, d)
     rs, ks, vs, ws = (a.reshape(b, s, nh, hd) for a in (r, k, v, w))
     if use_chunked is None and wkv_state is None and s > 1:
@@ -196,15 +221,19 @@ def time_mix_forward(p, cfg, x, state=None, return_state: bool = False,
     # per-head group norm, in f32
     mu = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, unbiased=False, keepdim=True)
-    y = ((y - mu) * torch.rsqrt(var + 64e-5)).reshape(b, s, d)
-    y = y * p["ln_w"] + p["ln_b"]
-    out = (y.to(x.dtype) * g) @ p["w_o"].to(x.dtype)
+    y = ((y - mu) * torch.rsqrt(var + 64e-5)).reshape(b, s, nh * hd)
+    y = (y * ln_w + ln_b).to(x.dtype) * g
+    out = y @ w_o if tp is None else tp_mod.row(y, w_o, tp)
     if return_state:
         return out, (x[:, -1, :], wkv_state)
     return out
 
 
-def channel_mix_forward(p, cfg, x, state=None, return_state: bool = False):
+def channel_mix_forward(p, cfg, x, state=None, return_state: bool = False,
+                        tp=None):
+    """``tp``: this rank's column blocks of ``w_k`` (where the guard
+    splits it) and ``w_r``, its row block of ``w_v`` (module docstring);
+    the output is whole on every rank."""
     b, s, d = x.shape
     if state is None:
         last_x = torch.zeros((b, d), dtype=x.dtype, device=x.device)
@@ -214,10 +243,19 @@ def channel_mix_forward(p, cfg, x, state=None, return_state: bool = False):
     xx = shifted - x
     xk = x + xx * p["mu_k"].to(x.dtype)
     xr = x + xx * p["mu_r"].to(x.dtype)
-    kk = torch.square(F.relu(xk @ p["w_k"].to(x.dtype)))
-    vv = kk @ p["w_v"].to(x.dtype)
-    rr = torch.sigmoid(xr @ p["w_r"].to(x.dtype))
-    out = rr * vv
+    w_k, w_v, w_r = (p[n].to(x.dtype) for n in ("w_k", "w_v", "w_r"))
+    if tp is None:
+        kk = torch.square(F.relu(xk @ w_k))
+        out = torch.sigmoid(xr @ w_r) * (kk @ w_v)
+    elif tp_mod.split(tp, w_k.shape[-1], cfg.d_ff) is None:
+        # the guard keeps w_k and w_v whole: only the gate is split
+        kk = torch.square(F.relu(xk @ w_k))
+        rr, = tp_mod.column_pairs([(xr, w_r)], tp)
+        out = tp_mod.gather(torch.sigmoid(rr), tp) * (kk @ w_v)
+    else:
+        kk, rr = tp_mod.column_pairs([(xk, w_k), (xr, w_r)], tp)
+        vv = tp_mod.row(torch.square(F.relu(kk)), w_v, tp)
+        out = tp_mod.gather(torch.sigmoid(rr), tp) * vv
     if return_state:
         return out, x[:, -1, :]
     return out

@@ -3,16 +3,18 @@ group (Megatron-LM's scheme, arXiv:1909.08053); a port-only module.
 
 The reference shards a replica by annotation only (``launch.mesh``'s
 PartitionSpecs) and XLA's partitioner inserts the collectives. The port
-has no partitioner, so the dense family's layers call them here, by
-hand, through a :class:`TPContext` (the tp group, its size T and this
-rank's place in it), the ``tp=`` argument of ``Model.loss``. Megatron's
-two conjugate operators:
+has no partitioner, so the dense and ssm (RWKV6) families' layers call
+them here, by hand, through a :class:`TPContext` (the tp group, its size
+T and this rank's place in it), the ``tp=`` argument of ``Model.loss``.
+Megatron's two conjugate operators, and a third:
 
 - *f*: the identity forward, an ``all_reduce`` of the gradient
   backward. It goes before a column-parallel product (each rank's
   columns see the whole input; its gradient there is the sum of the
-  ranks' parts: ``column``) and on a replicated parameter that each rank
-  applies to its own heads only (``q_norm``, ``k_norm``: ``copy_to``).
+  ranks' parts: ``column``, ``column_pairs``) and on a replicated
+  parameter that each rank applies to its own heads or channels only
+  (``q_norm``, ``k_norm``; RWKV6's ``ln_w``, ``ln_b``, ``decay_w0``,
+  ``decay_B``: ``copy_to``).
 - *g*: an ``all_reduce`` forward, the identity backward. It follows a
   row-parallel product (each rank's rows give a partial sum of the
   output: ``row``) and the vocab-parallel lookup and loss sums
@@ -20,6 +22,12 @@ two conjugate operators:
   replicated on every rank, and a second ``all_reduce`` there
   (``torch.distributed.nn.functional.all_reduce``) would scale the
   gradients by T.
+- *gather*: an ``all_gather`` along the last dimension forward, this
+  rank's slice of the gradient backward. It joins a column-parallel
+  result whose consumer runs whole on every rank (RWKV6's channel-mix
+  gate ``sigmoid(xr @ w_r)``, multiplied into the row product's whole
+  output). That consumer computes the same gradient on every rank, so
+  the backward needs no sum (``gather``).
 
 The products carry *f* and *g* themselves (``column``, ``row``) so that
 a split product rounds where the one-device product rounds: a bf16
@@ -33,7 +41,10 @@ computes from its result is the same on every rank.
 The column blocks of ``wq``/``wk``/``wv`` are whole heads only where T
 divides both head counts (``check``): rank t holds query heads ``[t H/T,
 (t + 1) H/T)`` and kv heads ``[t Hkv/T, (t + 1) Hkv/T)``, so query head h
-still reads kv head ``h // (H / Hkv)``. A leaf whose split dimension T
+still reads kv head ``h // (H / Hkv)``. An RWKV6 replica has only its
+wkv heads (its ``n_kv_heads`` plays no part): rank t holds heads ``[t
+nh/T, (t + 1) nh/T)`` of r, k, v, g and the decay, and their rows of
+``bonus_u``; the group norm is per head. A leaf whose split dimension T
 does not divide stays whole on every rank (``launch.mesh``'s guard, the
 reference's rule); ``split`` tells the layers which leaves are split
 from their shapes.
@@ -58,21 +69,25 @@ class TPContext:
 
 def check(cfg, size: int) -> None:
     """Raise where a replica of ``cfg`` cannot be split over ``size`` tp
-    ranks: ``NotImplementedError`` outside the dense family (the tensor
-    plane of item 10 (b)), ``ValueError`` where ``size`` does not divide
-    the query or kv heads (a column block would cut a head; the
-    reference's partitioner would split inside it)."""
+    ranks: ``NotImplementedError`` outside the dense and ssm families
+    (the tensor plane of item 10 (b)), ``ValueError`` where ``size`` does
+    not divide the heads (a column block would cut a head; the
+    reference's partitioner would split inside it): the query and kv
+    heads of a dense model, the wkv heads (``n_heads``) of an ssm one."""
     if size == 1:
         return
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism (tp={size}) of the "
             f"{cfg.family!r} family is the tensor plane of {TP_ITEM}; only "
-            f"the dense family is split")
-    if cfg.n_heads % size or cfg.n_kv_heads % size:
+            f"the dense and ssm families are split")
+    heads = {"n_heads": cfg.n_heads}
+    if cfg.family == "dense":
+        heads["n_kv_heads"] = cfg.n_kv_heads
+    if any(n % size for n in heads.values()):
         raise ValueError(
-            f"{cfg.name}: tp={size} does not divide n_heads={cfg.n_heads} "
-            f"and n_kv_heads={cfg.n_kv_heads} into whole heads")
+            f"{cfg.name}: tp={size} does not divide " + " and ".join(
+                f"{k}={v}" for k, v in heads.items()) + " into whole heads")
 
 
 def split(ctx, local: int, whole: int):
@@ -123,30 +138,73 @@ def _mm(a, b):
     return a.reshape(-1, a.shape[-1]).mm(b).view(a.shape[:-1] + (-1,))
 
 
+
 class _Column(torch.autograd.Function):
+    """Column-parallel products in groups: group i is one input and the
+    ``sizes[i]`` weights it multiplies (``tensors`` lists each group's
+    input, then its weights)."""
+
     @staticmethod
-    def forward(fctx, ctx, x, *ws):
-        fctx.tp = ctx
-        fctx.save_for_backward(x, *ws)
-        return tuple(_mm(x, w) for w in ws)
+    def forward(fctx, ctx, sizes, *tensors):
+        fctx.tp, fctx.sizes = ctx, sizes
+        fctx.save_for_backward(*tensors)
+        out = []
+        for x, ws in _groups(sizes, tensors):
+            out.extend(_mm(x, w) for w in ws)
+        return tuple(out)
 
     @staticmethod
     def backward(fctx, *grads):
-        x, *ws = fctx.saved_tensors
-        x2 = x.reshape(-1, x.shape[-1])
-        g2 = [g.reshape(-1, g.shape[-1]) for g in grads]
-        gws = [x2.t().mm(g) for g in g2]
-        # each product's input gradient, its f32 partial summed over the
-        # group in one all_reduce, then rounded once
-        parts = torch.stack([g.float().mm(w.float().t())
-                             for g, w in zip(g2, ws)])
-        parts = _all_reduce(parts, fctx.tp).to(x.dtype)
-        # summed as autograd sums the one-device products' gradients of
-        # their shared input: the last product's first
-        gx = parts[-1]
-        for p in reversed(parts[:-1]):
-            gx = gx + p
-        return (None, gx.view(x.shape), *gws)
+        groups = _groups(fctx.sizes, fctx.saved_tensors)
+        grads = iter(grads)
+        gws, parts = [], []
+        for x, ws in groups:
+            x2 = x.reshape(-1, x.shape[-1])
+            g2 = [next(grads).reshape(-1, w.shape[-1]) for w in ws]
+            gws.append([x2.t().mm(g) for g in g2])
+            parts.append(torch.stack([g.float().mm(w.float().t())
+                                      for g, w in zip(g2, ws)]))
+        # every input gradient's f32 partial summed over the group in one
+        # all_reduce, then rounded once to its input's dtype
+        sums = _all_reduce(torch.cat([p.view(-1) for p in parts]),
+                           fctx.tp).split([p.numel() for p in parts])
+        out = [None, None]
+        for (x, _), s, part, gw in zip(groups, sums, parts, gws):
+            part = s.view(part.shape).to(x.dtype)
+            # summed as autograd sums the one-device products' gradients
+            # of their shared input: the last product's first
+            gx = part[-1]
+            for p in reversed(part[:-1]):
+                gx = gx + p
+            out += [gx.view(x.shape), *gw]
+        return tuple(out)
+
+
+def _groups(sizes, tensors) -> list:
+    """``tensors`` (each group's input, then its ``sizes[i]`` weights) as
+    [(input, [weights]), ...]."""
+    out, i = [], 0
+    for n in sizes:
+        out.append((tensors[i], list(tensors[i + 1:i + 1 + n])))
+        i += 1 + n
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        import torch.distributed as dist
+        fctx.tp, fctx.n = ctx, x.shape[-1]
+        # gathered as raw bytes (gloo need not take every float dtype),
+        # each rank's block whole elements of the last dimension
+        raw = x.contiguous().view(torch.uint8)
+        parts = [torch.empty_like(raw) for _ in range(ctx.size)]
+        dist.all_gather(parts, raw, group=ctx.group)
+        return torch.cat(parts, dim=-1).view(x.dtype)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return grad.narrow(-1, fctx.tp.rank * fctx.n, fctx.n), None
 
 
 class _Row(torch.autograd.Function):
@@ -170,7 +228,17 @@ def column(x, ws, ctx) -> tuple:
     summed over the group (one ``all_reduce`` for all of them), rounded
     to ``x``'s dtype, and the products' gradients summed as autograd sums
     them on one device."""
-    return _Column.apply(ctx, x, *ws)
+    return _Column.apply(ctx, (len(ws),), x, *ws)
+
+
+def column_pairs(pairs, ctx) -> tuple:
+    """``column`` of several inputs: ``x @ w`` for each pair ``(x, w)``
+    of ``pairs`` (``w`` this rank's column block, in ``x``'s dtype), each
+    product as one device computes it; backward, the f32 partials of
+    every input's gradient summed over the group in one ``all_reduce``
+    and each rounded once to its input's dtype."""
+    return _Column.apply(ctx, (1,) * len(pairs),
+                         *(t for pair in pairs for t in pair))
 
 
 def row(x, w, ctx):
@@ -186,6 +254,14 @@ def copy_to(x, ctx):
     """*f*: ``x`` forward, the gradient summed over the tp group
     backward."""
     return _CopyTo.apply(x, ctx)
+
+
+def gather(x, ctx):
+    """*gather*: the ranks' blocks of ``x``'s last dimension joined in
+    rank order forward (one ``all_gather``, bitwise), this rank's block
+    of the gradient backward (the gradient of a result that every rank
+    consumes whole is the same on every rank)."""
+    return _Gather.apply(x, ctx)
 
 
 def reduce_from(x, ctx):

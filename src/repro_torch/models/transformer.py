@@ -206,12 +206,12 @@ def _dense_block_fwd(bp, cfg, x, *, window=0, mpos=None, chunk=None,
     return x + h, aux
 
 
-def _rwkv_block_fwd(bp, cfg, x, *, wkv_chunked=None):
+def _rwkv_block_fwd(bp, cfg, x, *, wkv_chunked=None, tp=None):
     h = common.rms_norm(x, bp["ln1"])
     x = x + rwkv.time_mix_forward(bp["tmix"], cfg, h,
-                                  use_chunked=wkv_chunked)
+                                  use_chunked=wkv_chunked, tp=tp)
     h = common.rms_norm(x, bp["ln2"])
-    return x + rwkv.channel_mix_forward(bp["cmix"], cfg, h), None
+    return x + rwkv.channel_mix_forward(bp["cmix"], cfg, h, tp=tp), None
 
 
 def _mamba_block_fwd(bp, cfg, x):
@@ -368,11 +368,11 @@ def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
     device; only None is accepted.
 
     ``tp`` (a ``models.tp.TPContext``): ``params`` are this rank's blocks
-    of a dense model split over the tp group (``launch.mesh``), and the
-    layers run Megatron's tensor parallelism (``models.tp``): the same
-    hidden states on every rank. Other families raise
-    ``NotImplementedError`` (item 10 (b)); head counts T does not divide
-    raise ``ValueError`` (``tp.check``)."""
+    of a dense or ssm model split over the tp group (``launch.mesh``),
+    and the layers run Megatron's tensor parallelism (``models.tp``;
+    RWKV6: ``models.rwkv``): the same hidden states on every rank. Other
+    families raise ``NotImplementedError`` (item 10 (b)); head counts T
+    does not divide raise ``ValueError`` (``tp.check``)."""
     if act_spec is not None:
         raise NotImplementedError(
             "act_spec (activations sharded over the fsdp x tp axes) is the "
@@ -400,12 +400,12 @@ def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
         return common.rms_norm(x, params["final_norm"]), aux_total
     if cfg.family == "ssm":
         body = functools.partial(_rwkv_block_fwd, cfg=cfg,
-                                 wkv_chunked=wkv_chunked)
+                                 wkv_chunked=wkv_chunked, tp=tp)
     else:
         body = functools.partial(_dense_block_fwd, cfg=cfg, window=window,
                                  mpos=mpos, chunk=attn_chunk,
                                  ep_axis=ep_axis, ep_size=ep_size, tp=tp)
-    for lp in unstack_layers(_tp_norms(params["layers"], cfg, tp)):
+    for lp in unstack_layers(_tp_replicated(params["layers"], cfg, tp)):
         if remat:
             x, aux = checkpoint(body, lp, x=x, use_reentrant=False)
         else:
@@ -416,17 +416,25 @@ def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
     return x, aux_total
 
 
-def _tp_norms(layers: dict, cfg, tp) -> dict:
-    """``layers`` with ``attn``'s stacked ``q_norm``/``k_norm`` through
-    *f* under ``tp``: replicated, but each rank applies them to its own
-    heads only, so their gradients are summed over the group (one
-    ``all_reduce`` per stack)."""
-    if tp is None or not cfg.qk_norm:
+# the replicated leaves each rank applies to its own heads or channels
+# only, per family: (sub-tree, leaves)
+_TP_SLICED = {"dense": ("attn", ("q_norm", "k_norm")),
+              "ssm": ("tmix", ("decay_w0", "decay_B", "ln_w", "ln_b"))}
+
+
+def _tp_replicated(layers: dict, cfg, tp) -> dict:
+    """``layers`` with the stacked replicated leaves that each rank
+    applies to its own heads or channels only (``_TP_SLICED``: a dense
+    model's ``q_norm``/``k_norm``, RWKV6's group-norm and decay leaves)
+    through *f* under ``tp``: their gradients are summed over the group
+    (one ``all_reduce`` per stack), which keeps them bitwise equal."""
+    if tp is None or (cfg.family == "dense" and not cfg.qk_norm):
         return layers
-    attn = dict(layers["attn"])
-    for name in ("q_norm", "k_norm"):
-        attn[name] = tp_mod.copy_to(attn[name], tp)
-    return dict(layers, attn=attn)
+    sub, names = _TP_SLICED[cfg.family]
+    part = dict(layers[sub])
+    for name in names:
+        part[name] = tp_mod.copy_to(part[name], tp)
+    return dict(layers, **{sub: part})
 
 
 def _hybrid_forward(params, cfg, x, *, remat, window, attn_chunk):

@@ -37,6 +37,7 @@ from repro_torch.data.synthetic import token_batch
 from repro_torch.device import deterministic_algorithms
 from repro_torch.kernels import hier_agg, ops, ref
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.model import build_model
 from repro_torch.runtime import (AsyncConfig, ChurnEvent, FaultSpec,
                                  StalenessBuffer)
@@ -67,6 +68,12 @@ TP_PLACE_REPS = {2: (1, 1, 1), 4: (1, 1, 2)}
 # the replicated leaves of a dense replica (no spec splits them)
 TP_REPLICATED = ("final_norm", "layers/ln1", "layers/ln2",
                  "layers/attn/q_norm", "layers/attn/k_norm")
+# the ssm family's tensor plane (RWKV6): its loss case's tp size at each
+# world (world 4: one of the reduced model's 4 wkv heads a rank, which
+# reduced qwen3's 2 kv heads cannot take), and its WKV routes
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_TP = {2: 2, 4: 4}
+WKV_ROUTES = {"chunked": True, "scan": False}
 
 
 # ---------------------------------------------------------------------------
@@ -184,10 +191,11 @@ def edge_round_inputs():
     return bank, x, y, sizes, seg, gvec
 
 
-def tp_config(pkg):
-    """Reduced qwen3 (4 heads, 2 kv heads, d_ff 512, vocab 512) with f32
-    activations, for either package's ``configs``."""
-    return dataclasses.replace(pkg.get_config(TRAIN_ARCH).reduce(),
+def tp_config(pkg, arch=TRAIN_ARCH):
+    """Reduced ``arch`` with f32 activations, for either package's
+    ``configs``: qwen3 (4 heads, 2 kv heads, d_ff 512, vocab 512) or
+    rwkv6 (4 wkv heads, d_ff 512, vocab 512)."""
+    return dataclasses.replace(pkg.get_config(arch).reduce(),
                                activ_dtype="float32")
 
 
@@ -832,98 +840,216 @@ def _tp_mesh(world, reps=TRAIN_REPS):
                                   device="cpu")
 
 
-def case_tp(world, inp):
-    """The tensor plane at tp = 2 over this world (rank grid
-    ``TP_GRIDS``): (a) ``shardings``, ``place_params``, ``tp_blocks`` and
-    ``gather_params`` of ``tp_config``'s numpy parameters
-    (``inp["tp_params"]``, replica r scaled by r + 1) lifted to replicas
-    ``TP_PLACE_REPS``; (b) ``Model.loss(tp=)`` (remat at world 4) and
-    each rank's gradient blocks on ``tp_loss_batch``; (c) the reduced
-    train step (``case_train``'s config, settings and start) on replicas
-    (1, 2, 2): static plain, static deterministic twice, dynamic
-    deterministic, rank 0 returning replica (0, 0, 0) gathered whole,
-    every rank its launches (the wrappers' calls) and (d) its replicated
-    leaves; (e) the refusals."""
-    out = {}
-    # (a)
+def _tp_placement(world, cfg, params: dict) -> dict:
+    """``shardings``, ``place_params``, ``tp_blocks``, ``gather_params``
+    and ``gather_replica`` at tp = 2 over this world (rank grid
+    ``TP_GRIDS``) of ``cfg``'s flat numpy ``params``, replica r scaled by
+    r + 1, lifted to replicas ``TP_PLACE_REPS``."""
     reps = TP_PLACE_REPS[world]
     hm = _tp_mesh(world, reps)
-    cfg = tp_config(configs)
     specs = mesh_lib.hfl_param_specs(cfg, train._meta_params(cfg), hm)
-    one = weights.tree_from_numpy(_nest(inp["tp_params"]), "cpu")
+    one = weights.tree_from_numpy(_nest(params), "cpu")
     whole = train._map(lambda a: torch.stack([a * (r + 1) for r in range(
         reps[2])]).reshape(reps + tuple(a.shape)), one)
     placed = mesh_lib.place_params(whole, hm)
     back = mesh_lib.gather_params(placed, hm, specs)
     blocks = mesh_lib.tp_blocks(one, hm)
-    out["mesh"] = {"shape": hm.shape, "grid": hm.grid, "rank": hm.rank,
-                   "coords": hm.coords, "tp_rank": hm.tp_rank,
-                   "block": hm.block, "groups": (
-                       hm.tp_group is not None, hm.fl_group is not None,
-                       hm.replica_group is not None)}
-    out["place"] = _np(_flat(placed))
-    out["shardings"] = _flat(mesh_lib.shardings(hm, specs, whole))
-    out["gather"] = all(torch.equal(a, b) for a, b in zip(
-        train._leaves(back), train._leaves(whole)))
-    out["blocks"] = all(torch.equal(a, b[(0,) * 3] / (hm.coords[2] + 1))
-                        for a, b in zip(train._leaves(blocks),
-                                        train._leaves(placed)))
-    out["replica"] = all(torch.equal(a, b) for a, b in zip(
-        train._leaves(mesh_lib.gather_replica(blocks, hm, specs)),
-        train._leaves(one)))
-    # (b)
-    leaves = {k: v.requires_grad_(True)
-              for k, v in _flat(mesh_lib.tp_blocks(one, hm)).items()}
+    return {"mesh": {"shape": hm.shape, "grid": hm.grid, "rank": hm.rank,
+                     "coords": hm.coords, "tp_rank": hm.tp_rank,
+                     "block": hm.block, "groups": (
+                         hm.tp_group is not None, hm.fl_group is not None,
+                         hm.replica_group is not None)},
+            "place": _np(_flat(placed)),
+            "shardings": _flat(mesh_lib.shardings(hm, specs, whole)),
+            "gather": all(torch.equal(a, b) for a, b in zip(
+                train._leaves(back), train._leaves(whole))),
+            "blocks": all(torch.equal(a, b[(0,) * 3] / (hm.coords[2] + 1))
+                          for a, b in zip(train._leaves(blocks),
+                                          train._leaves(placed))),
+            "replica": all(torch.equal(a, b) for a, b in zip(
+                train._leaves(mesh_lib.gather_replica(blocks, hm, specs)),
+                train._leaves(one)))}
+
+
+def _tp_loss(cfg, params: dict, hm, **kw) -> dict:
+    """``Model.loss(tp=)`` of this rank's blocks of ``cfg``'s flat numpy
+    ``params`` on ``tp_loss_batch`` and each leaf's gradient block."""
+    leaves = {k: v.requires_grad_(True) for k, v in _flat(mesh_lib.tp_blocks(
+        weights.tree_from_numpy(_nest(params), "cpu"), hm)).items()}
     batch = {k: torch.from_numpy(v) for k, v in tp_loss_batch(
         cfg.vocab).items()}
-    model = build_model(cfg)
     with torch.enable_grad():
-        loss = model.loss(_nest(leaves), batch, attn_chunk=16,
-                          remat=world == 4, tp=hm.tp_context)
+        loss = build_model(cfg).loss(_nest(leaves), batch, tp=hm.tp_context,
+                                     **kw)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-    out["loss"] = float(loss.detach())
-    out["grads"] = {k: _np(g) for k, g in zip(leaves, grads)}
+    return {"loss": float(loss.detach()),
+            "grads": {k: _np(g) for k, g in zip(leaves, grads)}}
+
+
+def _whole_leaves(specs) -> list:
+    """The paths of the leaves no spec of ``specs`` splits over "tp"."""
+    return [k for k, spec in _flat(specs).items() if not any(
+        e is not None and "tp" in (e if isinstance(e, tuple) else (e,))
+        for e in spec)]
+
+
+def _tp_round(cfg, hm, p0, kw, det, args=(), replicated=None) -> dict:
+    """One round of ``train.make_hfl_train_step(cfg, hm, **kw)`` from
+    this rank's blocks ``p0`` (plain, or in deterministic mode): its
+    launches (the wrappers' calls), block, coordinates, the replicated
+    leaves (``replicated``, default: every leaf no spec splits), whether
+    every replica equals replica (0, 0, 0) bitwise, and on rank 0 that
+    replica gathered whole."""
+    step, specs, _ = train.make_hfl_train_step(cfg, hm, **kw)
+    batch = token_batch(0, tref.BATCH, tref.SEQ, cfg.vocab, device="cpu")
+    params = train.lift_params(p0, *hm.block)
+    mode = deterministic_algorithms() if det else contextlib.nullcontext()
+    with mode, _kernel_calls() as launches:
+        params = step(params, batch, *args)
+    whole = _flat(mesh_lib.gather_params(params, hm, specs))
+    flat = _flat(params)
+    res = {"launches": launches, "block": hm.block, "coords": hm.coords,
+           "tp_rank": hm.tp_rank,
+           "replicated": {k: _np(flat[k]) for k in (
+               replicated or _whole_leaves(specs))},
+           "replicas_equal": all(
+               torch.equal(r, a[0, 0, 0]) for a in whole.values()
+               for r in a.reshape((4,) + a.shape[3:]))}
+    if hm.rank == 0:
+        res["replica0"] = {k: _np(a[0, 0, 0]) for k, a in whole.items()}
+    return res
+
+
+def case_tp(world, inp):
+    """The tensor plane at tp = 2 over this world (rank grid
+    ``TP_GRIDS``): (a) ``_tp_placement`` of ``tp_config``'s numpy
+    parameters (``inp["tp_params"][TRAIN_ARCH]``); (b) ``Model.loss(tp=)``
+    (remat at world 4) and each rank's gradient blocks on
+    ``tp_loss_batch``; (c) the reduced train step (``case_train``'s
+    config, settings and start) on replicas (1, 2, 2): static plain,
+    static deterministic twice, dynamic deterministic, rank 0 returning
+    replica (0, 0, 0) gathered whole, every rank its launches (the
+    wrappers' calls) and (d) its replicated leaves; (e) the refusals,
+    and reduced rwkv6 (2 kv heads, 4 wkv heads) taken at tp = 4."""
+    # (a)
+    cfg = tp_config(configs)
+    out = _tp_placement(world, cfg, inp["tp_params"][TRAIN_ARCH])
+    # (b)
+    out.update(_tp_loss(cfg, inp["tp_params"][TRAIN_ARCH], _tp_mesh(
+        world, TP_PLACE_REPS[world]), attn_chunk=16, remat=world == 4))
     # (c), (d)
     cfg = tref.config(TRAIN_ARCH, "float32", configs)
     hm = _tp_mesh(world)
     p0 = mesh_lib.tp_blocks(weights.tree_from_numpy(
         _nest(inp["train_init"]), "cpu"), hm)
-    batch = token_batch(0, tref.BATCH, tref.SEQ, cfg.vocab, device="cpu")
     out["rounds"] = {}
     for dynamic, det, run in ((False, False, 0), (False, True, 0),
                               (False, True, 1), (True, True, 0)):
         kw = dict(tref.STEP, mb_per_epoch=tref.MB_PER_EPOCH[TRAIN_ARCH])
         kw.update(dict(dynamic=True, **tref.DYNAMIC) if dynamic
                   else tref.STATIC)
-        step, specs, _ = train.make_hfl_train_step(cfg, hm, **kw)
-        args = (tref.G1E, tref.G2E) if dynamic else ()
-        params = train.lift_params(p0, *hm.block)
-        mode = deterministic_algorithms() if det else \
-            contextlib.nullcontext()
-        with mode, _kernel_calls() as launches:
-            params = step(params, batch, *args)
-        whole = _flat(mesh_lib.gather_params(params, hm, specs))
-        flat = _flat(params)
-        res = {"launches": launches, "block": hm.block, "coords": hm.coords,
-               "tp_rank": hm.tp_rank,
-               "replicated": {k: _np(flat[k]) for k in TP_REPLICATED},
-               "replicas_equal": all(
-                   torch.equal(r, a[0, 0, 0]) for a in whole.values()
-                   for r in a.reshape((4,) + a.shape[3:]))}
-        if hm.rank == 0:
-            res["replica0"] = {k: _np(a[0, 0, 0]) for k, a in whole.items()}
-        out["rounds"][(dynamic, det, run)] = res
+        out["rounds"][(dynamic, det, run)] = _tp_round(
+            cfg, hm, p0, kw, det, (tref.G1E, tref.G2E) if dynamic else (),
+            TP_REPLICATED)
     # (e)
-    rwkv = tref.config("rwkv6-1.6b", "float32", configs)
+    hybrid = tp_config(configs, "zamba2-7b")
     out["errors"] = {
         "fsdp": _raises(NotImplementedError, lambda: mesh_lib.make_hfl_mesh(
             TRAIN_REPS, fsdp=2, device="cpu")),
         "family": _raises(NotImplementedError, lambda: (
-            train.make_hfl_train_step(rwkv, hm)))}
+            train.make_hfl_train_step(hybrid, hm)))}
     if world == 4:
         hm4 = mesh_lib.make_hfl_mesh(TRAIN_REPS, tp=4, device="cpu")
         out["errors"]["heads"] = _raises(ValueError, lambda: (
             train.make_hfl_train_step(tp_config(configs), hm4)))
+        out["errors"]["rwkv_heads"] = _raises(ValueError, lambda: (
+            train.make_hfl_train_step(tp_config(configs, RWKV_ARCH), hm4)))
+    return out
+
+
+def case_tp_rwkv(world, inp):
+    """The tensor plane of the ssm family, reduced rwkv6: (a)
+    ``_tp_placement`` of its numpy parameters
+    (``inp["tp_params"][RWKV_ARCH]``); (b) ``Model.loss(tp=)`` and each
+    rank's gradient blocks on ``tp_loss_batch`` over tp = ``RWKV_TP
+    [world]`` ranks (replicas (1, 1, 1)), through each WKV route; (c) the
+    reduced static train step (``tests/_torch_train_ref.py``'s rwkv6
+    settings, the reference's start ``inp["train_init_rwkv"]``) on
+    replicas (1, 2, 2) at tp = 2 over ``TP_GRIDS[world]``, plain and
+    twice in deterministic mode; at world 2 also (d) ``_tp_guarded``."""
+    cfg = tp_config(configs, RWKV_ARCH)
+    out = {"place": _tp_placement(world, cfg, inp["tp_params"][RWKV_ARCH])}
+    hm = mesh_lib.make_hfl_mesh((1, 1, 1), tp=RWKV_TP[world], device="cpu")
+    out["loss"] = {route: _tp_loss(cfg, inp["tp_params"][RWKV_ARCH], hm,
+                                   wkv_chunked=chunked)
+                   for route, chunked in WKV_ROUTES.items()}
+    if world == 2:
+        out["guarded"] = _tp_guarded(cfg, hm)
+    cfg = tref.config(RWKV_ARCH, "float32", configs)
+    hm = _tp_mesh(world)
+    p0 = mesh_lib.tp_blocks(weights.tree_from_numpy(
+        _nest(inp["train_init_rwkv"]), "cpu"), hm)
+    kw = dict(tref.STEP, mb_per_epoch=tref.MB_PER_EPOCH[RWKV_ARCH],
+              **tref.STATIC)
+    out["rounds"] = {(det, run): _tp_round(cfg, hm, p0, kw, det)
+                     for det, run in ((False, 0), (True, 0), (True, 1))}
+    return out
+
+
+def _tp_guarded(cfg, hm) -> dict:
+    """``cfg`` with d_ff = 511, which tp = 2 does not divide, so the
+    guard keeps the channel mix's ``w_k`` and ``w_v`` whole (only its
+    gate splits): ``Model.loss(tp=)`` and the gradient blocks against
+    the one-device loss and the same blocks of its gradients, from
+    seed-0 weights; the largest difference of each and ``w_k``'s block
+    shape."""
+    cfg = dataclasses.replace(cfg, d_ff=511)
+    model = build_model(cfg)
+    p0 = _flat(model.init(torch.Generator().manual_seed(0), "cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in tp_loss_batch(
+        cfg.vocab).items()}
+    res = {}
+    for label, tp in (("one", None), ("tp", hm.tp_context)):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        if tp is not None:
+            leaves = {k: v.detach().requires_grad_(True) for k, v in _flat(
+                mesh_lib.tp_blocks(_nest(leaves), hm)).items()}
+        with torch.enable_grad():
+            loss = model.loss(_nest(leaves), batch, tp=tp, wkv_chunked=True)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        if tp is None:
+            grads = _flat(mesh_lib.tp_blocks(_nest(grads), hm))
+        res[label] = (float(loss.detach()), grads,
+                      tuple(leaves["layers/cmix/w_k"].shape))
+    (l1, g1, _), (l2, g2, shape) = res["one"], res["tp"]
+    return {"loss": abs(l1 - l2), "w_k": shape,
+            "grads": max(float((g1[k] - g2[k]).abs().max()) for k in g1)}
+
+
+def case_tp_gather(world, inp):
+    """``tp.gather`` over the world (one tp group of every rank), f32 and
+    bf16: its result and the gradient of ``(y.float() * c).sum()`` at
+    this rank's block, and the same through a plain ``torch.cat`` of
+    every rank's block (drawn from seed 11 + rank)."""
+    rank = dist.get_rank()
+    ctx = tp_mod.TPContext(None, world, rank)
+    c = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(2, 3, 5 * world)).astype(np.float32))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [torch.from_numpy(np.random.default_rng(11 + r).normal(
+            size=(2, 3, 5)).astype(np.float32)).to(dtype)
+            for r in range(world)]
+        res = {}
+        for how in ("gather", "plain"):
+            x = xs[rank].clone().requires_grad_(True)
+            with torch.enable_grad():
+                y = tp_mod.gather(x, ctx) if how == "gather" else \
+                    torch.cat(xs[:rank] + [x] + xs[rank + 1:], dim=-1)
+                gx, = torch.autograd.grad((y.float() * c).sum(), x)
+            res[how] = (_np(y), _np(gx), str(y.dtype), str(gx.dtype))
+        out[str(dtype)] = res
     return out
 
 
@@ -995,7 +1121,9 @@ CASES = [("context", (1,), case_context),
          ("share", (4,), case_share),
          ("train", (1, 2, 4), case_train),
          ("mesh", (1, 2, 4), case_mesh),
-         ("tp", (2, 4), case_tp)]
+         ("tp", (2, 4), case_tp),
+         ("tp_rwkv", (2, 4), case_tp_rwkv),
+         ("tp_gather", (2, 4), case_tp_gather)]
 
 
 def card_aggregation(rank: int, world: int, port: int, outdir: str) -> None:
@@ -1195,6 +1323,50 @@ def card_tp_train(rank: int, world: int, port: int, outdir: str) -> None:
                                   for k, a in whole.items()})
             out["replicated"].append({k: flat[k].cpu()
                                       for k in TP_REPLICATED})
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def card_tp_rwkv(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of a gloo group on the card (a spawn target of
+    ``tests/test_torch_cuda.py``): reduced rwkv6 (``tp_config``, f32
+    activations) from seed-0 weights drawn on the card, split over
+    ``world`` tp ranks (replicas (1, 1, 1)): ``Model.loss(tp=)`` and this
+    rank's gradient blocks on ``tp_loss_batch`` through each WKV route,
+    beside the one-device loss and the same blocks of its gradients, all
+    on the card; writes them (on the CPU) to ``outdir/rank<r>.pt``."""
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        hm = mesh_lib.make_hfl_mesh((1, 1, 1), tp=world)
+        cfg = tp_config(configs, RWKV_ARCH)
+        model = build_model(cfg)
+        p0 = _flat(model.init(torch.Generator(device=hm.device).manual_seed(
+            0), hm.device))
+        batch = {k: torch.from_numpy(v).to(hm.device)
+                 for k, v in tp_loss_batch(cfg.vocab).items()}
+        out = {"device": str(hm.device)}
+        for route, chunked in WKV_ROUTES.items():
+            res = {}
+            for label, tp in (("one", None), ("tp", hm.tp_context)):
+                leaves = {k: v.detach().clone().requires_grad_(True)
+                          for k, v in p0.items()}
+                if tp is not None:
+                    leaves = {k: v.detach().requires_grad_(True)
+                              for k, v in _flat(mesh_lib.tp_blocks(
+                                  _nest(leaves), hm)).items()}
+                with torch.enable_grad():
+                    loss = model.loss(_nest(leaves), batch, tp=tp,
+                                      wkv_chunked=chunked)
+                    grads = torch.autograd.grad(loss, list(leaves.values()))
+                grads = dict(zip(leaves, grads))
+                if tp is None:      # this rank's blocks of the whole grads
+                    grads = _flat(mesh_lib.tp_blocks(_nest(grads), hm))
+                res[label] = {"loss": float(loss.detach()),
+                              "grads": {k: g.cpu() for k, g in
+                                        grads.items()}}
+            out[route] = res
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -1129,6 +1129,30 @@ def test_tp_train_step_on_card(cuda_dev, tmp_path):
                        for k, v in r["replicated"][i].items())
 
 
+def test_tp_rwkv6_loss_and_grads_on_card(cuda_dev, tmp_path):
+    """The ssm family's tensor plane on the card: reduced rwkv6 (f32
+    activations, seed-0 weights drawn on the card) split over tp = 2
+    gloo ranks spawned on the one card, ``Model.loss(tp=)`` through
+    ``wkv_chunked`` and ``wkv_scan``: on each rank the loss and every
+    gradient block within 1e-4 of the one-device loss and gradients on
+    the card."""
+    import torch.multiprocessing as mp
+    import _torch_dist_driver as drv
+    mp.spawn(drv.card_tp_rwkv, args=(2, _free_port(), str(tmp_path)),
+             nprocs=2, join=True)
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert res["device"].startswith("cuda")
+        for route in drv.WKV_ROUTES:
+            one, tp = res[route]["one"], res[route]["tp"]
+            assert abs(tp["loss"] - one["loss"]) <= 1e-4 * (
+                1 + abs(one["loss"]))
+            assert sorted(tp["grads"]) == sorted(one["grads"])
+            for k, g in one["grads"].items():
+                torch.testing.assert_close(tp["grads"][k], g, atol=1e-4,
+                                           rtol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # the LLM train step
 # ---------------------------------------------------------------------------

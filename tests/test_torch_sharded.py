@@ -43,8 +43,10 @@ from repro.runtime import ChurnEvent as JChurnEvent
 from repro.runtime import FaultSpec as JFaultSpec
 from repro.runtime import StalenessBuffer as JStalenessBuffer
 from repro.sim import env as jenv
+from repro_torch import configs as tconfigs
 from repro_torch.core import hfl
 from repro_torch.kernels import ops, ref
+from repro_torch.models import tp as tp_mod
 
 WORLDS = (1, 2, 4)
 MESH_CASES = [(w, s) for w in WORLDS for s in drv.MESHES[w]]
@@ -57,6 +59,7 @@ N_LOCAL = drv.TRAJ_CFG["n_local"]
 VERSIONS = 8                     # edge-round shuffles for versions 0..7
 # the reference's train-step cases the multi-rank step is held against
 TRAIN_CASES = {False: "qwen3-f32-static", True: "qwen3-f32-dynamic"}
+RWKV_CASE = "rwkv6-f32-static"          # and the rwkv6 tp step
 
 
 def _flat_tree(tree, prefix=""):
@@ -69,13 +72,14 @@ def _flat_tree(tree, prefix=""):
 
 
 @functools.lru_cache(maxsize=None)
-def _tp_params():
-    """The tensor plane's numpy parameters of ``drv.tp_config`` in the
-    reference's tree (shapes from ``jax.eval_shape`` of its init, seed
-    7): norm scales 1 + 0.1 z (so that ``q_norm``'s and ``k_norm``'s
-    gradients differ by head), the embedding 0.02 z, other weights z /
-    sqrt(fan-in); as (the JAX tree, the flat numpy leaves)."""
-    jcfg = drv.tp_config(jconfigs)
+def _tp_params(arch=drv.TRAIN_ARCH):
+    """The tensor plane's numpy parameters of ``drv.tp_config(arch)`` in
+    the reference's tree (shapes from ``jax.eval_shape`` of its init,
+    seed 7): norm scales 1 + 0.1 z (so that ``q_norm``'s and ``k_norm``'s
+    gradients differ by head; RWKV6's ``ln_w``/``ln_b`` likewise), the
+    embedding 0.02 z, other weights z / sqrt(fan-in); as (the JAX tree,
+    the flat numpy leaves)."""
+    jcfg = drv.tp_config(jconfigs, arch)
     rng = np.random.default_rng(7)
     shapes = jax.eval_shape(j_build_model(jcfg).init, jax.random.PRNGKey(0))
 
@@ -111,11 +115,18 @@ def _inputs() -> dict:
                       for _ in range(drv.ENV_ROUNDS + 1)],
         # the reference's initial parameters of the reduced train step,
         # as its child process draws them
-        "train_init": _flat_tree(jax.jit(j_build_model(tref.config(
-            drv.TRAIN_ARCH, "float32", jconfigs)).init)(
-                jax.random.PRNGKey(0))),
-        "tp_params": _tp_params()[1],
+        "train_init": _train_init(drv.TRAIN_ARCH),
+        "train_init_rwkv": _train_init(drv.RWKV_ARCH),
+        "tp_params": {arch: _tp_params(arch)[1]
+                      for arch in (drv.TRAIN_ARCH, drv.RWKV_ARCH)},
     }
+
+
+def _train_init(arch: str) -> dict:
+    """The reference's initial parameters of ``arch``'s reduced train
+    step, as ``tests/_torch_train_ref.py`` draws them."""
+    return _flat_tree(jax.jit(j_build_model(tref.config(
+        arch, "float32", jconfigs)).init)(jax.random.PRNGKey(0)))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -133,7 +144,7 @@ def runs(tmp_path_factory):
     """{world: [rank 0's results, rank 1's, ...]}, and under "dirs" each
     world's directory and the reference's train-step results: the three
     worlds run at once, one driver process each, beside the reference's
-    two reduced qwen3 train steps in a child process with 4 host devices
+    reduced qwen3 and rwkv6 train steps in a child process with 4 host devices
     (``tests/_torch_train_ref.py``), while this process computes the
     reference's env runs."""
     root = tmp_path_factory.mktemp("dist")
@@ -151,7 +162,7 @@ def runs(tmp_path_factory):
     (root / "train_ref").mkdir()
     ref_proc = subprocess.Popen(
         [sys.executable, os.path.join(REPO, "tests", "_torch_train_ref.py"),
-         str(root / "train_ref"), *TRAIN_CASES.values()],
+         str(root / "train_ref"), *TRAIN_CASES.values(), RWKV_CASE],
         env=child_env(4, OMP_NUM_THREADS=1), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     _jtraj_all()
@@ -978,14 +989,14 @@ def test_mesh_functions_over_the_ranks(runs, world):
 # the tensor plane: each replica over tp = 2 ranks (case "tp" of the driver)
 # ---------------------------------------------------------------------------
 
-def _tp_axes(jcfg, lifted: bool, reps=(1, 1, 1)) -> dict:
+def _tp_axes(jcfg, lifted: bool, reps=(1, 1, 1), tp=drv.TP) -> dict:
     """{leaf path: the dimension the reference's ``hfl_param_specs``
-    splits over "tp" at tp = 2 (None: whole)}, counted in the lifted
-    leaf (``lifted``) or in the replica's own."""
+    splits over "tp" at ``tp`` ranks (None: whole)}, counted in the
+    lifted leaf (``lifted``) or in the replica's own."""
     shapes = jax.eval_shape(j_build_model(jcfg).init, jax.random.PRNGKey(0))
 
     class Sizes:             # all the reference's guard reads of a mesh
-        shape = dict(zip(jmesh.HFL_AXES, reps + (1, drv.TP)))
+        shape = dict(zip(jmesh.HFL_AXES, reps + (1, tp)))
 
     flat, _ = jax.tree_util.tree_flatten_with_path(
         jmesh.hfl_param_specs(jcfg, shapes, Sizes),
@@ -1007,25 +1018,18 @@ def _tp_ranks(world):
              r % drv.TP) for r in range(world)]
 
 
-@pytest.mark.parametrize("world", (2, 4))
-def test_tp_placement_matches_reference_specs(runs, world):
-    """At tp = 2 over rank grid ``drv.TP_GRIDS[world]`` (tp the fastest
-    rank axis): every rank's coordinates and groups; ``place_params`` of
-    the whole lifted tree (replica r scaled by r + 1) is each leaf's
-    replica block and, on the dimension the reference's
-    ``hfl_param_specs`` splits over "tp", ``np.split(leaf, 2,
-    axis)[t]``; ``shardings`` gives the same index; ``gather_params``
-    and ``gather_replica`` invert the placement bitwise and
-    ``tp_blocks`` of one replica is its placed block."""
-    jcfg = drv.tp_config(jconfigs)
+def _check_tp_placement(runs, world, arch, case):
+    """``drv._tp_placement`` of ``arch``'s parameters on every rank
+    (``case`` the rank's result) against the reference's specs."""
+    jcfg = drv.tp_config(jconfigs, arch)
     reps = drv.TP_PLACE_REPS[world]
     axes = _tp_axes(jcfg, True, reps)
-    one = _tp_params()[1]
+    one = _tp_params(arch)[1]
     whole = {k: np.stack([v * (r + 1) for r in range(reps[2])]).reshape(
         reps + v.shape) for k, v in one.items()}
     assert sorted(axes) == sorted(one)
     for rank, coords, t in _tp_ranks(world):
-        res = runs[world][rank]["tp"]
+        res = case(runs[world][rank])
         m = res["mesh"]
         block = tuple(d // g for d, g in zip(reps, drv.TP_GRIDS[world]))
         assert (m["shape"], m["grid"], m["rank"], m["coords"],
@@ -1041,6 +1045,19 @@ def test_tp_placement_matches_reference_specs(runs, world):
             assert _same(res["place"][k], want), k
             assert _same(res["place"][k], v[res["shardings"][k]]), k
         assert res["gather"] and res["blocks"] and res["replica"]
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_tp_placement_matches_reference_specs(runs, world):
+    """At tp = 2 over rank grid ``drv.TP_GRIDS[world]`` (tp the fastest
+    rank axis): every rank's coordinates and groups; ``place_params`` of
+    the whole lifted tree (replica r scaled by r + 1) is each leaf's
+    replica block and, on the dimension the reference's
+    ``hfl_param_specs`` splits over "tp", ``np.split(leaf, 2,
+    axis)[t]``; ``shardings`` gives the same index; ``gather_params``
+    and ``gather_replica`` invert the placement bitwise and
+    ``tp_blocks`` of one replica is its placed block."""
+    _check_tp_placement(runs, world, drv.TRAIN_ARCH, lambda r: r["tp"])
 
 
 @pytest.mark.parametrize("world", (2, 4))
@@ -1114,11 +1131,150 @@ def test_tp_train_step_matches_reference(runs, world, dynamic):
 
 @pytest.mark.parametrize("world", (2, 4))
 def test_tp_refusals(runs, world):
-    """fsdp above 1 and a non-dense family (rwkv6) at tp = 2 raise
-    ``NotImplementedError`` (the tensor plane of item 10 (b)); tp = 4 on
-    reduced qwen3 (2 kv heads) raises ``ValueError``."""
+    """fsdp above 1 and a family still refused (reduced zamba2-7b, the
+    hybrid family) at tp = 2 raise ``NotImplementedError`` (the tensor
+    plane of item 10 (b)); tp = 4 on reduced qwen3 (2 kv heads) raises
+    ``ValueError``, where reduced rwkv6 (also 2 kv heads, but 4 wkv
+    heads, the only ones it splits) is taken."""
     for r in runs[world]:
         errs = r["tp"]["errors"]
         assert errs["fsdp"] and errs["family"]
         if world == 4:
-            assert errs["heads"]
+            assert errs["heads"] and not errs["rwkv_heads"]
+
+
+@pytest.mark.parametrize("arch,size,ok", [
+    ("rwkv6-1.6b", 4, True), ("rwkv6-1.6b", 8, False),
+    ("qwen3-1.7b", 4, False), ("zamba2-7b", 2, None)],
+    ids=["rwkv6-tp4", "rwkv6-tp8", "qwen3-tp4", "zamba2-tp2"])
+def test_tp_check_counts_the_heads_each_family_splits(arch, size, ok):
+    """``tp.check`` on the reduced configs: an ssm model is split by its
+    wkv heads alone (rwkv6: 4 heads, 2 kv heads, so T = 4 is taken and T
+    = 8 raises ``ValueError``), a dense one by its query and kv heads
+    (qwen3: T = 4 does not divide 2 kv heads), and the hybrid family
+    raises ``NotImplementedError``."""
+    cfg = tconfigs.get_config(arch).reduce()
+    if ok is None:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tp_mod.check(cfg, size)
+    elif ok:
+        tp_mod.check(cfg, size)
+    else:
+        with pytest.raises(ValueError, match="whole heads"):
+            tp_mod.check(cfg, size)
+
+
+# ---------------------------------------------------------------------------
+# the ssm family's tensor plane: reduced rwkv6 (case "tp_rwkv"), and the
+# gather operator (case "tp_gather")
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_tp_rwkv6_placement_matches_reference_specs(runs, world):
+    """Reduced rwkv6 at tp = 2 (``test_tp_placement_matches_reference_
+    specs``'s checks): time-mix ``w_r``/``w_k``/``w_v``/``w_g`` by
+    columns, ``w_o`` by rows, ``bonus_u`` by heads, channel-mix
+    ``w_k``/``w_r`` by columns and ``w_v`` by rows, the rest whole, each
+    ``np.split`` of the reference's ``hfl_param_specs``; the gathers
+    invert the placement bitwise."""
+    _check_tp_placement(runs, world, drv.RWKV_ARCH,
+                        lambda r: r["tp_rwkv"]["place"])
+
+
+@functools.lru_cache(maxsize=None)
+def _jrwkv_loss(chunked: bool):
+    """The reference's loss and flat gradients of reduced rwkv6 on the
+    tensor plane's parameters and batch, through ``wkv_chunked`` or
+    ``wkv_scan``."""
+    jcfg = drv.tp_config(jconfigs, drv.RWKV_ARCH)
+    jb = {k: jnp.asarray(v) for k, v in drv.tp_loss_batch(jcfg.vocab).items()}
+    jval, jg = jax.jit(jax.value_and_grad(
+        lambda q: j_build_model(jcfg).loss(q, jb, wkv_chunked=chunked)))(
+            _tp_params(drv.RWKV_ARCH)[0])
+    return float(jval), _flat_tree(jax.tree.map(np.asarray, jg))
+
+
+@pytest.mark.parametrize("route", list(drv.WKV_ROUTES))
+@pytest.mark.parametrize("world", (2, 4))
+def test_tp_rwkv6_loss_and_grads_match_reference(runs, world, route):
+    """``Model.loss(tp=)`` of reduced rwkv6 (4 wkv heads, d_ff 512, vocab
+    512, f32 activations) over tp = 2 ranks (world 2) or 4 (world 4, one
+    head a rank), 32 tokens through ``wkv_chunked`` or ``wkv_scan``, on
+    every rank against ``jax.value_and_grad`` of the reference's
+    ``Model.loss`` on the same numpy parameters and batch: the loss, and
+    each rank's gradient of every leaf against its block (``np.split``
+    on the split dimension, the whole gradient of a replicated leaf:
+    the decay and group-norm leaves each rank slices are summed over the
+    group), within 1e-4."""
+    jval, jg = _jrwkv_loss(drv.WKV_ROUTES[route])
+    size = drv.RWKV_TP[world]
+    axes = _tp_axes(drv.tp_config(jconfigs, drv.RWKV_ARCH), False, tp=size)
+    for rank in range(world):
+        res = runs[world][rank]["tp_rwkv"]["loss"][route]
+        _close(res["loss"], jval, F32_TOL, F32_TOL)
+        assert sorted(res["grads"]) == sorted(jg)
+        for k, g in jg.items():
+            want = g if axes[k] is None else \
+                np.split(g, size, axes[k])[rank % size]
+            _close(res["grads"][k], want, F32_TOL, F32_TOL)
+
+
+def test_tp_rwkv6_guarded_channel_mix(runs):
+    """Reduced rwkv6 with d_ff = 511 at tp = 2 (world 2): the guard keeps
+    the channel mix's ``w_k`` whole on every rank, and ``Model.loss(tp=)``
+    and its gradient blocks hold 1e-4 against the one-device port's."""
+    for rank in range(2):
+        res = runs[2][rank]["tp_rwkv"]["guarded"]
+        assert res["w_k"] == (2, 256, 511)
+        assert res["loss"] <= F32_TOL and res["grads"] <= F32_TOL
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_tp_rwkv6_train_step_matches_reference(runs, world):
+    """Reduced rwkv6 (``tests/_torch_train_ref.py``'s f32 settings: one
+    minibatch per epoch, ``wkv_scan``) on replicas (1, 2, 2) over rank
+    grid ``drv.TP_GRIDS[world]``, each replica over tp = 2 ranks: replica
+    (0, 0, 0) of a static (2, 2) round, plain and in deterministic mode,
+    gathered whole, within 1e-4 of the reference's one-device jitted
+    step (``rwkv6-f32-static``); the four replicas bitwise equal; every
+    leaf no spec splits bitwise equal across the ranks of each tp group;
+    the deterministic round bitwise run to run; each rank's launches as
+    its edges imply."""
+    want = np.load(runs["dirs"]["train_ref"] / f"{RWKV_CASE}.npz")
+    keys = sorted(k for k in want.files if k != "__replicas_equal__")
+    grid = drv.TP_GRIDS[world]
+    block = tuple(d // g for d, g in zip(drv.TRAIN_REPS, grid))
+    rounds = [r["tp_rwkv"]["rounds"] for r in runs[world]]
+    for key in ((False, 0), (True, 0)):
+        res = [r[key] for r in rounds]
+        got = res[0]["replica0"]
+        assert sorted(got) == keys
+        for k in keys:
+            _close(got[k], want[k], F32_TOL, F32_TOL)
+        for rank, coords, t in _tp_ranks(world):
+            r = res[rank]
+            assert r["replicas_equal"] and r["block"] == block
+            assert (r["coords"], r["tp_rank"]) == (coords, t)
+            assert r["launches"] == _train_launches(block, coords, False,
+                                                    len(keys))
+            assert "layers/tmix/decay_B" in r["replicated"]
+            assert _same(r["replicated"], res[rank - t]["replicated"])
+    for r in rounds:
+        a, b = r[(True, 0)], r[(True, 1)]
+        assert _same(a["replicated"], b["replicated"])
+        assert a.get("replica0") is None or _same(a["replica0"],
+                                                  b["replica0"])
+
+
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("world", (2, 4))
+def test_tp_gather_forward_and_backward(runs, world, dtype):
+    """``tp.gather`` over the world: forward bitwise ``torch.cat`` of the
+    ranks' blocks along the last dimension, in its dtype; backward this
+    rank's slice of the gradient, bitwise the plain ``cat``'s."""
+    for r in runs[world]:
+        got, want = r["tp_gather"][dtype]["gather"], \
+            r["tp_gather"][dtype]["plain"]
+        assert got[2:] == want[2:] == (dtype, dtype)
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
