@@ -19,8 +19,10 @@ Phases, each fatal on failure (the script exits non-zero):
    K = 3 CIFAR or K = 2 MNIST updates) in f32 and with a bf16 bank, plus
    a ragged case with an empty segment, and at the LLM train step's
    largest edge mean (4 x 352,321,536 f32, 2 edges), phase 3k's
-   per-rank partial of it (2 x 352,321,536, ``segment_sum_partial``)
-   and phase 3l's tp rank's edge mean (4 x 88,080,384, 2 edges):
+   per-rank partial of it (2 x 352,321,536, ``segment_sum_partial``),
+   phase 3l's tp rank's edge mean (4 x 88,080,384, 2 edges) and
+   whisper-base's largest whole leaf (4 x 26,554,880, phase 3g (f)) and
+   largest fsdp block (4 x 3,145,728, phase 3n):
    ``segment_agg`` and the partial within atol = rtol
    = 1e-5 (the kernel sums rows in order with fmaf, the plain version
    with ``index_add_``; the orders differ), ``segment_broadcast``
@@ -150,7 +152,16 @@ Phases, each fatal on failure (the script exits non-zero):
    replicas bitwise equal, replica 0's loss and per-leaf sums kept for
    phase 3m; (e') the same round through ``wkv_scan``, another summation
    order: its loss and per-leaf sums against (e)'s, the bf16 round's own
-   response to a reordering, which bounds phase 3m's loss;
+   response to a reordering, which bounds phase 3m's loss; (f)
+   full-width whisper-base (f32 weights from seed 0, bf16 activations),
+   one static (1, 1) round on replicas (1, 2, 2) at the reference
+   main's settings, the batch with ``enc_embed`` (8, 1500, 512) from
+   ``serve.stub_extras``: launches held, replicas bitwise equal, replica
+   0's loss and per-leaf sums kept for phase 3n; (f') the same round with
+   the whisper blocks' KV chunks of 512 instead of min(1024, S), another
+   summation order: the bf16 round's own response to a reordering,
+   which bounds phase 3n's bf16 round; (f32) the round with f32
+   activations;
 3k. the replica plane over ``torch.distributed`` (``checkpoint.store`` on
    a sharded env, ``sync.share_topology``, the multi-rank ``HFLMesh`` of
    ``launch.mesh`` and ``launch.train``), on a 120 s budget, gloo ranks
@@ -158,8 +169,8 @@ Phases, each fatal on failure (the script exits non-zero):
    came) against one-device references
    computed in this process first: (a) phase 3e's faulty CIFAR
    ``AsyncHFLEnv`` in deterministic mode at action (1, 1) on 2 ranks,
-   ``save_runtime`` after 10 events, ``load_runtime`` into a fresh
-   sharded env, events 11-20 bitwise the uninterrupted 2-rank run and
+   ``save_runtime`` after 5 events, ``load_runtime`` into a fresh
+   sharded env, events 6-10 bitwise the uninterrupted 2-rank run and
    the one-device run (events, global vector, bank), the sharded
    snapshot's arrays bitwise the one-device snapshot's, its MB and save
    and load seconds; (b) ``share_topology`` at the MNIST defaults on 2
@@ -175,8 +186,24 @@ Phases, each fatal on failure (the script exits non-zero):
    0's replica (0, 0, 0), replica 0's loss, per-leaf sums of squares and
    sums within 1e-4 of 3g (b)'s round, seconds per round and per SGD
    step, the gloo ``all_reduce`` milliseconds of one Eq. 1 and one
-   Eq. 2, each rank's peak memory within ``REPLICA_MEM_GB``; it prints
-   its wall;
+   Eq. 2, each rank's peak memory within ``REPLICA_MEM_GB``; then, in
+   the same 2-rank world, phase 3n's rounds; it prints its wall;
+3n. the fsdp axis (``launch.mesh``'s ``HFLMesh`` with F > 1, the FFN and
+   vocabulary over a replica's ft group, ``models.tp``): full-width
+   whisper-base at its published (8, 16, 2, 1), replicas (1, 2, 2) on
+   each of phase 3k's 2 gloo ranks, each replica split over both as F =
+   2 (T = 1), the seed-0 replica drawn one rank at a time: one static
+   (1, 1) round at phase 3g (f)'s settings with bf16 activations, then
+   with f32; the leaves split (the encoder's and decoder's MLP ``w_up``,
+   ``b_up``, ``w_down``) halved on each rank and the rest whole (the
+   guard keeps the vocabulary of 51,865 whole), (g2 + 1) launches of
+   each kernel per leaf on each rank, every replica and every leaf no
+   spec splits bitwise equal across the ranks, replica (0, 0, 0)
+   gathered whole on rank 0: the bf16 round's loss and per-leaf sums of
+   squares and sums within the larger of ``REPLICA_REL`` and 3g (f')'s
+   response of 3g (f)'s, the f32 round's within ``REPLICA_REL`` of 3g
+   (f32)'s; the rounds' walls, the gloo calls and seconds over the ft
+   group and each rank's peak memory within ``FSDP_MEM_GB``;
 3l. the tensor plane (``models.tp``, the tp axis of ``launch.mesh``'s
    ``HFLMesh``, the train step over it): full-width qwen3-1.7b (f32
    weights from seed 0, bf16 activations), each of replicas (1, 2, 2)
@@ -269,8 +296,9 @@ Phases, each fatal on failure (the script exits non-zero):
    its resync and Eq. 2, and the flushes with ``torch.mv`` as the
    library call; the JSON line has CIFAR and MNIST Eq. 1 rows and the
    CIFAR flush row for ``segment_agg``, and phase 3f's sharded Eq. 1
-   row), at phase 3g's LLM edge mean and phase 3l's tp rank's (4 x
-   88,080,384 -> 2; both kernels, ``torch.mean`` over the replica axis
+   row), at phase 3g's LLM edge mean, phase 3l's tp rank's (4 x
+   88,080,384 -> 2), whisper's largest whole leaf and its fsdp block
+   (both kernels, ``torch.mean`` over the replica axis
    and a ``copy_`` of the expanded means as the library calls, CUDA
    events around 10 calls) and at phase 3k's per-rank partial of the
    full-width Eq. 1 (2 x 352,321,536 -> 2, ``torch.sum`` over each
@@ -489,6 +517,12 @@ LLM_PARTIAL = ("llm-eq1-partial-k2", 2, 28 * 2048 * 6144, 2)
 # 3m's largest block, rwkv6-1.6b's cmix w_k (24 x 2048 x 7168 / 4, the
 # same 88,080,384 elements)
 LLM_TP = ("llm-edge-mean-tp4", 4, 28 * 2048 * 6144 // 4, 2)
+# phase 3g (f)'s and 3n's Eq. 1 at whisper-base's largest whole leaf (its
+# embed, 51,865 x 512, also unembed's size; whole on both fsdp ranks) and
+# at its largest ft block (a rank's half of the MLP's w_up, 6 x 512 x 2048
+# / 2) over the 4 replicas a rank holds
+WHISPER_AGG = ("whisper-whole-leaf", 4, 51865 * 512, 2)
+WHISPER_FT = ("whisper-ft-block", 4, 6 * 512 * 2048 // 2, 2)
 
 
 def _edge_mean_check(torch, ops, ref, dev, shape, seed: int) -> float:
@@ -519,11 +553,14 @@ def _edge_mean_check(torch, ops, ref, dev, shape, seed: int) -> float:
 
 
 def llm_agg_check(torch, ops, ref, dev) -> dict:
-    """Phase 2 at the LLM shapes: the edge means of phases 3g and 3l
-    (``_edge_mean_check``) and phase 3k's partial, within AGG_TOL of its
-    plain version; returns the max abs errors keyed (kernel, shape)."""
+    """Phase 2 at the LLM shapes: the edge means of phases 3g, 3l and 3n
+    (``_edge_mean_check``: qwen3's largest leaf and tp block, whisper's
+    largest whole leaf and ft block) and phase 3k's partial, within
+    AGG_TOL of its plain version; returns the max abs errors keyed
+    (kernel, shape)."""
     err = {}
-    for shape, seed in ((LLM_AGG, 5), (LLM_TP, 7)):
+    for shape, seed in ((LLM_AGG, 5), (LLM_TP, 7), (WHISPER_AGG, 9),
+                        (WHISPER_FT, 11)):
         err[("segment_agg", shape[0])] = _edge_mean_check(
             torch, ops, ref, dev, shape, seed)
         err[("segment_broadcast", shape[0])] = 0.0
@@ -1969,9 +2006,13 @@ def llm_train(torch, ops, configs, model_mod, train, mesh_lib, device_mod,
     # (e), (e') rwkv6-1.6b at full width
     rwkv = rwkv_rounds(torch, ops, configs, model_mod, train, mesh_lib,
                        token_batch, dev)
+    # (f), (f'), (f32) whisper-base at full width
+    whisper = whisper_rounds(torch, ops, configs, model_mod, train,
+                             mesh_lib, dev)
     wall = time.perf_counter() - t_phase
     print(f"  phase 3g took {wall:.1f} s (budget {TRAIN_BUDGET_S:.0f} s)")
-    return {"launches": counts, "full": full, "rwkv": rwkv}
+    return {"launches": counts, "full": full, "rwkv": rwkv,
+            "whisper": whisper}
 
 
 def rwkv_rounds(torch, ops, configs, model_mod, train, mesh_lib,
@@ -2039,6 +2080,111 @@ def rwkv_rounds(torch, ops, configs, model_mod, train, mesh_lib,
     return out
 
 
+# phase 3g (f'): the whisper blocks' own KV chunk, min(1024, S), cut to
+# 512: the encoder's self-attention and the decoder's cross-attention
+# over 1500 frames then sum their online softmax over chunks of 512,
+# 512 and 476 instead of 1024 and 476, another summation order (the
+# decoder's 128 tokens stay one chunk), as 3g (b') cuts qwen3's
+WHISPER_REORDER_CHUNK = 512
+
+
+@contextlib.contextmanager
+def _whisper_kv_chunks(n: int):
+    """The whisper blocks' training route in KV chunks of ``n``
+    (``transformer._whisper_chunk``), inside the context."""
+    from repro_torch.models import transformer
+    saved = transformer._whisper_chunk
+    transformer._whisper_chunk = lambda attn_chunk, s: (
+        None if attn_chunk is None else min(n, s))
+    try:
+        yield
+    finally:
+        transformer._whisper_chunk = saved
+
+
+def whisper_batch(cfg, seed: int, dev) -> dict:
+    """whisper-base's batch at the reference main's shape (8 x 128
+    tokens, ``token_batch(seed)``) with ``enc_embed`` (8, 1500, 512) from
+    ``serve.stub_extras(seed)``."""
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.serve import stub_extras
+    return {**token_batch(seed, 8, 128, cfg.vocab, device=dev),
+            **stub_extras(cfg, 8, seed, dev)}
+
+
+def whisper_rounds(torch, ops, configs, model_mod, train, mesh_lib,
+                   dev) -> dict:
+    """Phase 3g (f): full-width whisper-base (f32 weights from seed 0,
+    bf16 activations), one static (1, 1) round on replicas (1, 2, 2) at
+    the reference main's settings (batch 8 x seq 128 with ``enc_embed``,
+    lr 3e-3, 2 minibatches per epoch, remat): launches held, replicas
+    bitwise equal, replica 0's loss and per-leaf stats kept for phase
+    3n; (f') the same round in KV chunks of ``WHISPER_REORDER_CHUNK``,
+    another summation order: its response, which bounds phase 3n's bf16
+    round; (f32) the round with f32 activations, which phase 3n's f32
+    round is held to at ``REPLICA_REL`` outright. Returns (f)'s results
+    with (f')'s response (``reorder_rel``) and (f32)'s under "f32"."""
+    base = configs.get_config("whisper-base")
+    hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, device=dev)
+    n_sgd = int(np.prod(TRAIN_REPS)) * TRAIN_KW["mb_per_epoch"]
+    out = {}
+    for label, act, chunk in (("f", "bfloat16", None),
+                              ("f'", "bfloat16", WHISPER_REORDER_CHUNK),
+                              ("f32", "float32", None)):
+        cfg = dataclasses.replace(base, activ_dtype=act)
+        model = model_mod.build_model(cfg)
+        p1 = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        params = train.lift_params(p1, *TRAIN_REPS)
+        del p1
+        n = len(train._leaves(params))
+        n_params = sum(a[0, 0, 0].numel() for a in train._leaves(params))
+        step, _, _ = train.make_hfl_train_step(
+            cfg, hm, g1=1, g2=1, **dict(TRAIN_KW, attn_chunk=128))
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _whisper_kv_chunks(chunk) if chunk else \
+                contextlib.nullcontext():
+            params, wall, counts = _full_round(
+                torch, ops, train, step, params,
+                whisper_batch(cfg, 0, dev))
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        check(counts == _agg_launches(n, 1),
+              f"phase 3g ({label}): launches {counts}")
+        check(_replicas_equal(torch, train, params),
+              f"phase 3g ({label}): replicas differ")
+        with torch.no_grad():
+            loss = float(model.loss(train._map(lambda a: a[0, 0, 0], params),
+                                    whisper_batch(cfg, 9999, dev)))
+        check(np.isfinite(loss), f"phase 3g ({label}): loss {loss}")
+        res = {"loss": loss, "names": list(_flat(params)),
+               "stats": [_leaf_stats(torch, a[0, 0, 0])
+                         for a in train._leaves(params)],
+               "counts": counts}
+        del params
+        torch.cuda.empty_cache()
+        if label == "f":
+            out = res
+            print(f"  (f) whisper-base full width ({n_params:,} parameters, "
+                  f"f32 weights, bf16 activations), (1, 1) round, batch 8 x "
+                  f"seq 128 with enc_embed (8, 1500, 512), remat: {wall:.3f}"
+                  f" s ({wall / n_sgd:.4f} s per SGD step), peak memory "
+                  f"{peak:.2f} GB, launches {counts}, replica 0's loss on "
+                  f"the seed-9999 batch {loss:.6f}")
+        elif label == "f'":
+            out["reorder_rel"] = _replica_rel(res, out)
+            worst = _worst_leaves(res, out)
+            print(f"  (f') the same round in KV chunks of {chunk} "
+                  f"({wall:.3f} s): loss {loss:.6f}; its response to that "
+                  f"summation order: loss {out['reorder_rel'][0]:.3e}, "
+                  f"per-leaf sums of squares {out['reorder_rel'][1]:.3e} "
+                  f"({worst[0]}), sums over L1 {out['reorder_rel'][2]:.3e} "
+                  f"({worst[1]}) (relative to (f))")
+        else:
+            out["f32"] = res
+            print(f"  (f32) the round with f32 activations ({wall:.3f} s, "
+                  f"peak {peak:.2f} GB): loss {loss:.6f}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3k: the replica plane over gloo ranks on the one card
 # ---------------------------------------------------------------------------
@@ -2046,9 +2192,10 @@ def rwkv_rounds(torch, ops, configs, model_mod, train, mesh_lib,
 # (a) phase 3e's faulty CIFAR AsyncHFLEnv in deterministic mode at phase
 # 3e's action (1, 1) (an event trains its edge's rows for one epoch, a
 # quarter of 3d's (2, 2)), saved after SNAP_EVENTS of REPLICA_EVENTS (40
-# and 20 until phase 3l came)
-REPLICA_EVENTS = 20
-SNAP_EVENTS = 10
+# and 20 until phase 3l came; 20 and 10 until phase 3n came, the cut that
+# made room for it)
+REPLICA_EVENTS = 10
+SNAP_EVENTS = 5
 # (c) the reduced round's rank grid at 2 ranks (mesh.rank_grid), and the
 # full-width round's: replicas (1, 2, 2) as blocks of (1, 2, 1), so both
 # Eq. 1 and Eq. 2 cross the ranks. A 4-rank world ran the reduced round
@@ -2204,7 +2351,8 @@ def _worst_leaves(got: dict, ref: dict) -> tuple:
 def _replica_rank(rank: int, world: int, port: int, outdir: str) -> None:
     """One rank of phase 3k, a ``torch.multiprocessing.spawn`` target: a
     gloo group of ``world`` ranks on the one card. At 2 ranks (a), (b),
-    (c)'s reduced round and the full-width round; at any other world
+    (c)'s reduced round and the full-width round, then phase 3n's
+    rounds (``_fsdp_rounds``) in the same world; at any other world
     (c)'s reduced round alone. Writes its results to
     ``outdir/rank<r>-<world>.pt``."""
     sys.path.insert(0, SRC)
@@ -2281,6 +2429,8 @@ def _replica_rank(rank: int, world: int, port: int, outdir: str) -> None:
         if world == 2:
             res["full"] = _replica_full(torch, dist, ops, configs, model_mod,
                                         train, mesh_lib, token_batch, hm)
+            res["fsdp"] = _fsdp_rounds(torch, dist, ops, configs, model_mod,
+                                       train, mesh_lib)
         torch.save(res, os.path.join(outdir, f"rank{rank}-{world}.pt"))
     finally:
         dist.destroy_process_group()
@@ -2447,9 +2597,92 @@ def replica_plane(torch, ops, env_mod, runtime, sync, flatbank, store,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t_phase
-    print(f"  phase 3k took {wall:.1f} s (budget {REPLICA_BUDGET_S:.0f} s); "
-          f"ranks sharing one card say nothing of multi-GPU scaling")
-    return {k: sum(r["counts"][k] for r in full)
+    print(f"  phase 3k took {wall:.1f} s (budget {REPLICA_BUDGET_S:.0f} s, "
+          f"phase 3n's rounds included); ranks sharing one card say nothing "
+          f"of multi-GPU scaling")
+    return {"launches": {k: sum(r["counts"][k] for r in full)
+                         for k in ("segment_agg", "segment_broadcast")},
+            "fsdp": [r["fsdp"] for r in ranks[2]], "wall": wall}
+
+
+# ---------------------------------------------------------------------------
+# phase 3n: the fsdp axis, each whisper-base replica over 2 gloo fsdp ranks
+# ---------------------------------------------------------------------------
+
+# whisper-base's published topology (8, 16, 2, 1) splits each replica over
+# F = 2 fsdp ranks (T = 1): here replicas (1, 2, 2), all on each of phase
+# 3k's 2 ranks, one rank per fsdp coordinate. The reference's specs split
+# the MLPs' w_up, b_up and w_down over ("fsdp", "tp"); the guard keeps the
+# embedding and unembedding (vocab 51,865, odd) whole, and attention,
+# dec_pos, the norms and b_down are whole
+FSDP_WORLD = 2
+FSDP_SPLIT = sorted(f"{stack}/mlp/{leaf}" for stack in ("enc_layers",
+                                                         "layers")
+                    for leaf in ("w_up", "b_up", "w_down"))
+# per rank: four f32 replicas' blocks (101.4 M of whisper-base's 114.0 M
+# parameters a replica: the MLPs, 25.2 M, halved), 1.62 GB; one
+# replica's gradients (0.41 GB); remat's activations over 1500 frames,
+# the (128, 51,865) logits in bf16 and f32 and Eq. 1's means (< 1 GB)
+FSDP_MEM_GB = 4.0
+FSDP_BUDGET_S = 60.0
+
+
+def _fsdp_rounds(torch, dist, ops, configs, model_mod, train,
+                 mesh_lib) -> dict:
+    """Phase 3n on this rank of phase 3k's 2-rank world: replicas (1, 2,
+    2) of full-width whisper-base, each split over the world's 2 ranks
+    as fsdp (``make_hfl_mesh(fsdp=2)``), one static (1, 1) round at
+    phase 3g (f)'s settings (``_split_round`` over the ft group) with
+    bf16 activations, then with f32. Returns both, keyed by the
+    activation dtype."""
+    t0 = time.perf_counter()
+    hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, fsdp=FSDP_WORLD)
+    out = {}
+    for act in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(configs.get_config("whisper-base"),
+                                  activ_dtype=act)
+        out[act] = _split_round(
+            torch, dist, ops, train, mesh_lib, model_mod, cfg, hm,
+            dict(TRAIN_KW, attn_chunk=128), 1,
+            whisper_batch(cfg, 0, hm.device),
+            whisper_batch(cfg, 9999, hm.device), {}, hm.ft_group)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def fsdp_plane(torch, res: list, trained: dict, wall_3k: float) -> dict:
+    """Phase 3n's checks on the ranks' ``_fsdp_rounds`` results ``res``:
+    the leaves split are ``FSDP_SPLIT``, halved on each rank; the bf16
+    round held by ``_hold_split`` against phase 3g (f) (bounded by the
+    larger of ``REPLICA_REL`` and 3g (f')'s response), the f32 round
+    against 3g (f32) at ``REPLICA_REL`` outright. Returns the bf16
+    round's launches summed over the ranks."""
+    for act in ("bfloat16", "float32"):
+        rounds = [r[act] for r in res]
+        for r in rounds:
+            check(r["split"] == FSDP_SPLIT, f"phase 3n: the leaves split "
+                  f"are {r['split']}, not {FSDP_SPLIT}")
+        ref = trained["whisper"] if act == "bfloat16" else \
+            trained["whisper"]["f32"]
+        _hold_split(rounds, ref, f"3n ({act})", 1,
+                    "3g (f)" if act == "bfloat16" else "3g (f32)",
+                    f"3g (f')'s KV chunks of {WHISPER_REORDER_CHUNK}"
+                    if act == "bfloat16" else None, FSDP_MEM_GB,
+                    f"whisper-base full width (f32 weights, {act} "
+                    f"activations), replicas {TRAIN_REPS} on each rank, "
+                    f"each split over {FSDP_WORLD} gloo fsdp ranks sharing "
+                    f"the card (the published (8, 16, 2, 1)), batch 8 x "
+                    f"seq 128 with enc_embed, (1, 1), remat, plain mode",
+                    "ft")
+    shapes = res[0]["bfloat16"]["shapes"]
+    print(f"  split leaves, a rank's block each: " + ", ".join(
+        f"{k} {shapes[k]}" for k in FSDP_SPLIT) + f"; embed {shapes['embed']}"
+          f" and unembed {shapes['unembed']} whole (the guard: 51,865 is "
+          f"odd)")
+    print(f"  phase 3n took {max(r['wall_s'] for r in res):.1f} s on the "
+          f"ranks (budget {FSDP_BUDGET_S:.0f} s), inside phase 3k's 2-rank "
+          f"world ({wall_3k:.1f} s with it)")
+    return {k: sum(r["bfloat16"]["counts"][k] for r in res)
             for k in ("segment_agg", "segment_broadcast")}
 
 
@@ -2505,24 +2738,96 @@ def _one_leaf(path: str, leaf) -> dict:
     return leaf
 
 
-def _unsplit(specs) -> list:
-    """The paths of the leaves whose spec names no "tp" axis: every rank
-    of a tp group holds them whole."""
-    return [k for k, spec in _flat(specs).items() if not any(
-        e is not None and "tp" in (e if isinstance(e, tuple) else (e,))
-        for e in spec)]
+def _split_round(torch, dist, ops, train, mesh_lib, model_mod, cfg, hm, kw,
+                 g: int, batch, evalb, loss_kw, group) -> dict:
+    """One static (g, g) round of ``cfg``'s full-width replicas (1, 2,
+    2), each split over ``hm``'s tensor ranks (gloo ranks sharing the
+    card, ``group`` the one its layers' collectives cross, tp or ft):
+    draws the seed-0 replica on the card one rank at a time and keeps
+    its tensor blocks, runs the round with the launch counts set to 0
+    just before and the collectives timed, holds every leaf no spec
+    splits against rank 0's (bitwise, broadcast leaf by leaf), then
+    gathers replica (0, 0, 0) whole on rank 0 leaf by leaf and takes
+    its loss on ``evalb`` (``loss_kw``) and per-leaf stats there."""
+    dev, rank = hm.device, dist.get_rank()
+    model = model_mod.build_model(cfg)
+    t0 = time.perf_counter()
+    for r in range(dist.get_world_size()):     # one whole replica at a time
+        if r == rank:
+            p1 = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+            blocks = mesh_lib.tp_blocks(p1, hm)
+            del p1
+            torch.cuda.empty_cache()
+        dist.barrier()
+    params = train.lift_params(blocks, *hm.block)
+    del blocks
+    t_init = time.perf_counter() - t0
+    step, specs, _ = train.make_hfl_train_step(cfg, hm, g1=g, g2=g, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _AllReduceTimer(torch, dist, ("all_reduce", "all_gather")) as timer:
+        ops.reset_launches()
+        t0 = sync_time(torch)
+        params = step(params, batch)
+        wall = sync_time(torch) - t0
+        counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    flat = _flat(params)
+    split = {k: mesh_lib.tensor_cut(spec, hm) is not None
+             for k, spec in _flat(specs).items()}
+    same_rep = True
+    for k in (k for k, cut in split.items() if not cut):
+        r0 = flat[k].clone()
+        dist.broadcast(r0, src=0)
+        same_rep = same_rep and torch.equal(r0, flat[k])
+    ms = timer.ms.get(group, [])
+    out = {"wall": wall, "peak": peak, "counts": counts,
+           "init_s": t_init, "n_leaves": len(flat),
+           "replicas_equal": _replicas_equal(torch, train, params),
+           "replicated_equal": same_rep, "block": hm.block,
+           "n_whole": sum(not c for c in split.values()),
+           "split": sorted(k for k, c in split.items() if c),
+           "shapes": {k: tuple(a.shape[3:]) for k, a in flat.items()},
+           "tp_rank": hm.tp_rank, "ft_rank": hm.ft_rank,
+           "gloo_s": float(np.sum(ms)) / 1e3, "gloo_calls": len(ms),
+           "gathers": timer.calls.get(("all_gather", group), 0),
+           "shard_gb": sum(a.numel() * a.element_size()
+                           for a in flat.values()) / 1e9}
+    whole = {}
+    t0 = time.perf_counter()
+    for k, a in flat.items():
+        leaf = _flat(mesh_lib.gather_replica(_one_leaf(k, a[0, 0, 0]),
+                                             hm, specs))[k]
+        if rank == 0:
+            whole[k] = leaf.clone()
+        del leaf
+    del params, flat
+    torch.cuda.empty_cache()
+    out["gather_s"] = time.perf_counter() - t0
+    if rank == 0:
+        one = {}
+        for k, a in whole.items():
+            d = one
+            *head, last = k.split("/")
+            for part in head:
+                d = d.setdefault(part, {})
+            d[last] = a
+        with torch.no_grad():
+            out["loss"] = float(model.loss(one, evalb, **loss_kw))
+        # in the tree's order, as phase 3g takes them
+        out["stats"] = [_leaf_stats(torch, a) for a in whole.values()]
+        out["names"] = list(whole)
+        del one, whole
+    torch.cuda.empty_cache()
+    return out
 
 
 def _tp_rank(rank: int, world: int, port: int, outdir: str,
              phase: str) -> None:
     """One rank of phase 3l or 3m (``TP_RUNS[phase]``), a
     ``torch.multiprocessing.spawn`` target: a gloo group of ``world`` tp
-    ranks on the one card. Draws the seed-0 replica on the card one rank
-    at a time and keeps its tp blocks, runs one static round of replicas
-    (1, 2, 2) with the launch counts set to 0 just before and the tp
-    group's ``all_reduce`` and ``all_gather`` calls timed, then gathers
-    replica (0, 0, 0) whole on rank 0 leaf by leaf and takes its loss
-    and per-leaf stats there. Writes its results to
+    ranks on the one card, one static round of replicas (1, 2, 2)
+    (``_split_round``, over the tp group). Writes its results to
     ``outdir/rank<r>.pt``."""
     sys.path.insert(0, SRC)
     import torch
@@ -2538,80 +2843,13 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str,
                             rank=rank, world_size=world)
     try:
         hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, tp=world)
-        dev = hm.device
-        cfg = dataclasses.replace(configs.get_config(run["arch"]),
-                                  **run.get("cfg", {}))
-        model = model_mod.build_model(cfg)
-        t0 = time.perf_counter()
-        for r in range(world):           # one whole replica at a time
-            if r == rank:
-                p1 = model.init(torch.Generator(device=dev).manual_seed(0),
-                                dev)
-                blocks = mesh_lib.tp_blocks(p1, hm)
-                del p1
-                torch.cuda.empty_cache()
-            dist.barrier()
-        params = train.lift_params(blocks, *hm.block)
-        del blocks
-        t_init = time.perf_counter() - t0
-        step, specs, _ = train.make_hfl_train_step(
-            cfg, hm, g1=run["g"], g2=run["g"], **run["kw"])
-        batch = token_batch(0, 8, 128, cfg.vocab, device=dev)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        with _AllReduceTimer(torch, dist,
-                             ("all_reduce", "all_gather")) as timer:
-            ops.reset_launches()
-            t0 = sync_time(torch)
-            params = step(params, batch)
-            wall = sync_time(torch) - t0
-            counts = dict(ops.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        flat = _flat(params)
-        same_rep = True
-        whole_leaves = _unsplit(specs)
-        for k in whole_leaves:
-            r0 = flat[k].clone()
-            dist.broadcast(r0, src=0)
-            same_rep = same_rep and torch.equal(r0, flat[k])
-        tp_ms = timer.ms.get(hm.tp_group, [])
-        out = {"wall": wall, "peak": peak, "counts": counts,
-               "init_s": t_init, "n_leaves": len(flat),
-               "replicas_equal": _replicas_equal(torch, train, params),
-               "replicated_equal": same_rep, "block": hm.block,
-               "n_whole": len(whole_leaves),
-               "tp_rank": hm.tp_rank, "gloo_s": float(np.sum(tp_ms)) / 1e3,
-               "gloo_calls": len(tp_ms),
-               "gathers": timer.calls.get(("all_gather", hm.tp_group), 0),
-               "shard_gb": sum(a.numel() * a.element_size()
-                               for a in flat.values()) / 1e9}
-        whole = {}
-        t0 = time.perf_counter()
-        for k, a in flat.items():
-            leaf = _flat(mesh_lib.gather_replica(_one_leaf(k, a[0, 0, 0]),
-                                                 hm, specs))[k]
-            if rank == 0:
-                whole[k] = leaf.clone()
-            del leaf
-        del params, flat
-        torch.cuda.empty_cache()
-        out["gather_s"] = time.perf_counter() - t0
-        if rank == 0:
-            one = {}
-            for k, a in whole.items():
-                d = one
-                *head, last = k.split("/")
-                for part in head:
-                    d = d.setdefault(part, {})
-                d[last] = a
-            with torch.no_grad():
-                out["loss"] = float(model.loss(
-                    one, token_batch(9999, 8, 128, cfg.vocab, device=dev),
-                    **run["loss_kw"]))
-            # in the tree's order, as phase 3g takes them
-            out["stats"] = [_leaf_stats(torch, a) for a in whole.values()]
-            out["names"] = list(whole)
-            del one, whole
+        cfg = configs.get_config(run["arch"])
+        out = _split_round(
+            torch, dist, ops, train, mesh_lib, model_mod, cfg, hm, run["kw"],
+            run["g"],
+            token_batch(0, 8, 128, cfg.vocab, device=hm.device),
+            token_batch(9999, 8, 128, cfg.vocab, device=hm.device),
+            run["loss_kw"], hm.tp_group)
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -2621,15 +2859,10 @@ def tensor_plane(torch, trained, phase: str) -> dict:
     """Phase 3l (full-width qwen3-1.7b, one static ``FULL_G`` round at
     phase 3g (b)'s settings) or 3m (full-width rwkv6-1.6b, one static (1,
     1) round at 3g (e)'s): each of replicas (1, 2, 2) split over
-    ``TP_WORLD`` gloo tp ranks spawned on the one card (``_tp_rank``);
-    held to (g2 + 1) launches of each kernel per leaf on every rank,
-    every replica and every leaf no spec splits bitwise equal across the
-    ranks, replica (0, 0, 0) gathered whole against phase 3g's
-    one-device round: the loss by the larger of ``REPLICA_REL`` and that
-    round's own response to another summation order, the per-leaf sums
-    by the larger of ``REPLICA_REL`` and that round's largest per-leaf
-    response, and each rank's peak by ``TP_MEM_GB``. Returns the
-    launches summed over the ranks."""
+    ``TP_WORLD`` gloo tp ranks spawned on the one card (``_tp_rank``),
+    held by ``_hold_split`` against phase 3g's one-device round and each
+    rank's peak by ``TP_MEM_GB``. Returns the launches summed over the
+    ranks."""
     import torch.multiprocessing as mp
     run = TP_RUNS[phase]
     t_phase = time.perf_counter()
@@ -2643,70 +2876,86 @@ def tensor_plane(torch, trained, phase: str) -> dict:
                           weights_only=False) for r in range(TP_WORLD)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    want = _agg_launches(res[0]["n_leaves"], run["g"])
-    for r in res:
-        got = {k: r["counts"][k] for k in want}
-        check(got == want, f"phase {phase}: rank {r['tp_rank']} launches "
-              f"{got} != {want}")
-        check(r["replicas_equal"], f"phase {phase}: a rank's replicas "
-              f"differ after the cloud round")
-        check(r["replicated_equal"], f"phase {phase}: a replicated leaf "
-              f"differs from tp rank 0's")
-    ref = trained[run["ref"]]
-    got = res[0]
-    check(got["names"] == ref["names"], f"phase {phase}: the gathered "
-          f"replica's leaves differ from {run['ref_name']}'s")
-    rel_loss, rel_sq, rel_sum = _replica_rel(got, ref)
-    worst = _worst_leaves(got, ref)
-    # the reference round's own response to a reordering bounds what no
-    # split summation order can hold at REPLICA_REL: its loss the loss,
-    # its largest per-leaf response the per-leaf sums
-    loss_bound = max(REPLICA_REL, ref["reorder_rel"][0])
-    sums_bound = max(REPLICA_REL, *ref["reorder_rel"][1:])
-    wall = max(r["wall"] for r in res)
-    n_sgd = run["g"] ** 2 * int(np.prod(TRAIN_REPS)) * \
-        TRAIN_KW["mb_per_epoch"]
-
-    def per_rank(key, spec):
-        return ", ".join(format(r[key], spec) for r in res)
-
     chunks = ", wkv_chunked" if run["kw"].get("wkv_chunked") else \
         f", KV chunks of {run['kw']['attn_chunk']}"
-    print(f"  {run['arch']} full width (f32 weights, bf16 activations), "
-          f"replicas {TRAIN_REPS} on every rank, each split over "
-          f"{TP_WORLD} gloo tp ranks sharing the card, batch 8 x seq 128, "
-          f"({run['g']}, {run['g']}), remat{chunks}, plain mode: round "
-          f"{wall:.3f} s (ranks {per_rank('wall', '.3f')}), {n_sgd} SGD "
-          f"steps per rank ({wall / n_sgd:.4f} s per step); gloo over the "
-          f"tp group {res[0]['gloo_calls']} calls a rank "
-          f"({res[0]['gathers']} of them all_gather, the rest all_reduce), "
-          f"{per_rank('gloo_s', '.3f')} s per rank; blocks "
-          f"{res[0]['shard_gb']:.2f} GB a rank; draw and split "
-          f"{res[0]['init_s']:.1f} s (one rank at a time), replica 0 "
-          f"gathered in {res[0]['gather_s']:.1f} s; peak memory "
-          f"{per_rank('peak', '.2f')} GB (reckoned "
-          f"{TP_MEM_GB[phase]:.0f} GB); launches per rank "
-          f"{res[0]['counts']}; every replica bitwise equal, every one of "
-          f"the {res[0]['n_whole']} leaves no spec splits bitwise tp rank "
-          f"0's; replica (0, 0, 0) gathered vs {run['ref_name']}'s "
-          f"one-device round: loss {got['loss']:.6f} vs "
-          f"{ref['loss']:.6f} (relative {rel_loss:.3e}, bound "
-          f"{loss_bound:.3e}: {run['reorder']}), per leaf sum of squares "
-          f"{rel_sq:.3e} ({worst[0]}), sum over L1 {rel_sum:.3e} "
-          f"({worst[1]}) (bound {sums_bound:.3e}: the larger of "
-          f"{REPLICA_REL} and {run['reorder']}'s largest per-leaf "
-          f"response)")
-    check(max(rel_sq, rel_sum) <= sums_bound and rel_loss <= loss_bound,
-          f"phase {phase}: vs {run['ref_name']} loss {rel_loss:.3e} (bound "
-          f"{loss_bound:.3e}), sum of squares {rel_sq:.3e}, sum "
-          f"{rel_sum:.3e} (bound {sums_bound:.3e})")
-    check(max(r["peak"] for r in res) <= TP_MEM_GB[phase],
-          f"phase {phase}: peak memory over {TP_MEM_GB[phase]} GB")
+    _hold_split(res, trained[run["ref"]], phase, run["g"], run["ref_name"],
+                run["reorder"], TP_MEM_GB[phase],
+                f"{run['arch']} full width (f32 weights, bf16 activations), "
+                f"replicas {TRAIN_REPS} on every rank, each split over "
+                f"{TP_WORLD} gloo tp ranks sharing the card, batch 8 x seq "
+                f"128, ({run['g']}, {run['g']}), remat{chunks}, plain mode",
+                "tp")
     print(f"  phase {phase} took {time.perf_counter() - t_phase:.1f} s "
           f"(budget {TP_BUDGET_S[phase]:.0f} s); ranks sharing one card "
           f"say nothing of multi-GPU scaling")
     return {k: sum(r["counts"][k] for r in res)
             for k in ("segment_agg", "segment_broadcast")}
+
+
+def _hold_split(res: list, ref: dict, phase: str, g: int, ref_name: str,
+                reorder, mem_gb: float, what: str, group: str) -> None:
+    """Holds every rank's ``_split_round`` result ``res``: (g2 + 1)
+    launches of each kernel per leaf, every replica and every leaf no
+    spec splits bitwise equal across the ranks, replica (0, 0, 0)
+    gathered whole against the one-device round ``ref`` (phase 3g's):
+    the loss by the larger of ``REPLICA_REL`` and ``ref``'s own response
+    to another summation order (``reorder`` names it; None: no
+    allowance), the per-leaf sums by the larger of ``REPLICA_REL`` and
+    ``ref``'s largest per-leaf response, and each rank's peak by
+    ``mem_gb``; prints the round's wall, the gloo calls and seconds over
+    the ``group`` group and the peaks."""
+    want = _agg_launches(res[0]["n_leaves"], g)
+    for r in res:
+        got = {k: r["counts"][k] for k in want}
+        check(got == want, f"phase {phase}: rank {r['ft_rank']} launches "
+              f"{got} != {want}")
+        check(r["replicas_equal"], f"phase {phase}: a rank's replicas "
+              f"differ after the cloud round")
+        check(r["replicated_equal"], f"phase {phase}: a leaf no spec "
+              f"splits differs from rank 0's")
+    got = res[0]
+    check(got["names"] == ref["names"], f"phase {phase}: the gathered "
+          f"replica's leaves differ from {ref_name}'s")
+    rel_loss, rel_sq, rel_sum = _replica_rel(got, ref)
+    worst = _worst_leaves(got, ref)
+    # the reference round's own response to a reordering bounds what no
+    # split summation order can hold at REPLICA_REL: its loss the loss,
+    # its largest per-leaf response the per-leaf sums
+    resp = ref["reorder_rel"] if reorder else (0.0, 0.0, 0.0)
+    loss_bound = max(REPLICA_REL, resp[0])
+    sums_bound = max(REPLICA_REL, *resp[1:])
+    wall = max(r["wall"] for r in res)
+    n_sgd = g ** 2 * int(np.prod(TRAIN_REPS)) * TRAIN_KW["mb_per_epoch"]
+
+    def per_rank(key, spec):
+        return ", ".join(format(r[key], spec) for r in res)
+
+    why = f"the response to {reorder}" if reorder else \
+        "no reordering's allowance"
+    print(f"  {what}: round {wall:.3f} s (ranks {per_rank('wall', '.3f')}),"
+          f" {n_sgd} SGD steps per rank ({wall / n_sgd:.4f} s per step); "
+          f"gloo over the {group} group {res[0]['gloo_calls']} calls a rank "
+          f"({res[0]['gathers']} of them all_gather, the rest all_reduce), "
+          f"{per_rank('gloo_s', '.3f')} s per rank; blocks "
+          f"{res[0]['shard_gb']:.2f} GB a rank; draw and split "
+          f"{res[0]['init_s']:.1f} s (one rank at a time), replica 0 "
+          f"gathered in {res[0]['gather_s']:.1f} s; peak memory "
+          f"{per_rank('peak', '.2f')} GB (reckoned {mem_gb:.0f} GB); "
+          f"launches per rank {res[0]['counts']}; every replica bitwise "
+          f"equal, every one of the {res[0]['n_whole']} leaves no spec "
+          f"splits bitwise rank 0's; replica (0, 0, 0) gathered vs "
+          f"{ref_name}'s one-device round: loss {got['loss']:.6f} vs "
+          f"{ref['loss']:.6f} (relative {rel_loss:.3e}, bound "
+          f"{loss_bound:.3e}: {why}), per leaf sum of squares "
+          f"{rel_sq:.3e} ({worst[0]}), sum over L1 {rel_sum:.3e} "
+          f"({worst[1]}) (bound {sums_bound:.3e}: the larger of "
+          f"{REPLICA_REL} and {why}, its largest per leaf)")
+    check(max(rel_sq, rel_sum) <= sums_bound and rel_loss <= loss_bound,
+          f"phase {phase}: vs {ref_name} loss {rel_loss:.3e} (bound "
+          f"{loss_bound:.3e}), sum of squares {rel_sq:.3e}, sum "
+          f"{rel_sum:.3e} (bound {sums_bound:.3e})")
+    check(max(r["peak"] for r in res) <= mem_gb,
+          f"phase {phase}: peak memory over {mem_gb} GB")
 
 
 # ---------------------------------------------------------------------------
@@ -2818,7 +3067,8 @@ def timings(torch, hier_agg, ops, ref, dev, runs: dict, err: dict):
 
 
 def time_llm_agg(torch, hier_agg, ops, ref, dev) -> dict:
-    """Phase 4 at the LLM edge-mean shapes (phase 3g's and phase 3l's):
+    """Phase 4 at the LLM edge-mean shapes (phase 3g's and 3l's, and
+    whisper's of 3g (f) and 3n):
     each kernel, its plain version and the library call (``torch.mean``
     over the replica axis; a ``copy_`` of the expanded means), and at
     phase 3k's partial (``torch.sum`` over each edge's rows), CUDA events
@@ -2842,7 +3092,8 @@ def time_llm_agg(torch, hier_agg, ops, ref, dev) -> dict:
               f"{t_lib:.4f} ms, {nbytes / 1e9:.3f} GB, bound {bound:.4f} ms "
               f"({bound / res[(k, name)]['ms'] * 100:.1f}% of bound)")
 
-    for shape, seed in ((LLM_AGG, 6), (LLM_TP, 8)):
+    for shape, seed in ((LLM_AGG, 6), (LLM_TP, 8), (WHISPER_AGG, 10),
+                        (WHISPER_FT, 12)):
         _, n, p, e = shape
         gen = torch.Generator(device=dev).manual_seed(seed)
         bank = torch.randn((n, p), generator=gen, device=dev)
@@ -3973,6 +4224,11 @@ def main() -> int:
                              store, configs, model, train, mesh_lib, trained,
                              dev)
 
+    print(f"phase 3n: the fsdp axis, each whisper-base replica over "
+          f"{FSDP_WORLD} gloo fsdp ranks on the one card, run in phase 3k's "
+          f"world ({smi})")
+    fsdp = fsdp_plane(torch, replicas["fsdp"], trained, replicas["wall"])
+
     print(f"phase 3l: the tensor plane, each replica over {TP_WORLD} gloo tp "
           f"ranks on the one card ({smi})")
     tensor = tensor_plane(torch, trained, "3l")
@@ -4010,9 +4266,15 @@ def main() -> int:
     # partial of phase 3k's full-width Eq. 1, its launches those of both
     # ranks' round; a tp rank's block of that leaf in phase 3l, the same
     # shape as rwkv6-1.6b's largest block (cmix w_k, 24 x 2048 x 7168 / 4)
-    # in phase 3m, its launches those of both phases' rounds on 4 ranks
-    launches = {LLM_AGG[0]: trained["launches"], LLM_PARTIAL[0]: replicas,
-                LLM_TP[0]: {k: tensor[k] + tensor_rwkv[k] for k in tensor}}
+    # in phase 3m, its launches those of both phases' rounds on 4 ranks;
+    # whisper's largest whole leaf, its launches those of phase 3g (f)'s
+    # round, and a fsdp rank's block of its MLP, those of phase 3n's bf16
+    # round on 2 ranks
+    launches = {LLM_AGG[0]: trained["launches"],
+                LLM_PARTIAL[0]: replicas["launches"],
+                LLM_TP[0]: {k: tensor[k] + tensor_rwkv[k] for k in tensor},
+                WHISPER_AGG[0]: trained["whisper"]["counts"],
+                WHISPER_FT[0]: fsdp}
     for (k, shape), t in time_llm_agg(torch, hier_agg, ops, ref,
                                       dev).items():
         kern = "segment_agg" if k == "segment_sum_partial" else k

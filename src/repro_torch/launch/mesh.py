@@ -9,22 +9,29 @@ index the diverging model replicas (Arena's edges and their devices),
 replicas of the ``(pod, edge, fl)`` axes over a *rank grid* ``(p_r,
 e_r, f_r)`` that divides them: the ranks of an initialised
 ``torch.distributed`` process group (the world), and each replica over
-``T`` tp ranks: the ranks lie in row-major order over the rank grid
-``(p_r, e_r, f_r, 1, T)``, tp the fastest axis, as the reference
+``F`` x ``T`` tensor ranks: the ranks lie in row-major order over
+``(p_r, e_r, f_r, F, T)``, tp the fastest axis, as the reference
 reshapes its device array. Rank ``r`` holds, at its grid coordinates,
 the block of ``(pod/p_r, edge/e_r, fl/f_r)`` replicas as the leading
 axes of each parameter leaf (one device holds them all, grid ``(1, 1,
 1)``, ``launch.train.lift_params``), and of each leaf that the
-reference's specs split over ``"tp"`` its t-th of T equal contiguous
-blocks (``place_params``, ``tp_blocks``): Megatron-style tensor
-parallelism, which the dense and ssm families' layers run by hand
-(``models.tp``). fsdp stays 1: fsdp above 1, and tp above 1 outside the
-dense and ssm families, is the rest of the tensor plane of ROADMAP item
-10 (b) and raises ``NotImplementedError``. The mesh owns the process groups
-its collectives cross: the tp group of each replica block (the T
-consecutive ranks that share it), and at each tp coordinate the fl
-group of each ``(pod, edge)`` block of ranks (Eq. 1; none when f_r = 1)
-and the replica group of all of them (Eq. 2; the world when T = 1). The
+reference's specs split over tensor axes its block at its tensor
+coordinate ``(f, t)`` (``place_params``, ``tp_blocks``): a dimension
+split over ``("fsdp", "tp")`` (the FFN, the vocabulary) is cut into F x
+T equal contiguous blocks, fsdp-major, rank (f, t) holding block f T +
+t, as a JAX ``NamedSharding`` lays one dimension over two mesh axes; a
+dimension split over ``"tp"`` alone (attention) into T blocks, the same
+on every fsdp rank. So the reference's fsdp is a wider tensor split of
+the FFN and the vocabulary, not ZeRO, and the layers run it by hand as
+Megatron-style tensor parallelism (``models.tp``). fsdp above 1 outside
+the dense and audio families, and tp above 1 outside the dense and ssm
+families, is the rest of the tensor plane of ROADMAP item 10 (b) and
+raises ``NotImplementedError`` (``models.tp.check``). The mesh owns the
+process groups its collectives cross: the tp group (the T consecutive
+ranks of a replica block at one fsdp coordinate), the ft group (the F x
+T ranks of a replica block), and at each tensor coordinate the fl group
+of each ``(pod, edge)`` block of ranks (Eq. 1; none when f_r = 1) and
+the replica group of all of them (Eq. 2; the world when F = T = 1). The
 parameter PartitionSpecs (``serve_param_specs``, ``hfl_param_specs``)
 are pure functions: a spec is a tuple with one entry per dimension,
 ``None``, an axis name or a tuple of axis names, as the reference's
@@ -92,14 +99,17 @@ def _rank_device(device) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class HFLMesh:
     """``dims`` over ``HFL_AXES``; the ``(pod, edge, fl)`` replicas over
-    the rank grid ``grid`` and each replica over ``dims[4]`` = T tp ranks,
-    rank ``rank`` holding the ``block`` at its grid coordinates, tp block
-    ``tp_rank``, on ``device``. ``fl_group`` is the process group of this
-    rank's ``(pod, edge)`` block of ranks at its tp coordinate (None when
-    f_r = 1), ``replica_group`` that of every replica block at its tp
-    coordinate (Eq. 2; None: the world, when T = 1) and ``tp_group`` the
-    T ranks of its replica block (None when T = 1). One device: grid (1,
-    1, 1), T = 1, rank 0, no groups."""
+    the rank grid ``grid`` and each replica over ``dims[3]`` = F fsdp x
+    ``dims[4]`` = T tp ranks, rank ``rank`` holding the ``block`` at its
+    grid coordinates and its tensor blocks at ``(fsdp_rank, tp_rank)``,
+    on ``device``. ``tp_group`` is the process group of the T ranks of
+    its replica block at its fsdp coordinate (None when T = 1),
+    ``ft_group`` that of the F x T ranks of its replica block (None when
+    F x T = 1; the tp group when F = 1), ``fl_group`` that of its ``(pod,
+    edge)`` block of ranks at its tensor coordinate (None when f_r = 1)
+    and ``replica_group`` that of every replica block at its tensor
+    coordinate (Eq. 2; None: the world, when F x T = 1). One device:
+    grid (1, 1, 1), F = T = 1, rank 0, no groups."""
     dims: tuple
     device: torch.device
     grid: tuple = (1, 1, 1)
@@ -107,6 +117,7 @@ class HFLMesh:
     fl_group: object = dataclasses.field(default=None, compare=False)
     replica_group: object = dataclasses.field(default=None, compare=False)
     tp_group: object = dataclasses.field(default=None, compare=False)
+    ft_group: object = dataclasses.field(default=None, compare=False)
 
     @property
     def axis_names(self) -> tuple:
@@ -114,41 +125,70 @@ class HFLMesh:
 
     @property
     def shape(self) -> dict:
-        """``{"pod": p, "edge": e, "fl": f, "fsdp": 1, "tp": T}``, as a
-        JAX mesh's ``shape`` reads (replicas and tp ranks)."""
+        """``{"pod": p, "edge": e, "fl": f, "fsdp": F, "tp": T}``, as a
+        JAX mesh's ``shape`` reads (replicas and tensor ranks)."""
         return dict(zip(HFL_AXES, self.dims))
+
+    @property
+    def fsdp(self) -> int:
+        return int(self.dims[3])
 
     @property
     def tp(self) -> int:
         return int(self.dims[4])
 
     @property
+    def ft(self) -> int:
+        """The tensor ranks of one replica, F x T."""
+        return self.fsdp * self.tp
+
+    @property
     def replica_ranks(self) -> int:
-        """The ranks of one tp coordinate: one per replica block."""
+        """The ranks of one tensor coordinate: one per replica block."""
         return math.prod(self.grid)
 
     @property
     def n_ranks(self) -> int:
-        return self.replica_ranks * self.tp
+        return self.replica_ranks * self.ft
 
     @property
     def coords(self) -> tuple:
         """This rank's ``(pod, edge, fl)`` coordinates in the rank grid."""
-        return tuple(int(c) for c in np.unravel_index(self.rank // self.tp,
+        return tuple(int(c) for c in np.unravel_index(self.rank // self.ft,
                                                       self.grid))
 
     @property
+    def ft_rank(self) -> int:
+        """This rank's place in its ft group, f T + t: its block of every
+        leaf split over ``("fsdp", "tp")``."""
+        return self.rank % self.ft
+
+    @property
+    def fsdp_rank(self) -> int:
+        return self.ft_rank // self.tp
+
+    @property
     def tp_rank(self) -> int:
-        """This rank's tp coordinate: its block of every tp-split leaf."""
+        """This rank's tp coordinate: its block of every leaf split over
+        ``"tp"`` alone."""
         return self.rank % self.tp
 
     @property
     def tp_context(self):
-        """The ``models.tp.TPContext`` of this rank's replica block
-        (``Model.loss(tp=)``), None when T = 1."""
+        """The ``models.tp.TPContext`` of this rank's tp group
+        (``Model.loss(tp=)``: attention), None when T = 1."""
         if self.tp == 1:
             return None
         return tp_mod.TPContext(self.tp_group, self.tp, self.tp_rank)
+
+    @property
+    def ft_context(self):
+        """The ``models.tp.TPContext`` of this rank's ft group
+        (``Model.loss(ft=)``: the FFN and the vocabulary), None when F x
+        T = 1; the tp context when F = 1."""
+        if self.fsdp == 1:
+            return self.tp_context
+        return tp_mod.TPContext(self.ft_group, self.ft, self.ft_rank)
 
     @property
     def block(self) -> tuple:
@@ -180,43 +220,39 @@ def make_hfl_mesh(replicas: tuple, *, ranks=None, fsdp: int = 1,
                   tp: int = 1, device="cuda") -> HFLMesh:
     """An HFL mesh of ``replicas = (pod, edge, fl)`` model replicas over
     the rank grid ``ranks`` (default ``(1, 1, 1)``: every replica on one
-    device), each replica split over ``tp`` ranks. A mesh of k =
-    prod(ranks) x tp > 1 ranks needs an initialised process group of
-    exactly k ranks, the ranks in row-major order over ``ranks + (1,
-    tp)``, and builds its groups with ``dist.new_group``, so every rank
-    calls this, with the same arguments; ``device="cuda"`` puts this
-    rank's blocks on ``cuda:{r % cards}``. ``ValueError`` where the grid
-    does not divide the replicas or the group does not fit the mesh;
-    fsdp above 1 raises ``NotImplementedError`` (the tensor plane of
-    item 10 (b)). Whether a model splits over tp ranks is the train
-    step's check (``models.tp.check``)."""
+    device), each replica split over ``fsdp`` x ``tp`` ranks. A mesh of
+    k = prod(ranks) x fsdp x tp > 1 ranks needs an initialised process
+    group of exactly k ranks, the ranks in row-major order over ``ranks
+    + (fsdp, tp)``, and builds its groups with ``dist.new_group``, so
+    every rank calls this, with the same arguments; ``device="cuda"``
+    puts this rank's blocks on ``cuda:{r % cards}``. ``ValueError`` where
+    the grid does not divide the replicas or the group does not fit the
+    mesh. Whether a model splits over F x T ranks is the train step's
+    check (``models.tp.check``)."""
     pod, edge, fl = (int(a) for a in replicas)
     if min(pod, edge, fl) < 1:
         raise ValueError(f"HFL mesh replicas {replicas} must be >= 1")
-    if fsdp != 1:
-        raise NotImplementedError(
-            f"fsdp={fsdp}: sharding a replica's tensors over fsdp is the "
-            f"tensor plane of {MESH_ITEM}")
-    tp = int(tp)
-    if tp < 1:
-        raise ValueError(f"tp={tp} must be >= 1")
+    fsdp, tp = int(fsdp), int(tp)
+    if min(fsdp, tp) < 1:
+        raise ValueError(f"fsdp={fsdp} and tp={tp} must be >= 1")
     grid = (1, 1, 1) if ranks is None else tuple(int(a) for a in ranks)
     if len(grid) != 3 or min(grid) < 1 or any(
             d % g for d, g in zip((pod, edge, fl), grid)):
         raise ValueError(f"rank grid {grid} does not divide the replicas "
                          f"{(pod, edge, fl)}")
-    dims = (pod, edge, fl, 1, tp)
-    n_blocks = math.prod(grid)
-    k = n_blocks * tp
+    dims = (pod, edge, fl, fsdp, tp)
+    n_blocks, ft = math.prod(grid), fsdp * tp
+    k = n_blocks * ft
     if k == 1:
         return HFLMesh(dims=dims, device=resolve_device(device))
     dist = _world()
     if dist is None or dist.get_world_size() != k:
-        raise ValueError(f"rank grid {grid + (1, tp)} needs an initialised "
-                         f"torch.distributed process group of {k} ranks")
+        raise ValueError(f"rank grid {grid + (fsdp, tp)} needs an "
+                         f"initialised torch.distributed process group of "
+                         f"{k} ranks")
     rank = dist.get_rank()
     dev = _rank_device(device)
-    ids = np.arange(k).reshape((n_blocks, tp))    # (replica block, tp)
+    ids = np.arange(k).reshape((n_blocks, fsdp, tp))  # (block, fsdp, tp)
     groups = {}
 
     def build(kind, members):
@@ -226,15 +262,21 @@ def make_hfl_mesh(replicas: tuple, *, ranks=None, fsdp: int = 1,
             groups[kind] = group
 
     if tp > 1:
-        for members in ids:
+        for members in ids.reshape(-1, tp):
             build("tp_group", members)
+    if fsdp > 1:
+        for members in ids.reshape(n_blocks, ft):
+            build("ft_group", members)
+    elif tp > 1:
+        groups["ft_group"] = groups["tp_group"]
+    at_coord = ids.reshape(n_blocks, ft)      # (block, tensor coordinate)
     if grid[2] > 1:
-        for t in range(tp):
-            for members in ids[:, t].reshape(-1, grid[2]):
+        for c in range(ft):
+            for members in at_coord[:, c].reshape(-1, grid[2]):
                 build("fl_group", members)
-    if tp > 1 and n_blocks > 1:
-        for t in range(tp):
-            build("replica_group", ids[:, t])
+    if ft > 1 and n_blocks > 1:
+        for c in range(ft):
+            build("replica_group", at_coord[:, c])
     return HFLMesh(dims=dims, device=dev, grid=grid, rank=rank, **groups)
 
 
@@ -243,10 +285,9 @@ def derive_hfl_mesh(devices, topology: tuple, n_pods: int = 1) -> HFLMesh:
     fl-devices, F fsdp, T tp) must factor the devices of a pod
     (``len(devices) / n_pods``), else ``ValueError``, as in the
     reference. ``devices`` holds one device per rank of the world, in
-    rank order; each replica block of T ranks holds one replica, so the
-    mesh is replicas ``(n_pods, M, D)`` over the same rank grid, each
-    split over T tp ranks (one device: every replica there). F above 1
-    raises ``NotImplementedError`` (the tensor plane of item 10 (b))."""
+    rank order; each replica block of F x T ranks holds one replica, so
+    the mesh is replicas ``(n_pods, M, D)`` over the same rank grid, each
+    split over F x T tensor ranks (one device: every replica there)."""
     devices = list(devices)
     m, d, f, t = (int(a) for a in topology)
     per_pod = len(devices) // max(int(n_pods), 1)
@@ -254,15 +295,11 @@ def derive_hfl_mesh(devices, topology: tuple, n_pods: int = 1) -> HFLMesh:
         raise ValueError(
             f"topology {tuple(topology)} does not factor {per_pod} "
             f"devices/pod")
-    if f != 1:
-        raise NotImplementedError(
-            f"topology {tuple(topology)} shards each replica over fsdp = "
-            f"{f} devices: the tensor plane of {MESH_ITEM}")
     if len(devices) == 1:
         return make_hfl_mesh((1, m, d), device=devices[0])
     dist = _world()
     reps = (int(n_pods), m, d)
-    return make_hfl_mesh(reps, ranks=reps, tp=t, device=devices[
+    return make_hfl_mesh(reps, ranks=reps, fsdp=f, tp=t, device=devices[
         dist.get_rank() if dist is not None else 0])
 
 
@@ -278,45 +315,53 @@ def _leaf_spec(path: str, shape, hfl_mesh) -> tuple:
                                tuple(shape), hfl_mesh.shape)
 
 
-def _tp_axis(spec: tuple, hfl_mesh):
-    """The dimension a spec splits over more than one tp rank, or
-    None."""
-    if hfl_mesh.tp == 1:
-        return None
-    for i, entry in enumerate(spec):
-        if entry is not None and "tp" in (entry if isinstance(entry, tuple)
-                                          else (entry,)):
-            return i
+def tensor_cut(spec: tuple, hfl_mesh):
+    """How ``spec`` splits a replica's leaf over the mesh's tensor ranks:
+    ``(dim, n, i, ctx)``, the dimension cut into ``n`` equal contiguous
+    blocks, this rank's block ``i`` (fsdp-major over a ``("fsdp",
+    "tp")`` entry, as a ``NamedSharding`` reads two axes) and the
+    ``models.tp.TPContext`` of the ranks that hold the other blocks (the
+    tp group for ``"tp"``, the ft group where fsdp takes part); None
+    where it splits no dimension over more than one rank."""
+    sizes = {"fsdp": hfl_mesh.fsdp, "tp": hfl_mesh.tp}
+    at = {"fsdp": hfl_mesh.fsdp_rank, "tp": hfl_mesh.tp_rank}
+    for dim, entry in enumerate(spec):
+        axes = [a for a in (() if entry is None else entry if isinstance(
+            entry, tuple) else (entry,)) if sizes.get(a, 1) > 1]
+        if not axes:
+            continue
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * sizes[a], i * sizes[a] + at[a]
+        ctx = hfl_mesh.ft_context if "fsdp" in axes else \
+            hfl_mesh.tp_context
+        return dim, n, i, ctx
     return None
-
-
-def _tp_block(a, axis, hfl_mesh):
-    """This rank's block of ``a`` along ``axis`` (the whole of ``a``
-    when ``axis`` is None)."""
-    if axis is None:
-        return a
-    n = a.shape[axis] // hfl_mesh.tp
-    return a.narrow(axis, hfl_mesh.tp_rank * n, n)
 
 
 def _place(params, hfl_mesh, lead: tuple) -> dict:
     """Each leaf indexed by ``lead`` on its leading axes, then cut to this
-    rank's tp block where the reference's specs (and the guard) split it
-    over ``"tp"``, a new contiguous tensor on the mesh's device."""
+    rank's tensor block where the reference's specs (and the guard)
+    split it (``tensor_cut``), a new contiguous tensor on the mesh's
+    device."""
     def place(path, a):
         a = torch.as_tensor(a)[lead]
         n = len(lead)
-        axis = _tp_axis(_leaf_spec(path, a.shape[n:], hfl_mesh), hfl_mesh)
-        return _tp_block(a, None if axis is None else axis + n,
-                         hfl_mesh).to(hfl_mesh.device, copy=True).contiguous()
+        cut = tensor_cut(_leaf_spec(path, a.shape[n:], hfl_mesh), hfl_mesh)
+        if cut is not None:
+            dim, k, i, _ = cut
+            size = a.shape[n + dim] // k
+            a = a.narrow(n + dim, i * size, size)
+        return a.to(hfl_mesh.device, copy=True).contiguous()
 
     return _map_paths(place, params)
 
 
 def tp_blocks(params, hfl_mesh) -> dict:
-    """This rank's tp blocks of one whole replica's (unlifted) parameter
-    tree: each leaf split over ``"tp"`` cut to its t-th of T equal
-    contiguous blocks. Lift the result to the rank's replica block with
+    """This rank's tensor blocks of one whole replica's (unlifted)
+    parameter tree: each leaf split over ``("fsdp", "tp")`` cut to its
+    block f T + t of F x T, each split over ``"tp"`` to its t-th of T.
+    Lift the result to the rank's replica block with
     ``launch.train.lift_params``."""
     return _place(params, hfl_mesh, ())
 
@@ -324,8 +369,8 @@ def tp_blocks(params, hfl_mesh) -> dict:
 def place_params(params, hfl_mesh) -> dict:
     """This rank's block of a whole lifted parameter tree (every leaf
     ``(pod, edge, fl, ...)``, ``launch.train.lift_params``): each leaf's
-    block of the replica axes and, of a leaf split over ``"tp"``, its
-    tp block (``tp_blocks``)."""
+    block of the replica axes and, of a leaf split over tensor axes, its
+    tensor block (``tp_blocks``)."""
     return _place(params, hfl_mesh, tuple(hfl_mesh.block_slice(a)
                                           for a in REPLICA_AXES))
 
@@ -333,9 +378,9 @@ def place_params(params, hfl_mesh) -> dict:
 def gather_replicas(block, hfl_mesh):
     """One leaf's blocks ``(pod/p_r, edge/e_r, fl/f_r, ...)`` from every
     replica block laid out whole, ``(pod, edge, fl, ...)`` on every rank:
-    one ``all_gather`` over the replica group of this rank's tp
-    coordinate (the world when T = 1), which every rank calls (the block
-    itself on one replica block)."""
+    one ``all_gather`` over the replica group of this rank's tensor
+    coordinate (the world when F = T = 1), which every rank calls (the
+    block itself on one replica block)."""
     k = hfl_mesh.replica_ranks
     if k == 1:
         return block
@@ -350,16 +395,17 @@ def gather_replicas(block, hfl_mesh):
     return whole.reshape(tuple(hfl_mesh.dims[:3]) + rest).contiguous()
 
 
-def gather_tp(block, axis, hfl_mesh):
-    """One leaf's tp blocks joined along ``axis`` on every rank of the tp
-    group (one ``all_gather`` over it, which each of them calls); the
-    block itself when ``axis`` is None."""
-    if axis is None or hfl_mesh.tp == 1:
+def gather_blocks(block, axis, ctx):
+    """One leaf's tensor blocks joined along ``axis`` on every rank of
+    the group of ``ctx`` (a ``models.tp.TPContext``), in its rank order:
+    one ``all_gather`` over it, which each of them calls; the block
+    itself when ``axis`` is None."""
+    if axis is None or ctx is None:
         return block
-    parts = torch.empty((hfl_mesh.tp,) + tuple(block.shape),
-                        dtype=block.dtype, device=block.device)
+    parts = torch.empty((ctx.size,) + tuple(block.shape), dtype=block.dtype,
+                        device=block.device)
     _world().all_gather(list(parts.unbind(0)), block.contiguous(),
-                        group=hfl_mesh.tp_group)
+                        group=ctx.group)
     return torch.cat(parts.unbind(0), dim=axis)
 
 
@@ -370,21 +416,22 @@ def _specs_at(specs, path: str):
 
 
 def _join(params, hfl_mesh, specs, n_lead: int, first=None) -> dict:
-    """``first`` (default: nothing) on each leaf, then its tp blocks
-    joined (``gather_tp``) on the dimension its spec (lifted; a leaf with
-    ``n_lead`` leading replica axes) splits over "tp". With T > 1 the
-    specs are needed: a block does not say whether its leaf was split
-    (the guard keeps a leaf T does not divide whole)."""
-    if hfl_mesh.tp > 1 and specs is None:
-        raise ValueError("joining tp blocks needs the tree's specs "
+    """``first`` (default: nothing) on each leaf, then its tensor blocks
+    joined (``gather_blocks``) on the dimension its spec (lifted; a leaf
+    with ``n_lead`` leading replica axes) splits, over the group that
+    holds them. With F x T > 1 the specs are needed: a block does not
+    say whether its leaf was split (the guard keeps a leaf F x T or T
+    does not divide whole)."""
+    if hfl_mesh.ft > 1 and specs is None:
+        raise ValueError("joining tensor blocks needs the tree's specs "
                          "(hfl_param_specs with the mesh)")
 
     def join(path, a):
         a = a if first is None else first(a)
-        if hfl_mesh.tp == 1:
+        if hfl_mesh.ft == 1:
             return a
-        spec = _specs_at(specs, path)[3 - n_lead:]
-        return gather_tp(a, _tp_axis(spec, hfl_mesh), hfl_mesh)
+        cut = tensor_cut(_specs_at(specs, path)[3 - n_lead:], hfl_mesh)
+        return a if cut is None else gather_blocks(a, cut[0], cut[3])
 
     return _map_paths(join, params)
 
@@ -392,17 +439,17 @@ def _join(params, hfl_mesh, specs, n_lead: int, first=None) -> dict:
 def gather_params(params, hfl_mesh, specs=None) -> dict:
     """The inverse of ``place_params``: every rank's blocks joined into
     the whole lifted tree on every rank (``gather_replicas`` and
-    ``gather_tp`` per leaf; for tests and checks). With T > 1 it needs
-    the tree's ``specs`` (``hfl_param_specs(cfg, shapes, hfl_mesh)``,
-    the train step's ``param_specs``)."""
+    ``gather_blocks`` per leaf; for tests and checks). With F x T > 1 it
+    needs the tree's ``specs`` (``hfl_param_specs(cfg, shapes,
+    hfl_mesh)``, the train step's ``param_specs``)."""
     return _join(params, hfl_mesh, specs, 3,
                  lambda a: gather_replicas(a, hfl_mesh))
 
 
 def gather_replica(params, hfl_mesh, specs=None) -> dict:
-    """One replica's tp blocks (an unlifted tree, ``tp_blocks``) joined
-    whole on every rank of the tp group, leaf by leaf; ``specs`` as for
-    ``gather_params``."""
+    """One replica's tensor blocks (an unlifted tree, ``tp_blocks``)
+    joined whole on every rank of its ft group, leaf by leaf; ``specs``
+    as for ``gather_params``."""
     return _join(params, hfl_mesh, specs, 0)
 
 
@@ -597,17 +644,16 @@ def shardings(mesh, specs, shapes=None):
     """For each spec of ``specs`` (``hfl_param_specs``), this rank's
     index into its leaf: one slice per spec entry, the rank's block of a
     replica axis (``HFLMesh.block_slice``), of a dimension split over
-    ``"tp"`` (or ``("fsdp", "tp")``, fsdp being 1) its t-th of T equal
-    contiguous blocks, as a ``PartitionSpec`` reads, and the whole of
-    every other dimension. A tp block needs the leaf's size: ``shapes``
-    is a tree of the whole leaves (anything with ``.shape``, lifted as
-    the specs are), else ``ValueError``. An entry naming another tensor
-    axis of more than one rank (a ``derive_serve_mesh`` layout's tp,
-    say) raises ``NotImplementedError``: the tensor plane of item 10
-    (b)."""
+    tensor axes its block as ``tp_blocks`` cuts it (fsdp-major over
+    ``("fsdp", "tp")``), as a ``PartitionSpec`` reads, and the whole of
+    every other dimension. A tensor block needs the leaf's size:
+    ``shapes`` is a tree of the whole leaves (anything with ``.shape``,
+    lifted as the specs are), else ``ValueError``. An entry naming a
+    tensor axis of more than one rank of another layout (a
+    ``derive_serve_mesh`` layout's tp, say) raises
+    ``NotImplementedError``: the tensor plane of item 10 (b)."""
     hfl = isinstance(mesh, HFLMesh)
-    sizes = (dict(zip(REPLICA_AXES, mesh.grid), tp=mesh.tp) if hfl
-             else dict(mesh.shape))
+    sizes = dict(mesh.shape)
 
     def index(spec, shape):
         out = []
@@ -616,7 +662,7 @@ def shardings(mesh, specs, shapes=None):
                 entry if isinstance(entry, tuple) else (entry,)
             wide = [a for a in axes
                     if a not in REPLICA_AXES and sizes.get(a, 1) > 1]
-            if wide and (not hfl or wide != ["tp"]):
+            if wide and not hfl:
                 raise NotImplementedError(
                     f"spec {spec} shards a replica's tensors over {wide}: "
                     f"the tensor plane of {MESH_ITEM}")
@@ -624,13 +670,14 @@ def shardings(mesh, specs, shapes=None):
             if rep:
                 out.append(mesh.block_slice(rep[0]))
             elif wide:
-                if shape is None or shape[i] % mesh.tp:
+                _, n, k, _ = tensor_cut((entry,), mesh)
+                if shape is None or shape[i] % n:
                     raise ValueError(
-                        f"spec {spec} splits dimension {i} over tp = "
-                        f"{mesh.tp}: shardings needs a leaf shape it "
+                        f"spec {spec} splits dimension {i} into {n} "
+                        f"blocks: shardings needs a leaf shape it "
                         f"divides, got {shape}")
-                n = shape[i] // mesh.tp
-                out.append(slice(mesh.tp_rank * n, (mesh.tp_rank + 1) * n))
+                m = shape[i] // n
+                out.append(slice(k * m, (k + 1) * m))
             else:
                 out.append(slice(None))
         return tuple(out)
@@ -700,8 +747,8 @@ def make_bank_mesh(n_edge_shards: int, fl: int = 1, *, group=None,
 def derive_bank_mesh(hfl_mesh) -> BankMesh:
     """The HFL mesh's ``(edge, fl)`` plane of pod 0 as a bank mesh (the
     reference's ``devices[0, :, :, 0, 0]``): its ``e_r x f_r`` ranks at
-    tp coordinate 0, bank rows edge-major over them. With more than one
-    pod of ranks, or T > 1, it builds their process group
+    tensor coordinates (0, 0), bank rows edge-major over them. With more
+    than one pod of ranks, or F x T > 1, it builds their process group
     (``dist.new_group``, so every rank calls it) and raises
     ``ValueError`` on a rank outside it; so does a mesh that is not an
     HFL mesh, as in the reference."""
@@ -709,14 +756,13 @@ def derive_bank_mesh(hfl_mesh) -> BankMesh:
         raise ValueError(f"expected an HFL mesh with axes {HFL_AXES}, got "
                          f"{tuple(getattr(hfl_mesh, 'axis_names', ()))}")
     p_r, e_r, f_r = hfl_mesh.grid
-    group, rank = None, hfl_mesh.rank
-    if p_r > 1 or hfl_mesh.tp > 1:
-        group = _world().new_group(
-            [b * hfl_mesh.tp for b in range(e_r * f_r)])
-        if hfl_mesh.coords[0] != 0 or hfl_mesh.tp_rank != 0:
-            raise ValueError(f"rank {hfl_mesh.rank} is not in pod 0 at tp "
-                             f"coordinate 0 of the HFL mesh")
-        rank = hfl_mesh.rank // hfl_mesh.tp
+    group, rank, ft = None, hfl_mesh.rank, hfl_mesh.ft
+    if p_r > 1 or ft > 1:
+        group = _world().new_group([b * ft for b in range(e_r * f_r)])
+        if hfl_mesh.coords[0] != 0 or hfl_mesh.ft_rank != 0:
+            raise ValueError(f"rank {hfl_mesh.rank} is not in pod 0 at "
+                             f"tensor coordinates (0, 0) of the HFL mesh")
+        rank = hfl_mesh.rank // ft
     return BankMesh(dims=(e_r, f_r), rank=rank, device=hfl_mesh.device,
                     group=group)
 

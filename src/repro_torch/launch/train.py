@@ -11,11 +11,14 @@ One ``train_step`` call is one cloud round (Eq. 5):
 Model replicas live as leading ``(pod, edge, fl)`` axes of every
 parameter leaf, the reference's layout (``lift_params``), laid over the
 ranks of an ``HFLMesh`` (``launch.mesh.make_hfl_mesh``): each rank holds
-its block of them, one device all of them. On a mesh with T > 1 tp
-ranks each replica is split over T ranks as the reference's specs
-split it (a dense or ssm model: ``models.tp``), each rank holding its tp
-blocks of its block's replicas and training them with the tp context
-(``Model.loss(tp=)``). A local epoch is
+its block of them, one device all of them. On a mesh with F x T > 1
+tensor ranks each replica is split over F x T ranks as the reference's
+specs split it (``models.tp``): the FFN and the vocabulary over the F x
+T ranks of its ft group (a dense or audio model at F > 1; dense, audio
+or ssm at F = 1), attention over the T ranks of its tp group (a dense
+or ssm model). Each rank holds its tensor blocks of its block's
+replicas and trains them with both contexts (``Model.loss(tp=,
+ft=)``). A local epoch is
 ``mb_per_epoch`` minibatches through ``Model.loss`` and autograd, one
 SGD step each. The port loops over a rank's replicas where the
 reference vmaps over the three replica axes: the replicas are
@@ -25,15 +28,16 @@ are held at a time (a full-width qwen3-1.7b replica's are 8.1 GB).
 Eq. 1 and Eq. 2 are the reference's uniform means (``_edge_mean``,
 ``_cloud_mean``), computed by the two kernels written for their
 size-weighted general form (``repro_torch.kernels.ops``): per leaf,
-viewed as the rank's ``(R/k, numel)`` bank of replica rows (of its tp
-block, under tp), one launch
+viewed as the rank's ``(R/k, numel)`` bank of replica rows (of its
+tensor block, under fsdp and tp), one launch
 of the ``segment_agg`` kernel with weights 1 and segment ids ``pod *
 n_edge + edge`` (E = 1 for the cloud mean) and one ``segment_broadcast``
 launch writing the means back into the rank's rows. Where a mean's
 replicas span ranks, the launch is the rank's partial
 (``segment_sum_partial``) and its sums meet in an ``all_reduce`` over
-the ranks the mean crosses at the rank's tp coordinate: its fl group
-for Eq. 1, its replica group (the world when T = 1) for Eq. 2
+the ranks the mean crosses at the rank's tensor coordinate (f, t): its
+fl group for Eq. 1, its replica group (the world when F = T = 1) for
+Eq. 2
 (``ops.segment_agg_sharded``). A static round launches each
 kernel ``(g2 + 1)`` times per leaf on every rank. The training forward
 reaches no kernel: attention, WKV and the loss are the reference's
@@ -143,7 +147,7 @@ def _cloud_mean(params, hfl_mesh, collective_dtype=None) -> None:
     """Eq. 2 on every leaf, in place: every replica takes the mean over
     all of them, one ``segment_broadcast`` writing the rank's replicas.
     The mean is one ``segment_agg`` launch where one rank holds every
-    replica (of its tp block); otherwise one ``segment_sum_partial``
+    replica (of its tensor block); otherwise one ``segment_sum_partial``
     launch on the rank's rows and an ``all_reduce`` over its replica
     group (``ops.segment_agg_sharded``). In
     deterministic mode every rank gathers the replicas in the one-device
@@ -203,11 +207,15 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
     ranks of a multi-rank mesh; under tp, of the rank's tp blocks
     (``mesh.place_params``, or ``lift_params`` of ``mesh.tp_blocks``). It
     is updated in place and returned.
-    ``batch``: {"tokens", "labels"} (B, S) int, the whole batch on every
-    rank, with B a multiple of the replica count R; replica r (in (pod,
-    edge, fl) order) trains on rows ``[r B/R, (r + 1) B/R)``, split into
-    ``mb_per_epoch`` minibatches, and a rank takes its replicas' rows
-    (the batch splits over ``REPLICA_AXES``). ``collective_dtype`` casts
+    ``batch``: {"tokens", "labels"} (B, S) int, plus the stub front
+    ends' inputs a model reads (``enc_embed`` (B, enc_seq, d) for
+    ``audio``, ``vision_embed`` (B, n_vis, d) for ``vlm``), the whole
+    batch on every rank, with B a multiple of the replica count R;
+    replica r (in (pod, edge, fl) order) trains on rows ``[r B/R, (r +
+    1) B/R)`` of every key, split into ``mb_per_epoch`` minibatches, as
+    the reference slices every leaf of the batch, and a rank takes its
+    replicas' rows (the batch splits over ``REPLICA_AXES``).
+    ``collective_dtype`` casts
     the params before the cloud mean only (the reference's quantized
     cloud sync). ``param_specs`` is the tree of ``mesh.hfl_param_specs``
     and ``batch_spec`` the batch's, ``(("pod", "edge", "fl"),)``.
@@ -217,12 +225,14 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
     its replica group (``_edge_mean``, ``_cloud_mean``). Under
     ``device.deterministic_algorithms`` both keep the one-device
     summation order, so at T = 1 the round is bitwise the one-device
-    round. With T > 1 tp ranks the forward and backward run Megatron's
-    collectives over the tp group (``models.tp``; the replicated leaves
-    stay bitwise equal across it), a split product sums in another order
-    than the one-device product, and a dense or ssm model whose heads T
-    does not divide raises ``ValueError``, another family
-    ``NotImplementedError`` (``models.tp.check``).
+    round. With F x T > 1 tensor ranks the forward and backward run
+    Megatron's collectives over the ft group (the FFN, the vocabulary)
+    and the tp group (attention; ``models.tp``; the leaves no spec
+    splits stay bitwise equal across both), a split product sums in
+    another order than the one-device product, and a dense or ssm model
+    whose heads T does not divide raises ``ValueError``, a family the
+    mesh's F or T does not take ``NotImplementedError``
+    (``models.tp.check``).
 
     Dynamic rounds: in epoch t1 of edge period t2 a replica of edge j
     trains only if ``t1 < g1e[j]`` and ``t2 < g2e[j]``, and only edges
@@ -240,8 +250,8 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
             f"seq_shard_acts shards activations over fsdp x tp: the tensor "
             f"plane of {mesh_lib.MESH_ITEM}")
     model = build_model(cfg)
-    tp = hfl_mesh.tp_context
-    tp_mod.check(cfg, hfl_mesh.tp)
+    tp, ft = hfl_mesh.tp_context, hfl_mesh.ft_context
+    tp_mod.check(cfg, hfl_mesh.tp, hfl_mesh.fsdp)
     n_pod, n_edge, n_fl = mesh_lib.n_replicas(hfl_mesh)
     repl = n_pod * n_edge * n_fl
     block = hfl_mesh.block
@@ -257,17 +267,16 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
         steps."""
         views = [leaf.view((mine,) + leaf.shape[3:])[r]
                  for leaf in _leaves(params)]
-        toks, labs = batch["tokens"][r], batch["labels"][r]
-        per = toks.shape[0] // mb_per_epoch
+        rows = {k: v[r] for k, v in batch.items()}
+        per = rows["tokens"].shape[0] // mb_per_epoch
         for i in range(mb_per_epoch):
             leaves = [v.detach().requires_grad_(True) for v in views]
             it = iter(leaves)
             p = _map(lambda _: next(it), params)
-            mb = {"tokens": toks[i * per:(i + 1) * per],
-                  "labels": labs[i * per:(i + 1) * per]}
+            mb = {k: v[i * per:(i + 1) * per] for k, v in rows.items()}
             with torch.enable_grad():
                 loss = model.loss(p, mb, remat=remat, attn_chunk=attn_chunk,
-                                  wkv_chunked=wkv_chunked, tp=tp)
+                                  wkv_chunked=wkv_chunked, tp=tp, ft=ft)
                 grads = torch.autograd.grad(loss, leaves)
             del loss, p, leaves
             with torch.no_grad():
@@ -372,27 +381,33 @@ def main(argv=None):
         PYTHONPATH=src python -m repro_torch.launch.train --arch \\
             qwen3-1.7b --mesh micro --rounds 10 [--dynamic] [--device cpu]
         PYTHONPATH=src torchrun --nproc-per-node 4 -m \\
-            repro_torch.launch.train --device cpu --mesh micro [--tp 2]
+            repro_torch.launch.train --device cpu --mesh micro \\
+            [--fsdp 2] [--tp 2]
 
     --mesh micro  : the reduced config, replicas (1, 2, 2): on one device,
                     or, under torchrun (or in an initialised process
                     group), spread over the world's ranks, each replica
-                    over ``--tp`` of them (``mesh.rank_grid`` of the
-                    world / tp ranks: 2 (1, 1, 2), 4 (1, 2, 2)); only
-                    rank 0 prints
+                    over ``--fsdp`` x ``--tp`` of them (``mesh.rank_grid``
+                    of the world / (fsdp x tp) ranks: 2 (1, 1, 2), 4 (1,
+                    2, 2)); only rank 0 prints
     --mesh single / multi : the full config on the reference's 256 /
-                    512-rank production mesh, replicas and tp from the
-                    config's ``hfl_topology`` (``mesh.derive_hfl_mesh``):
-                    ``ValueError`` in a smaller world; fsdp above 1, or
-                    tp above 1 outside the dense and ssm families, raise
-                    ``NotImplementedError`` (item 10 (b))
+                    512-rank production mesh, replicas, fsdp and tp from
+                    the config's ``hfl_topology``
+                    (``mesh.derive_hfl_mesh``): ``ValueError`` in a
+                    smaller world; fsdp above 1 outside the dense and
+                    audio families, or tp above 1 outside the dense and
+                    ssm families, raise ``NotImplementedError`` (item 10
+                    (b))
     --dynamic uses the masked per-edge-frequency step with a Var-Freq-B
     style schedule (the Arena agent plugs in through the same signature).
-    Runs on the card unless ``--device cpu``."""
+    The batch carries the stub front ends' inputs of an audio or vlm
+    model (``serve.stub_extras``, seeded by the round). Runs on the card
+    unless ``--device cpu``."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.serve import stub_extras
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
@@ -404,6 +419,8 @@ def main(argv=None):
     ap.add_argument("--g1", type=int, default=2)
     ap.add_argument("--g2", type=int, default=2)
     ap.add_argument("--dynamic", action="store_true")
+    ap.add_argument("--fsdp", type=int, default=1,
+                    help="--mesh micro: fsdp ranks per replica")
     ap.add_argument("--tp", type=int, default=1,
                     help="--mesh micro: tp ranks per replica")
     ap.add_argument("--device", default="cuda")
@@ -415,12 +432,13 @@ def main(argv=None):
         if args.mesh == "micro":
             cfg = get_config(args.arch).reduce()
             reps = (1, 2, 2)
-            if k % args.tp:
-                raise ValueError(f"--tp {args.tp} does not divide the "
-                                 f"world's {k} ranks")
+            ft = args.fsdp * args.tp
+            if k % ft:
+                raise ValueError(f"--fsdp {args.fsdp} x --tp {args.tp} does "
+                                 f"not divide the world's {k} ranks")
             hfl_mesh = mesh_lib.make_hfl_mesh(
-                reps, ranks=mesh_lib.rank_grid(reps, k // args.tp),
-                tp=args.tp, device=args.device)
+                reps, ranks=mesh_lib.rank_grid(reps, k // ft),
+                fsdp=args.fsdp, tp=args.tp, device=args.device)
         else:
             mesh_lib.make_production_mesh(multi_pod=args.mesh == "multi",
                                           n_ranks=k)
@@ -448,9 +466,14 @@ def main(argv=None):
         params = lift_params(mesh_lib.tp_blocks(model.init(gen, device=dev),
                                                 hfl_mesh), *hfl_mesh.block)
         rng = np.random.default_rng(0)
+
+        def batch_of(seed):
+            return {**token_batch(seed, args.batch, args.seq, cfg.vocab,
+                                  device=dev),
+                    **stub_extras(cfg, args.batch, seed, dev)}
+
         for i in range(args.rounds):
-            batch = token_batch(i, args.batch, args.seq, cfg.vocab,
-                                device=dev)
+            batch = batch_of(i)
             t0 = time.time()
             if args.dynamic:
                 # Var-Freq-B style: per-edge freqs (Arena's agent drops in)
@@ -462,9 +485,9 @@ def main(argv=None):
             if hfl_mesh.coords == (0, 0, 0):   # replica (0, 0, 0)'s ranks
                 p0 = _map(lambda a: a[0, 0, 0], params)
                 with torch.no_grad():
-                    loss = float(model.loss(p0, token_batch(
-                        9999, args.batch, args.seq, cfg.vocab, device=dev),
-                        tp=hfl_mesh.tp_context))
+                    loss = float(model.loss(
+                        p0, batch_of(9999), tp=hfl_mesh.tp_context,
+                        ft=hfl_mesh.ft_context))
                 if lead:
                     print(f"round {i} loss={loss:.4f} "
                           f"dt={time.time() - t0:.1f}s", flush=True)

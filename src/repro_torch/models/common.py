@@ -80,8 +80,9 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, device,
 
 def swiglu(params, x, tp=None):
     """silu(x W_gate) * (x W_up) W_down, in x's dtype. ``tp`` (a
-    ``models.tp.TPContext``): ``w_gate``/``w_up`` are this rank's column
-    blocks and ``w_down`` its row block (``tp.column``, ``tp.row``)."""
+    ``models.tp.TPContext``, the ft group's): ``w_gate``/``w_up`` are
+    this rank's column blocks and ``w_down`` its row block
+    (``tp.column``, ``tp.row``)."""
     wg, wu, wd = (params[n].to(x.dtype) for n in ("w_gate", "w_up",
                                                   "w_down"))
     if tp is None:
@@ -100,12 +101,21 @@ def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, device,
     }
 
 
-def gelu_mlp(params, x):
+def gelu_mlp(params, x, tp=None):
     """gelu(x W_up + b_up) W_down + b_down in x's dtype; the GELU is the
-    tanh form, ``jax.nn.gelu``'s default."""
-    h = x @ params["w_up"].to(x.dtype) + params["b_up"].to(x.dtype)
-    h = F.gelu(h, approximate="tanh")
-    return h @ params["w_down"].to(x.dtype) + params["b_down"].to(x.dtype)
+    tanh form, ``jax.nn.gelu``'s default. ``tp`` (a
+    ``models.tp.TPContext``, the ft group's): ``w_up`` and ``b_up`` are
+    this rank's column blocks and ``w_down`` its row block
+    (``tp.column``, ``tp.row``); ``b_down``, whole on every rank, is
+    added once to the row product's sum."""
+    wu, wd = params["w_up"].to(x.dtype), params["w_down"].to(x.dtype)
+    if tp is None:
+        h = x @ wu
+    else:
+        h, = tp_mod.column(x, [wu], tp)
+    h = F.gelu(h + params["b_up"].to(x.dtype), approximate="tanh")
+    h = h @ wd if tp is None else tp_mod.row(h, wd, tp)
+    return h + params["b_down"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +215,9 @@ def chunked_softmax_xent(h, w_out, labels, mask=None, chunk: int = 512,
     backward (``index_put_`` with accumulation) has a deterministic
     implementation on the card.
 
-    ``tp`` (a ``models.tp.TPContext``): ``w_out`` is this rank's block of
-    V / T vocab columns, ``[t V/T, (t + 1) V/T)``, and the loss is
+    ``tp`` (a ``models.tp.TPContext``, the ft group's): ``w_out`` is
+    this rank's block of V / n vocab columns, ``[i V/n, (i + 1) V/n)``
+    for the group's n ranks, this one at i, and the loss is
     vocab-parallel (``_vocab_parallel_xent``)."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
@@ -229,8 +240,8 @@ def chunked_softmax_xent(h, w_out, labels, mask=None, chunk: int = 512,
 
 
 def _vocab_parallel_xent(h, w_out, labels, mask, chunk: int, tp):
-    """``chunked_softmax_xent`` over the tp group, each rank holding V / T
-    vocab columns of ``w_out``: per chunk the local (B, C, V/T) logits
+    """``chunked_softmax_xent`` over ``tp``'s group, each rank holding V /
+    n vocab columns of ``w_out``: per chunk the local (B, C, V/T) logits
     (``tp.column``), an ``all_reduce(MAX)`` of their detached row maxima
     m, the sums of ``exp(logits - m)`` summed over the group (*g*),
     ``lse = m + log(sum)``, and the gold logit from the rank whose

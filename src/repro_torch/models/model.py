@@ -53,7 +53,7 @@ class Model:
     def loss(self, params, batch, *, remat: bool = False,
              ep_axis: Optional[str] = None, ep_size: int = 1,
              attn_chunk: int = 1024, wkv_chunked: bool = False,
-             act_spec=None, tp=None):
+             act_spec=None, tp=None, ft=None):
         """batch: {"tokens", "labels"} (B, S) int, plus ``enc_embed`` (audio)
         or ``vision_embed`` (vlm). Returns the scalar f32 loss, ``xent +
         0.01 * aux`` (aux the MoE load-balance loss, 0 without MoE),
@@ -63,23 +63,25 @@ class Model:
         S)``, the reference's), the RWKV6 WKV ``wkv_chunked`` if
         ``wkv_chunked`` else ``wkv_scan``, Mamba2's SSD ``ssd_chunked``;
         no kernel is reached. ``ep_axis`` (expert parallelism) raises in
-        an MoE model (item 10 (b)). ``tp`` (a ``models.tp.TPContext``):
-        ``params`` are this rank's blocks of a dense or ssm model split
-        over the tp group (``transformer.forward_hidden``), the loss
-        vocab-parallel where the output projection is split; every rank
-        of the group returns the same loss."""
+        an MoE model (item 10 (b)). ``tp``, ``ft`` (``models.tp.
+        TPContext``s of the replica's tp and ft groups, ``ft`` defaulting
+        to ``tp``): ``params`` are this rank's tensor blocks
+        (``transformer.forward_hidden``), the loss vocab-parallel over
+        the ft group where the output projection is split; every rank of
+        the groups returns the same loss."""
         cfg = self.cfg
+        ft = tp if ft is None else ft
         h, aux = transformer.forward_hidden(
             params, cfg, batch["tokens"], extras=_extras(batch),
             remat=remat, ep_axis=ep_axis, ep_size=ep_size,
             attn_chunk=attn_chunk, wkv_chunked=bool(wkv_chunked),
-            act_spec=act_spec, tp=tp)
+            act_spec=act_spec, tp=tp, ft=ft)
         labels = batch["labels"]
         if cfg.family == "vlm" and "vision_embed" in batch:
             h = h[:, -labels.shape[1]:]     # loss over text positions only
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         xent = common.chunked_softmax_xent(
-            h, w, labels, tp=tp_mod.split(tp, w.shape[1], cfg.vocab))
+            h, w, labels, tp=tp_mod.split(ft, w.shape[1], cfg.vocab))
         return xent + 0.01 * aux
 
     # ---- forward ----------------------------------------------------------

@@ -3,10 +3,26 @@ group (Megatron-LM's scheme, arXiv:1909.08053); a port-only module.
 
 The reference shards a replica by annotation only (``launch.mesh``'s
 PartitionSpecs) and XLA's partitioner inserts the collectives. The port
-has no partitioner, so the dense and ssm (RWKV6) families' layers call
-them here, by hand, through a :class:`TPContext` (the tp group, its size
-T and this rank's place in it), the ``tp=`` argument of ``Model.loss``.
-Megatron's two conjugate operators, and a third:
+has no partitioner, so the layers call them here, by hand, through a
+:class:`TPContext` (a group, its size and this rank's place in it). A
+replica's F x T tensor ranks give two groups (``launch.mesh.HFLMesh``):
+the *tp group*, the T ranks at one fsdp coordinate, and the *ft group*,
+all F x T of them, rank (f, t) at place f T + t. The layers take the
+group of each leaf's spec: ``Model.loss(tp=, ft=)``, ``ft`` defaulting
+to ``tp`` (the same group at F = 1).
+
+- ``ft`` (the reference's ``("fsdp", "tp")``): the embedding and the
+  unembedding (vocab-parallel lookup and loss), the FFN's matrices
+  (SwiGLU's ``w_gate``/``w_up``/``w_down``, the GELU MLP's ``w_up``,
+  ``b_up`` and ``w_down``) and RWKV6's channel-mix ``w_k``/``w_v``
+  (taken at F = 1 only, where ft is tp).
+- ``tp`` (the reference's ``"tp"``): attention's ``wq``/``wk``/``wv``
+  and ``wo`` (and their *f* leaves ``q_norm``/``k_norm``), RWKV6's
+  time-mix and the channel-mix gate ``w_r``. Attention is replicated
+  over fsdp: ranks with the same t compute the same attention.
+
+Every other leaf is whole on every rank and every rank computes the same
+gradient for it. Megatron's two conjugate operators, and a third:
 
 - *f*: the identity forward, an ``all_reduce`` of the gradient
   backward. It goes before a column-parallel product (each rank's
@@ -39,15 +55,15 @@ Every rank gets the same bits from a gloo ``all_reduce``, so what each
 computes from its result is the same on every rank.
 
 The column blocks of ``wq``/``wk``/``wv`` are whole heads only where T
-divides both head counts (``check``): rank t holds query heads ``[t H/T,
+divides both head counts (``check``): tp rank t holds query heads ``[t H/T,
 (t + 1) H/T)`` and kv heads ``[t Hkv/T, (t + 1) Hkv/T)``, so query head h
 still reads kv head ``h // (H / Hkv)``. An RWKV6 replica has only its
 wkv heads (its ``n_kv_heads`` plays no part): rank t holds heads ``[t
 nh/T, (t + 1) nh/T)`` of r, k, v, g and the decay, and their rows of
 ``bonus_u``; the group norm is per head. A leaf whose split dimension T
 does not divide stays whole on every rank (``launch.mesh``'s guard, the
-reference's rule); ``split`` tells the layers which leaves are split
-from their shapes.
+reference's rule: whisper's vocabulary of 51,865 over F x T = 2);
+``split`` tells the layers which leaves are split from their shapes.
 """
 from __future__ import annotations
 
@@ -60,20 +76,30 @@ TP_ITEM = "ROADMAP.md, 'Modules still to port', item 10 (b)"
 
 @dataclasses.dataclass(frozen=True)
 class TPContext:
-    """The tp group of one model replica: ``size`` ranks, this one at
-    ``rank`` in it (``launch.mesh.HFLMesh.tp_context``)."""
+    """A group of one model replica's tensor ranks: ``size`` ranks, this
+    one at ``rank`` in it (``launch.mesh.HFLMesh.tp_context`` and
+    ``ft_context``)."""
     group: object = dataclasses.field(compare=False)
     size: int
     rank: int
 
 
-def check(cfg, size: int) -> None:
-    """Raise where a replica of ``cfg`` cannot be split over ``size`` tp
-    ranks: ``NotImplementedError`` outside the dense and ssm families
-    (the tensor plane of item 10 (b)), ``ValueError`` where ``size`` does
-    not divide the heads (a column block would cut a head; the
-    reference's partitioner would split inside it): the query and kv
-    heads of a dense model, the wkv heads (``n_heads``) of an ssm one."""
+def check(cfg, size: int, fsdp: int = 1) -> None:
+    """Raise where a replica of ``cfg`` cannot be split over ``fsdp`` x
+    ``size`` tensor ranks (``size`` the tp ranks T):
+    ``NotImplementedError`` for fsdp above 1 outside the dense and audio
+    families and for T above 1 outside the dense and ssm families (the
+    tensor plane of item 10 (b)), ``ValueError`` where T does not divide
+    the heads (a column block would cut a head; the reference's
+    partitioner would split inside it): the query and kv heads of a
+    dense model, the wkv heads (``n_heads``) of an ssm one. The FFN and
+    the vocabulary need no check: the guard keeps a dimension F x T does
+    not divide whole."""
+    if fsdp > 1 and cfg.family not in ("dense", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: fsdp={fsdp} of the {cfg.family!r} family is the "
+            f"tensor plane of {TP_ITEM}; only the dense and audio families "
+            f"split over fsdp")
     if size == 1:
         return
     if cfg.family not in ("dense", "ssm"):
@@ -102,8 +128,8 @@ def split(ctx, local: int, whole: int):
 
 
 def _all_reduce(x, ctx, op=None):
-    """A contiguous copy of ``x`` summed (or reduced by ``op``) over the
-    tp group."""
+    """A contiguous copy of ``x`` summed (or reduced by ``op``) over
+    ``ctx``'s group."""
     import torch.distributed as dist
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=dist.ReduceOp.SUM if op is None else op,
@@ -251,7 +277,7 @@ def row(x, w, ctx):
 
 
 def copy_to(x, ctx):
-    """*f*: ``x`` forward, the gradient summed over the tp group
+    """*f*: ``x`` forward, the gradient summed over ``ctx``'s group
     backward."""
     return _CopyTo.apply(x, ctx)
 
@@ -265,12 +291,12 @@ def gather(x, ctx):
 
 
 def reduce_from(x, ctx):
-    """*g*: ``x`` summed over the tp group forward, the gradient as it
-    is backward."""
+    """*g*: ``x`` summed over ``ctx``'s group forward, the gradient as
+    it is backward."""
     return _ReduceFrom.apply(x, ctx)
 
 
 def all_max(x, ctx):
-    """``x`` (no gradient) reduced by max over the tp group."""
+    """``x`` (no gradient) reduced by max over ``ctx``'s group."""
     import torch.distributed as dist
     return _all_reduce(x.detach(), ctx, dist.ReduceOp.MAX)

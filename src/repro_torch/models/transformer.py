@@ -184,25 +184,33 @@ def init_params(gen: torch.Generator, cfg, device) -> dict[str, Any]:
     return params
 
 
-def ffn(bp, cfg, h, *, ep_axis=None, ep_size=1, tp=None):
+def ffn(bp, cfg, h, *, ep_axis=None, ep_size=1, ft=None):
     """The block's FFN: (out, aux), aux the MoE load-balance loss or None
-    for a SwiGLU block. ``tp``: the SwiGLU's column and row blocks where
-    its ``w_gate`` is split (``models.tp.split``)."""
+    for a SwiGLU block. ``ft`` (the ft group's context): the SwiGLU's
+    column and row blocks where its ``w_gate`` is split
+    (``models.tp.split``)."""
     if cfg.moe is not None:
         return moe.moe_ffn(bp["moe"], cfg, h, ep_axis=ep_axis,
                            ep_size=ep_size)
     mlp = bp["mlp"]
     return common.swiglu(mlp, h, tp_mod.split(
-        tp, mlp["w_gate"].shape[-1], cfg.d_ff)), None
+        ft, mlp["w_gate"].shape[-1], cfg.d_ff)), None
+
+
+def _gelu_mlp(mlp, cfg, h, ft):
+    """The whisper blocks' GELU MLP, over the ft group where its ``w_up``
+    is split."""
+    return common.gelu_mlp(mlp, h, tp_mod.split(ft, mlp["w_up"].shape[-1],
+                                                cfg.d_ff))
 
 
 def _dense_block_fwd(bp, cfg, x, *, window=0, mpos=None, chunk=None,
-                     ep_axis=None, ep_size=1, tp=None):
+                     ep_axis=None, ep_size=1, tp=None, ft=None):
     h = common.rms_norm(x, bp["ln1"])
     x = x + attention.self_attention(bp["attn"], cfg, h, window=window,
                                      mpos=mpos, chunk=chunk, tp=tp)
     h, aux = ffn(bp, cfg, common.rms_norm(x, bp["ln2"]), ep_axis=ep_axis,
-                 ep_size=ep_size, tp=tp)
+                 ep_size=ep_size, ft=ft)
     return x + h, aux
 
 
@@ -231,19 +239,20 @@ def _whisper_chunk(attn_chunk, s: int):
     return None if attn_chunk is None else min(1024, s)
 
 
-def _whisper_enc_block_fwd(bp, cfg, x, *, attn_chunk=None):
+def _whisper_enc_block_fwd(bp, cfg, x, *, attn_chunk=None, ft=None):
     h = common.layer_norm(x, bp["ln1_w"], bp["ln1_b"])
     x = x + attention.self_attention(
         bp["attn"], cfg, h, causal=False,
         chunk=_whisper_chunk(attn_chunk, x.shape[1]))
     h = common.layer_norm(x, bp["ln2_w"], bp["ln2_b"])
-    return x + common.gelu_mlp(bp["mlp"], h), None
+    return x + _gelu_mlp(bp["mlp"], cfg, h, ft), None
 
 
-def _whisper_dec_block_fwd(bp, cfg, x, enc, *, attn_chunk=None):
+def _whisper_dec_block_fwd(bp, cfg, x, enc, *, attn_chunk=None, ft=None):
     """One decoder block over the whole sequence; ``enc`` is the
     encoder's output, projected here into the layer's cross k/v (inside
-    the checkpointed body under ``remat``, as in the reference)."""
+    the checkpointed body under ``remat``, as in the reference). ``ft``:
+    the MLP over the ft group (attention is whole: audio takes no tp)."""
     enc_kv = attention.encode_cross_kv(bp["cross_attn"], cfg, enc)
     h = common.layer_norm(x, bp["ln1_w"], bp["ln1_b"])
     x = x + attention.self_attention(
@@ -254,19 +263,21 @@ def _whisper_dec_block_fwd(bp, cfg, x, enc, *, attn_chunk=None):
         bp["cross_attn"], cfg, h, enc_kv,
         chunk=_whisper_chunk(attn_chunk, enc.shape[1]))
     h = common.layer_norm(x, bp["ln3_w"], bp["ln3_b"])
-    return x + common.gelu_mlp(bp["mlp"], h), None
+    return x + _gelu_mlp(bp["mlp"], cfg, h, ft), None
 
 
-def encode(params, cfg, enc_embed, *, remat: bool = False, attn_chunk=None):
+def encode(params, cfg, enc_embed, *, remat: bool = False, attn_chunk=None,
+           ft=None):
     """The whisper encoder: the stub frame embeddings (B, Senc, d) cast to
     ``cfg.adtype`` plus the sinusoidal positions (cast before the add),
     the encoder blocks (non-causal self-attention), then its layer norm;
-    returns (B, Senc, d) in ``cfg.adtype``."""
+    returns (B, Senc, d) in ``cfg.adtype``. ``ft``: the blocks' MLPs over
+    the ft group."""
     enc = enc_embed.to(cfg.adtype)
     enc = enc + common.sinusoidal_positions(
         enc.shape[1], cfg.d_model, enc.device).to(cfg.adtype)
     body = functools.partial(_whisper_enc_block_fwd, cfg=cfg,
-                             attn_chunk=attn_chunk)
+                             attn_chunk=attn_chunk, ft=ft)
     for lp in unstack_layers(params["enc_layers"]):
         enc, _ = (checkpoint(body, lp, x=enc, use_reentrant=False) if remat
                   else body(lp, x=enc))
@@ -292,13 +303,13 @@ def mrope_grid(n_vis: int) -> int:
     return int(n_vis ** 0.5) or 1
 
 
-def embed_inputs(params, cfg, tokens, extras=None, tp=None):
+def embed_inputs(params, cfg, tokens, extras=None, ft=None):
     """(B, S) tokens -> (x (B, S', d) in ``cfg.adtype``, mpos): for a
     ``vlm`` with ``vision_embed`` in ``extras`` the projected vision
     embeddings come first (S' = n_vis + S) and ``mpos`` holds their
-    M-RoPE streams; otherwise S' = S and mpos is None. ``tp``:
-    ``embed``'s lookup (``embed``)."""
-    x = embed(params, cfg, tokens, tp)
+    M-RoPE streams; otherwise S' = S and mpos is None. ``ft``:
+    ``embed``'s lookup over the ft group (``embed``)."""
+    x = embed(params, cfg, tokens, ft)
     vis = (extras or {}).get("vision_embed")
     if cfg.family != "vlm" or vis is None:
         return x, None
@@ -319,10 +330,10 @@ def groups(cfg) -> list:
 def embed(params, cfg, tokens, tp=None):
     """(B, S) int tokens -> (B, S, d) activations in ``cfg.adtype``.
 
-    ``tp`` with ``embed`` split by vocab rows (rank t holds rows ``[t
-    V/T, (t + 1) V/T)``): a vocab-parallel lookup, the rank's rows for
-    the ids in its range and zero rows for the others, summed over the
-    group (*g*)."""
+    ``tp`` (the ft group's context) with ``embed`` split by vocab rows
+    (the group's rank i of n holds rows ``[i V/n, (i + 1) V/n)``): a
+    vocab-parallel lookup, the rank's rows for the ids in its range and
+    zero rows for the others, summed over the group (*g*)."""
     table = params["embed"]
     tp = tp_mod.split(tp, table.shape[0], cfg.vocab)
     if tp is None:
@@ -349,7 +360,7 @@ def unstack_layers(layers: dict) -> list:
 def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
                    remat: bool = False, ep_axis=None, ep_size: int = 1,
                    attn_chunk=None, wkv_chunked=None, act_spec=None,
-                   tp=None):
+                   tp=None, ft=None):
     """Embeds ``tokens`` and runs the stack. Returns (hidden (B, S, d),
     aux_loss): the layers' MoE load-balance losses summed in f32 (a zero
     f32 scalar without MoE). ``extras``: ``enc_embed`` (audio, required)
@@ -367,28 +378,33 @@ def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
     reference's activation sharding constraint, the identity on one
     device; only None is accepted.
 
-    ``tp`` (a ``models.tp.TPContext``): ``params`` are this rank's blocks
-    of a dense or ssm model split over the tp group (``launch.mesh``),
-    and the layers run Megatron's tensor parallelism (``models.tp``;
-    RWKV6: ``models.rwkv``): the same hidden states on every rank. Other
-    families raise ``NotImplementedError`` (item 10 (b)); head counts T
-    does not divide raise ``ValueError`` (``tp.check``)."""
+    ``tp`` and ``ft`` (``models.tp.TPContext``s of a replica's tp and ft
+    groups; ``ft`` defaults to ``tp``, the same group at F = 1):
+    ``params`` are this rank's tensor blocks (``launch.mesh``) and the
+    layers run Megatron's tensor parallelism (``models.tp``; RWKV6:
+    ``models.rwkv``), the embedding and the FFN over ``ft``, attention
+    over ``tp``: the same hidden states on every rank. A family the
+    groups' sizes do not take raises ``NotImplementedError`` (item 10
+    (b)); head counts T does not divide raise ``ValueError``
+    (``tp.check``)."""
     if act_spec is not None:
         raise NotImplementedError(
             "act_spec (activations sharded over the fsdp x tp axes) is the "
             "tensor plane of ROADMAP.md, 'Modules still to port', item "
             "10 (b)")
     check_family(cfg)
-    if tp is not None:
-        tp_mod.check(cfg, tp.size)
-    x, mpos = embed_inputs(params, cfg, tokens, extras, tp)
+    ft = tp if ft is None else ft
+    if ft is not None:
+        t = 1 if tp is None else tp.size
+        tp_mod.check(cfg, t, ft.size // t)
+    x, mpos = embed_inputs(params, cfg, tokens, extras, ft)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "audio":
         enc = encode(params, cfg, extras["enc_embed"], remat=remat,
-                     attn_chunk=attn_chunk)
+                     attn_chunk=attn_chunk, ft=ft)
         x = x + params["dec_pos"][:x.shape[1]].to(cfg.adtype)
         body = functools.partial(_whisper_dec_block_fwd, cfg=cfg,
-                                 attn_chunk=attn_chunk)
+                                 attn_chunk=attn_chunk, ft=ft)
         for lp in unstack_layers(params["layers"]):
             x, _ = (checkpoint(body, lp, x=x, enc=enc, use_reentrant=False)
                     if remat else body(lp, x=x, enc=enc))
@@ -404,7 +420,8 @@ def forward_hidden(params, cfg, tokens, *, extras=None, window: int = 0,
     else:
         body = functools.partial(_dense_block_fwd, cfg=cfg, window=window,
                                  mpos=mpos, chunk=attn_chunk,
-                                 ep_axis=ep_axis, ep_size=ep_size, tp=tp)
+                                 ep_axis=ep_axis, ep_size=ep_size, tp=tp,
+                                 ft=ft)
     for lp in unstack_layers(_tp_replicated(params["layers"], cfg, tp)):
         if remat:
             x, aux = checkpoint(body, lp, x=x, use_reentrant=False)
@@ -426,8 +443,10 @@ def _tp_replicated(layers: dict, cfg, tp) -> dict:
     """``layers`` with the stacked replicated leaves that each rank
     applies to its own heads or channels only (``_TP_SLICED``: a dense
     model's ``q_norm``/``k_norm``, RWKV6's group-norm and decay leaves)
-    through *f* under ``tp``: their gradients are summed over the group
-    (one ``all_reduce`` per stack), which keeps them bitwise equal."""
+    through *f* under ``tp``: their gradients are summed over the tp
+    group (one ``all_reduce`` per stack), which keeps them bitwise
+    equal. Ranks of one tp coordinate and other fsdp coordinates hold
+    the same heads and compute the same gradients."""
     if tp is None or (cfg.family == "dense" and not cfg.qk_norm):
         return layers
     sub, names = _TP_SLICED[cfg.family]

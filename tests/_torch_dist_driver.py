@@ -74,6 +74,22 @@ TP_REPLICATED = ("final_norm", "layers/ln1", "layers/ln2",
 RWKV_ARCH = "rwkv6-1.6b"
 RWKV_TP = {2: 2, 4: 4}
 WKV_ROUTES = {"chunked": True, "scan": False}
+# the fsdp axis: each replica over FSDP fsdp x FSDP_TP[world] tp ranks
+# (world 2: (1, 1, 2, 1), world 4: (1, 1, 2, 2)), the replicas of the
+# placement case on every rank; the train step at F = 2, T = 1 over rank
+# grid FSDP_GRIDS[world] (world 4: Eq. 1 and Eq. 2 cross ranks at each
+# tensor coordinate); the loss cases of each world: (arch, fsdp, tp,
+# vocab), whisper's vocab 515 (odd) kept whole by the guard
+FSDP = 2
+FSDP_TP = {2: 1, 4: 2}
+FSDP_PLACE_REPS = (1, 1, 2)
+FSDP_GRIDS = {2: (1, 1, 1), 4: (1, 1, 2)}
+AUDIO_ARCH = "whisper-base"
+FSDP_LOSSES = {2: [(TRAIN_ARCH, 2, 1, None), (AUDIO_ARCH, 2, 1, None),
+                   (AUDIO_ARCH, 2, 1, 515)],
+               4: [(TRAIN_ARCH, 2, 2, None), (AUDIO_ARCH, 4, 1, None)]}
+# families fsdp above 1 still refuses (item 10 (b))
+FSDP_REFUSED = (RWKV_ARCH, "zamba2-7b", "qwen2-vl-7b", "olmoe-1b-7b")
 
 
 # ---------------------------------------------------------------------------
@@ -191,18 +207,26 @@ def edge_round_inputs():
     return bank, x, y, sizes, seg, gvec
 
 
-def tp_config(pkg, arch=TRAIN_ARCH):
-    """Reduced ``arch`` with f32 activations, for either package's
-    ``configs``: qwen3 (4 heads, 2 kv heads, d_ff 512, vocab 512) or
-    rwkv6 (4 wkv heads, d_ff 512, vocab 512)."""
+def tp_config(pkg, arch=TRAIN_ARCH, vocab=None):
+    """Reduced ``arch`` with f32 activations (and ``vocab``, if given),
+    for either package's ``configs``: qwen3 (4 heads, 2 kv heads, d_ff
+    512, vocab 512), rwkv6 (4 wkv heads, d_ff 512, vocab 512) or
+    whisper-base (2 + 2 layers, d_ff 512, vocab 512, enc_seq 32)."""
+    kw = {} if vocab is None else {"vocab": vocab}
     return dataclasses.replace(pkg.get_config(arch).reduce(),
-                               activ_dtype="float32")
+                               activ_dtype="float32", **kw)
 
 
-def tp_loss_batch(vocab: int) -> dict:
-    """The loss case's batch: 2 sequences of 32 tokens (seed 5), numpy."""
-    return {k: v.numpy() for k, v in token_batch(5, 2, 32, vocab,
-                                                 device="cpu").items()}
+def tp_loss_batch(cfg) -> dict:
+    """The loss case's batch: 2 sequences of 32 tokens (seed 5) and, for
+    an audio model, ``enc_embed`` (2, enc_seq, d) normal from
+    ``default_rng(6)``, numpy."""
+    out = {k: v.numpy() for k, v in token_batch(5, 2, 32, cfg.vocab,
+                                                device="cpu").items()}
+    if cfg.family == "audio":
+        out["enc_embed"] = np.random.default_rng(6).normal(
+            size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def resync_inputs():
@@ -841,12 +865,16 @@ def _tp_mesh(world, reps=TRAIN_REPS):
 
 
 def _tp_placement(world, cfg, params: dict) -> dict:
-    """``shardings``, ``place_params``, ``tp_blocks``, ``gather_params``
-    and ``gather_replica`` at tp = 2 over this world (rank grid
-    ``TP_GRIDS``) of ``cfg``'s flat numpy ``params``, replica r scaled by
-    r + 1, lifted to replicas ``TP_PLACE_REPS``."""
+    """``_placement`` at tp = 2 over this world (rank grid
+    ``TP_GRIDS``), replicas ``TP_PLACE_REPS``."""
     reps = TP_PLACE_REPS[world]
-    hm = _tp_mesh(world, reps)
+    return _placement(_tp_mesh(world, reps), reps, cfg, params)
+
+
+def _placement(hm, reps, cfg, params: dict) -> dict:
+    """``shardings``, ``place_params``, ``tp_blocks``, ``gather_params``
+    and ``gather_replica`` on ``hm`` of ``cfg``'s flat numpy ``params``,
+    replica r scaled by r + 1, lifted to replicas ``reps``."""
     specs = mesh_lib.hfl_param_specs(cfg, train._meta_params(cfg), hm)
     one = weights.tree_from_numpy(_nest(params), "cpu")
     whole = train._map(lambda a: torch.stack([a * (r + 1) for r in range(
@@ -858,7 +886,9 @@ def _tp_placement(world, cfg, params: dict) -> dict:
                      "coords": hm.coords, "tp_rank": hm.tp_rank,
                      "block": hm.block, "groups": (
                          hm.tp_group is not None, hm.fl_group is not None,
-                         hm.replica_group is not None)},
+                         hm.replica_group is not None),
+                     "fsdp_rank": hm.fsdp_rank,
+                     "ft_group": hm.ft_group is not None},
             "place": _np(_flat(placed)),
             "shardings": _flat(mesh_lib.shardings(hm, specs, whole)),
             "gather": all(torch.equal(a, b) for a, b in zip(
@@ -876,21 +906,20 @@ def _tp_loss(cfg, params: dict, hm, **kw) -> dict:
     ``params`` on ``tp_loss_batch`` and each leaf's gradient block."""
     leaves = {k: v.requires_grad_(True) for k, v in _flat(mesh_lib.tp_blocks(
         weights.tree_from_numpy(_nest(params), "cpu"), hm)).items()}
-    batch = {k: torch.from_numpy(v) for k, v in tp_loss_batch(
-        cfg.vocab).items()}
+    batch = {k: torch.from_numpy(v) for k, v in tp_loss_batch(cfg).items()}
     with torch.enable_grad():
         loss = build_model(cfg).loss(_nest(leaves), batch, tp=hm.tp_context,
-                                     **kw)
+                                     ft=hm.ft_context, **kw)
         grads = torch.autograd.grad(loss, list(leaves.values()))
     return {"loss": float(loss.detach()),
             "grads": {k: _np(g) for k, g in zip(leaves, grads)}}
 
 
-def _whole_leaves(specs) -> list:
-    """The paths of the leaves no spec of ``specs`` splits over "tp"."""
-    return [k for k, spec in _flat(specs).items() if not any(
-        e is not None and "tp" in (e if isinstance(e, tuple) else (e,))
-        for e in spec)]
+def _whole_leaves(specs, hm) -> list:
+    """The paths of the leaves no spec of ``specs`` splits over more
+    than one of ``hm``'s tensor ranks."""
+    return [k for k, spec in _flat(specs).items()
+            if mesh_lib.tensor_cut(spec, hm) is None]
 
 
 def _tp_round(cfg, hm, p0, kw, det, args=(), replicated=None) -> dict:
@@ -911,7 +940,7 @@ def _tp_round(cfg, hm, p0, kw, det, args=(), replicated=None) -> dict:
     res = {"launches": launches, "block": hm.block, "coords": hm.coords,
            "tp_rank": hm.tp_rank,
            "replicated": {k: _np(flat[k]) for k in (
-               replicated or _whole_leaves(specs))},
+               replicated or _whole_leaves(specs, hm))},
            "replicas_equal": all(
                torch.equal(r, a[0, 0, 0]) for a in whole.values()
                for r in a.reshape((4,) + a.shape[3:]))}
@@ -930,7 +959,8 @@ def case_tp(world, inp):
     static deterministic twice, dynamic deterministic, rank 0 returning
     replica (0, 0, 0) gathered whole, every rank its launches (the
     wrappers' calls) and (d) its replicated leaves; (e) the refusals,
-    and reduced rwkv6 (2 kv heads, 4 wkv heads) taken at tp = 4."""
+    and reduced rwkv6 (2 kv heads, 4 wkv heads) taken at tp = 4 (fsdp
+    of 2 x world ranks in this world: ``ValueError``)."""
     # (a)
     cfg = tp_config(configs)
     out = _tp_placement(world, cfg, inp["tp_params"][TRAIN_ARCH])
@@ -954,8 +984,8 @@ def case_tp(world, inp):
     # (e)
     hybrid = tp_config(configs, "zamba2-7b")
     out["errors"] = {
-        "fsdp": _raises(NotImplementedError, lambda: mesh_lib.make_hfl_mesh(
-            TRAIN_REPS, fsdp=2, device="cpu")),
+        "fsdp": _raises(ValueError, lambda: mesh_lib.make_hfl_mesh(
+            TRAIN_REPS, fsdp=2 * world, device="cpu")),
         "family": _raises(NotImplementedError, lambda: (
             train.make_hfl_train_step(hybrid, hm)))}
     if world == 4:
@@ -1006,8 +1036,7 @@ def _tp_guarded(cfg, hm) -> dict:
     cfg = dataclasses.replace(cfg, d_ff=511)
     model = build_model(cfg)
     p0 = _flat(model.init(torch.Generator().manual_seed(0), "cpu"))
-    batch = {k: torch.from_numpy(v) for k, v in tp_loss_batch(
-        cfg.vocab).items()}
+    batch = {k: torch.from_numpy(v) for k, v in tp_loss_batch(cfg).items()}
     res = {}
     for label, tp in (("one", None), ("tp", hm.tp_context)):
         leaves = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
@@ -1053,6 +1082,60 @@ def case_tp_gather(world, inp):
     return out
 
 
+def _fsdp_key(arch: str, vocab=None) -> str:
+    """The key of ``inp["tp_params"]`` for ``tp_config(arch, vocab)``."""
+    return arch if vocab is None else f"{arch}/{vocab}"
+
+
+def case_fsdp(world, inp):
+    """The fsdp axis over this world: (a) ``_placement`` of reduced
+    qwen3's and whisper-base's numpy parameters at (1, 1, 2, T), T =
+    ``FSDP_TP[world]``, replicas ``FSDP_PLACE_REPS`` on every rank; (b)
+    ``Model.loss(tp=, ft=)`` and each rank's gradient blocks of every
+    case of ``FSDP_LOSSES[world]`` on ``tp_loss_batch`` (replicas (1, 1,
+    1)); (c) the reduced qwen3 static train step (``case_train``'s f32
+    settings and start) on replicas (1, 2, 2) at F = 2, T = 1 over rank
+    grid ``FSDP_GRIDS[world]``, its launches (the wrappers' calls) and
+    the leaves no spec splits; (d) ``derive_bank_mesh`` of that mesh
+    (tensor coordinates (0, 0), ``ValueError`` elsewhere) and the
+    refusals: every family of ``FSDP_REFUSED`` at F = 2 and, at world 4,
+    audio at T = 2 (``NotImplementedError``)."""
+    tp = FSDP_TP[world]
+    hm = mesh_lib.make_hfl_mesh((1, 1, 1), fsdp=FSDP, tp=tp, device="cpu")
+    place = mesh_lib.make_hfl_mesh(FSDP_PLACE_REPS, fsdp=FSDP, tp=tp,
+                                   device="cpu")
+    out = {"place": {arch: _placement(place, FSDP_PLACE_REPS, tp_config(
+        configs, arch), inp["tp_params"][arch])
+        for arch in (TRAIN_ARCH, AUDIO_ARCH)}, "loss": {}}
+    for arch, f, t, vocab in FSDP_LOSSES[world]:
+        cfg = tp_config(configs, arch, vocab)
+        lm = hm if (f, t) == (FSDP, tp) else mesh_lib.make_hfl_mesh(
+            (1, 1, 1), fsdp=f, tp=t, device="cpu")
+        out["loss"][(arch, vocab)] = _tp_loss(
+            cfg, inp["tp_params"][_fsdp_key(arch, vocab)], lm, attn_chunk=16)
+    cfg = tref.config(TRAIN_ARCH, "float32", configs)
+    tm = mesh_lib.make_hfl_mesh(TRAIN_REPS, ranks=FSDP_GRIDS[world],
+                                fsdp=FSDP, device="cpu")
+    p0 = mesh_lib.tp_blocks(weights.tree_from_numpy(
+        _nest(inp["train_init"]), "cpu"), tm)
+    kw = dict(tref.STEP, mb_per_epoch=tref.MB_PER_EPOCH[TRAIN_ARCH],
+              **tref.STATIC)
+    out["round"] = _tp_round(cfg, tm, p0, kw, False)
+    out["round"]["fsdp_rank"] = tm.fsdp_rank
+    try:
+        bm = mesh_lib.derive_bank_mesh(tm)
+        out["bank"] = (bm.shape, bm.rank)
+    except ValueError:
+        out["bank"] = None
+    out["errors"] = {arch: _raises(NotImplementedError, lambda: (
+        train.make_hfl_train_step(tp_config(configs, arch), hm)))
+        for arch in FSDP_REFUSED}
+    if world == 4:
+        out["errors"]["audio_tp"] = _raises(NotImplementedError, lambda: (
+            train.make_hfl_train_step(tp_config(configs, AUDIO_ARCH), hm)))
+    return out
+
+
 def case_mesh(world, inp):
     """The mesh functions in this world: ``derive_hfl_mesh`` over the
     world's devices, ``rank_grid``, ``derive_bank_mesh``, ``shardings``
@@ -1074,13 +1157,15 @@ def case_mesh(world, inp):
                                                       (3, 1, 1, 1))),
         _raises(ValueError, lambda: m.make_hfl_mesh(TRAIN_REPS,
                                                     ranks=(1, 1, 4))),
-        _raises(NotImplementedError, lambda: m.make_hfl_mesh(
-            TRAIN_REPS, fsdp=2, device="cpu")))
+        _raises(ValueError, lambda: m.make_hfl_mesh(
+            TRAIN_REPS, fsdp=2 * world, device="cpu")))
     if world > 1:
         out["derived"] = m.derive_hfl_mesh(["cpu"] * world,
                                            (world, 1, 1, 1)).shape
         out["derive_tp"] = m.derive_hfl_mesh(["cpu"] * world,
                                              (1, 1, 1, world)).shape
+        out["derive_fsdp"] = m.derive_hfl_mesh(["cpu"] * world,
+                                               (1, 1, 2, world // 2)).shape
     full = {"a": {"w": torch.arange(4 * 6, dtype=torch.float32).reshape(
         1, 2, 2, 6)}, "b": torch.arange(4.0).reshape(1, 2, 2)}
     mine = m.place_params(full, hm)
@@ -1123,7 +1208,8 @@ CASES = [("context", (1,), case_context),
          ("mesh", (1, 2, 4), case_mesh),
          ("tp", (2, 4), case_tp),
          ("tp_rwkv", (2, 4), case_tp_rwkv),
-         ("tp_gather", (2, 4), case_tp_gather)]
+         ("tp_gather", (2, 4), case_tp_gather),
+         ("fsdp", (2, 4), case_fsdp)]
 
 
 def card_aggregation(rank: int, world: int, port: int, outdir: str) -> None:
@@ -1288,21 +1374,23 @@ def card_train(rank: int, world: int, port: int, outdir: str) -> None:
         dist.destroy_process_group()
 
 
-def card_tp_train(rank: int, world: int, port: int, outdir: str) -> None:
+def card_tp_train(rank: int, world: int, port: int, outdir: str,
+                  fsdp: int = 1) -> None:
     """One rank of a gloo group on the card (a spawn target of
     ``tests/test_torch_cuda.py``): the reduced static (2, 2) round
     (``card_train_setup``) on replicas (1, 2, 2), each replica over
-    ``world`` tp ranks: twice on the card in deterministic mode, the
-    launch counts set to 0 just before the first, then once on the CPU
-    from the same weights; writes replica (0, 0, 0) of each, gathered
-    whole (on the CPU), the replicated leaves and the launches to
-    ``outdir/rank<r>.pt``."""
+    ``world`` tensor ranks, ``fsdp`` x ``world / fsdp`` tp: twice on the
+    card in deterministic mode, the launch counts set to 0 just before
+    the first, then once on the CPU from the same weights; writes
+    replica (0, 0, 0) of each, gathered whole (on the CPU), the leaves
+    no spec splits and the launches to ``outdir/rank<r>.pt``."""
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
         out = {"rounds": [], "replicated": []}
         for dev in ("cuda", "cuda", "cpu"):
-            hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, tp=world, device=dev)
+            hm = mesh_lib.make_hfl_mesh(TRAIN_REPS, fsdp=fsdp,
+                                        tp=world // fsdp, device=dev)
             cfg, p0, batch, kw = card_train_setup(torch.device("cuda"))
             step, specs, _ = train.make_hfl_train_step(cfg, hm, **kw)
             params = train.lift_params(mesh_lib.tp_blocks(p0, hm),
@@ -1322,7 +1410,7 @@ def card_tp_train(rank: int, world: int, port: int, outdir: str) -> None:
             out["rounds"].append({k: a[0, 0, 0].cpu()
                                   for k, a in whole.items()})
             out["replicated"].append({k: flat[k].cpu()
-                                      for k in TP_REPLICATED})
+                                      for k in _whole_leaves(specs, hm)})
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -1345,7 +1433,7 @@ def card_tp_rwkv(rank: int, world: int, port: int, outdir: str) -> None:
         p0 = _flat(model.init(torch.Generator(device=hm.device).manual_seed(
             0), hm.device))
         batch = {k: torch.from_numpy(v).to(hm.device)
-                 for k, v in tp_loss_batch(cfg.vocab).items()}
+                 for k, v in tp_loss_batch(cfg).items()}
         out = {"device": str(hm.device)}
         for route, chunked in WKV_ROUTES.items():
             res = {}
@@ -1367,6 +1455,50 @@ def card_tp_rwkv(rank: int, world: int, port: int, outdir: str) -> None:
                               "grads": {k: g.cpu() for k, g in
                                         grads.items()}}
             out[route] = res
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def card_fsdp_loss(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of a gloo group on the card (a spawn target of
+    ``tests/test_torch_cuda.py``): reduced whisper-base (``tp_config``,
+    f32 activations; vocab 512, split, and 515, whole) from seed-0
+    weights drawn on the card, split over ``world`` fsdp ranks (T = 1,
+    replicas (1, 1, 1)): ``Model.loss(ft=)`` and this rank's gradient
+    blocks on ``tp_loss_batch``, beside the one-device loss and the same
+    blocks of its gradients, all on the card; writes them (on the CPU)
+    to ``outdir/rank<r>.pt``."""
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        hm = mesh_lib.make_hfl_mesh((1, 1, 1), fsdp=world)
+        out = {"device": str(hm.device)}
+        for vocab in (None, 515):
+            cfg = tp_config(configs, AUDIO_ARCH, vocab)
+            model = build_model(cfg)
+            p0 = _flat(model.init(torch.Generator(
+                device=hm.device).manual_seed(0), hm.device))
+            batch = {k: torch.from_numpy(v).to(hm.device)
+                     for k, v in tp_loss_batch(cfg).items()}
+            res = {}
+            for label, ft in (("one", None), ("ft", hm.ft_context)):
+                leaves = {k: v.detach().clone().requires_grad_(True)
+                          for k, v in p0.items()}
+                if ft is not None:
+                    leaves = {k: v.detach().requires_grad_(True)
+                              for k, v in _flat(mesh_lib.tp_blocks(
+                                  _nest(leaves), hm)).items()}
+                with torch.enable_grad():
+                    loss = model.loss(_nest(leaves), batch, ft=ft)
+                    grads = torch.autograd.grad(loss, list(leaves.values()))
+                grads = dict(zip(leaves, grads))
+                if ft is None:      # this rank's blocks of the whole grads
+                    grads = _flat(mesh_lib.tp_blocks(_nest(grads), hm))
+                res[label] = {"loss": float(loss.detach()),
+                              "grads": {k: g.cpu() for k, g in
+                                        grads.items()}}
+            out[vocab] = res
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -4,7 +4,9 @@ mesh needs them): every case of ``CASES`` through
 ``repro.launch.train.make_hfl_train_step`` under ``jax.jit``, writing
 replica (0, 0, 0)'s parameters and the bitwise equality of the four
 replicas to ``<outdir>/<case>.npz``, and the initial parameters to
-``<outdir>/init-<arch>-<act>.npz``.
+``<outdir>/init-<arch>-<act>.npz``. A whisper or qwen2-vl batch carries
+its stub front end's input (``extras``), which the step slices into
+each replica's minibatches as it slices the tokens.
 
     python tests/_torch_train_ref.py <outdir> [case ...]
 
@@ -28,6 +30,11 @@ CASES = [("qwen3-f32-static", "qwen3-1.7b", "float32", False, False, None),
           None),
          ("rwkv6-f32-dynamic", "rwkv6-1.6b", "float32", True, False, None),
          ("rwkv6-bf16-dynamic", "rwkv6-1.6b", "bfloat16", True, False,
+          None),
+         # the stub front ends' inputs ride in the batch (``extras``)
+         ("whisper-f32-static", "whisper-base", "float32", False, False,
+          None),
+         ("qwen2vl-f32-static", "qwen2-vl-7b", "float32", False, False,
           None)]
 # the step's settings, shared with the test: the reference main's lr, seq
 # 32 in KV chunks of 16 (two chunks per attention), 2 sequences per
@@ -46,7 +53,8 @@ CASES = [("qwen3-f32-static", "qwen3-1.7b", "float32", False, False, None),
 # one (at most 2 steps per replica) is held at 5e-3
 VOCAB, SEQ, BATCH = 128, 32, 8
 STEP = dict(lr=3e-3, remat=False, attn_chunk=16)
-MB_PER_EPOCH = {"qwen3-1.7b": 2, "rwkv6-1.6b": 1}
+MB_PER_EPOCH = {"qwen3-1.7b": 2, "rwkv6-1.6b": 1, "whisper-base": 2,
+                "qwen2-vl-7b": 2}
 STATIC = dict(g1=2, g2=2)
 DYNAMIC = dict(max_g1=3, max_g2=3)
 G1E, G2E = np.array([1, 2]), np.array([2, 1])     # per edge, dynamic cases
@@ -57,6 +65,21 @@ def config(arch: str, act: str, pkg):
     vocab ``VOCAB`` (``pkg``: either package's ``configs``)."""
     return dataclasses.replace(pkg.get_config(arch).reduce(),
                                activ_dtype=act, vocab=VOCAB)
+
+
+def extras(cfg) -> dict:
+    """The batch's stub front-end input of ``cfg`` (either package's
+    config), numpy f32 normal from ``default_rng(1)``: whisper's
+    ``enc_embed`` (BATCH, enc_seq, d), qwen2-vl's ``vision_embed``
+    (BATCH, vision_tokens, d); {} for the other families."""
+    key, n = {"audio": ("enc_embed", cfg.enc_seq),
+              "vlm": ("vision_embed", cfg.vision_tokens)}.get(
+                  cfg.family, (None, 0))
+    if key is None:
+        return {}
+    rng = np.random.default_rng(1)
+    return {key: rng.normal(size=(BATCH, n, cfg.d_model)).astype(
+        np.float32)}
 
 
 def _flat(tree, prefix=""):
@@ -99,6 +122,7 @@ def main(outdir: str, only=()) -> None:
         step, _, _ = train.make_hfl_train_step(cfg, mesh, **kw)
         params = train.lift_params(p0, 1, 2, 2)
         batch = token_batch(0, BATCH, SEQ, cfg.vocab)
+        batch.update({k: jnp.asarray(v) for k, v in extras(cfg).items()})
         args = (jnp.asarray(G1E, jnp.int32), jnp.asarray(G2E, jnp.int32)) \
             if dynamic else ()
         out = jax.jit(step)(params, batch, *args)

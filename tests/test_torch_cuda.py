@@ -1129,6 +1129,62 @@ def test_tp_train_step_on_card(cuda_dev, tmp_path):
                        for k, v in r["replicated"][i].items())
 
 
+def test_fsdp_train_step_on_card(cuda_dev, tmp_path):
+    """The fsdp axis on the card: the reduced qwen3 (2, 2) round (f32
+    activations, vocab 128) on replicas (1, 2, 2), each replica over F =
+    2 fsdp gloo ranks (T = 1) spawned on the one card, in deterministic
+    mode: bitwise run to run, replica (0, 0, 0) gathered whole within
+    1e-4 of the same round's on the CPU (the plain versions), the leaves
+    no spec splits (attention, the norms) bitwise equal across the two
+    ranks, (g2 + 1) ``segment_agg`` and ``segment_broadcast`` launches
+    per leaf on each rank."""
+    import torch.multiprocessing as mp
+    import _torch_dist_driver as drv
+    mp.spawn(drv.card_tp_train, args=(2, _free_port(), str(tmp_path), 2),
+             nprocs=2, join=True)
+    res = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    _, _, _, kw = drv.card_train_setup(cuda_dev)
+    for r in res:
+        card, again, cpu = r["rounds"]
+        n = len(card) * (kw["g2"] + 1)
+        assert r["device"].startswith("cuda")
+        assert r["launches"]["segment_agg"] == n
+        assert r["launches"]["segment_broadcast"] == n
+        assert all(torch.equal(card[k], again[k]) for k in card)
+        assert all(torch.allclose(card[k], cpu[k], atol=1e-4, rtol=1e-4)
+                   for k in card)
+        assert "layers/attn/wq" in r["replicated"][0]
+        for i in range(3):
+            assert all(torch.equal(v, res[0]["replicated"][i][k])
+                       for k, v in r["replicated"][i].items())
+
+
+def test_fsdp_whisper_loss_and_grads_on_card(cuda_dev, tmp_path):
+    """The fsdp axis of the audio family on the card: reduced whisper-base
+    (f32 activations, seed-0 weights drawn on the card, its batch with
+    ``enc_embed``) split over F = 2 gloo ranks spawned on the one card,
+    vocab 512 (the embedding split) and 515 (kept whole by the guard):
+    on each rank ``Model.loss(ft=)`` and every gradient block within
+    1e-4 of the one-device loss and gradients on the card."""
+    import torch.multiprocessing as mp
+    import _torch_dist_driver as drv
+    mp.spawn(drv.card_fsdp_loss, args=(2, _free_port(), str(tmp_path)),
+             nprocs=2, join=True)
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert res["device"].startswith("cuda")
+        for vocab, rows in ((None, 256), (515, 515)):
+            one, ft = res[vocab]["one"], res[vocab]["ft"]
+            assert ft["grads"]["embed"].shape[0] == rows
+            assert abs(ft["loss"] - one["loss"]) <= 1e-4 * (
+                1 + abs(one["loss"]))
+            assert sorted(ft["grads"]) == sorted(one["grads"])
+            for k, g in one["grads"].items():
+                torch.testing.assert_close(ft["grads"][k], g, atol=1e-4,
+                                           rtol=1e-4)
+
+
 def test_tp_rwkv6_loss_and_grads_on_card(cuda_dev, tmp_path):
     """The ssm family's tensor plane on the card: reduced rwkv6 (f32
     activations, seed-0 weights drawn on the card) split over tp = 2

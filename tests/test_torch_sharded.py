@@ -72,14 +72,15 @@ def _flat_tree(tree, prefix=""):
 
 
 @functools.lru_cache(maxsize=None)
-def _tp_params(arch=drv.TRAIN_ARCH):
-    """The tensor plane's numpy parameters of ``drv.tp_config(arch)`` in
-    the reference's tree (shapes from ``jax.eval_shape`` of its init,
-    seed 7): norm scales 1 + 0.1 z (so that ``q_norm``'s and ``k_norm``'s
-    gradients differ by head; RWKV6's ``ln_w``/``ln_b`` likewise), the
-    embedding 0.02 z, other weights z / sqrt(fan-in); as (the JAX tree,
-    the flat numpy leaves)."""
-    jcfg = drv.tp_config(jconfigs, arch)
+def _tp_params(arch=drv.TRAIN_ARCH, vocab=None):
+    """The tensor plane's numpy parameters of ``drv.tp_config(arch,
+    vocab)`` in the reference's tree (shapes from ``jax.eval_shape`` of
+    its init, seed 7): norm scales 1 + 0.1 z (so that ``q_norm``'s and
+    ``k_norm``'s gradients differ by head; RWKV6's ``ln_w``/``ln_b``
+    likewise), the embedding 0.02 z, other vectors (whisper's biases and
+    encoder norm) 0.1 z, other weights z / sqrt(fan-in); as (the JAX
+    tree, the flat numpy leaves)."""
+    jcfg = drv.tp_config(jconfigs, arch, vocab)
     rng = np.random.default_rng(7)
     shapes = jax.eval_shape(j_build_model(jcfg).init, jax.random.PRNGKey(0))
 
@@ -89,6 +90,8 @@ def _tp_params(arch=drv.TRAIN_ARCH):
             a = 1.0 + 0.1 * rng.normal(size=leaf.shape)
         elif name == "embed":
             a = rng.normal(size=leaf.shape) * 0.02
+        elif leaf.ndim == 1:
+            a = rng.normal(size=leaf.shape) * 0.1
         else:
             a = rng.normal(size=leaf.shape) / np.sqrt(leaf.shape[-2])
         return a.astype(leaf.dtype)
@@ -117,8 +120,10 @@ def _inputs() -> dict:
         # as its child process draws them
         "train_init": _train_init(drv.TRAIN_ARCH),
         "train_init_rwkv": _train_init(drv.RWKV_ARCH),
-        "tp_params": {arch: _tp_params(arch)[1]
-                      for arch in (drv.TRAIN_ARCH, drv.RWKV_ARCH)},
+        "tp_params": {drv._fsdp_key(arch, vocab): _tp_params(arch, vocab)[1]
+                      for arch, vocab in (
+                          (drv.TRAIN_ARCH, None), (drv.RWKV_ARCH, None),
+                          (drv.AUDIO_ARCH, None), (drv.AUDIO_ARCH, 515))},
     }
 
 
@@ -953,8 +958,11 @@ def test_mesh_functions_over_the_ranks(runs, world):
     rank grid, rank order (row-major), coordinates, blocks and fl group;
     ``derive_bank_mesh`` (pod 0's ``(edge, fl)`` plane) placing and
     gathering bank rows; ``derive_hfl_mesh`` over the world's devices,
-    its replicas or its tp ranks, and its ``ValueError``/
-    ``NotImplementedError`` (fsdp above 1: the tensor plane);
+    its replicas, its tp ranks or its fsdp x tp ranks ((1, 1, 2, world /
+    2)), and its
+    ``ValueError``s (a topology that does not factor the world, a rank
+    grid that does not divide the replicas, fsdp of more ranks than the
+    world has);
     ``shardings`` of replica specs, ``place_params`` and
     ``gather_params``; a tp-sharded spec raising; the production mesh
     raising below 256 ranks."""
@@ -979,6 +987,8 @@ def test_mesh_functions_over_the_ranks(runs, world):
                                     "fsdp": 1, "tp": 1}
             assert m["derive_tp"] == {"pod": 1, "edge": 1, "fl": 1,
                                       "fsdp": 1, "tp": world}
+            assert m["derive_fsdp"] == {"pod": 1, "edge": 1, "fl": 1,
+                                        "fsdp": 2, "tp": world // 2}
         assert m["shardings"] == {"a": {"w": idx + (slice(None),)},
                                   "b": idx}
         assert _same(m["place"][0], whole[idx]) and m["place"][1]
@@ -1073,7 +1083,7 @@ def test_tp_loss_and_grads_match_reference(runs, world):
     another order)."""
     jcfg = drv.tp_config(jconfigs)
     jp = _tp_params()[0]
-    jb = {k: jnp.asarray(v) for k, v in drv.tp_loss_batch(jcfg.vocab).items()}
+    jb = {k: jnp.asarray(v) for k, v in drv.tp_loss_batch(jcfg).items()}
     jval, jg = jax.jit(jax.value_and_grad(
         lambda q: j_build_model(jcfg).loss(q, jb, attn_chunk=16)))(jp)
     jg = _flat_tree(jax.tree.map(np.asarray, jg))
@@ -1131,11 +1141,13 @@ def test_tp_train_step_matches_reference(runs, world, dynamic):
 
 @pytest.mark.parametrize("world", (2, 4))
 def test_tp_refusals(runs, world):
-    """fsdp above 1 and a family still refused (reduced zamba2-7b, the
-    hybrid family) at tp = 2 raise ``NotImplementedError`` (the tensor
-    plane of item 10 (b)); tp = 4 on reduced qwen3 (2 kv heads) raises
-    ``ValueError``, where reduced rwkv6 (also 2 kv heads, but 4 wkv
-    heads, the only ones it splits) is taken."""
+    """fsdp over more ranks than the world holds raises ``ValueError``
+    (fsdp above 1 is taken since the fsdp axis came: ``test_fsdp_*``); a
+    family still refused (reduced zamba2-7b, the hybrid family) at tp =
+    2 raises ``NotImplementedError`` (the tensor plane of item 10 (b));
+    tp = 4 on reduced qwen3 (2 kv heads) raises ``ValueError``, where
+    reduced rwkv6 (also 2 kv heads, but 4 wkv heads, the only ones it
+    splits) is taken."""
     for r in runs[world]:
         errs = r["tp"]["errors"]
         assert errs["fsdp"] and errs["family"]
@@ -1187,7 +1199,7 @@ def _jrwkv_loss(chunked: bool):
     tensor plane's parameters and batch, through ``wkv_chunked`` or
     ``wkv_scan``."""
     jcfg = drv.tp_config(jconfigs, drv.RWKV_ARCH)
-    jb = {k: jnp.asarray(v) for k, v in drv.tp_loss_batch(jcfg.vocab).items()}
+    jb = {k: jnp.asarray(v) for k, v in drv.tp_loss_batch(jcfg).items()}
     jval, jg = jax.jit(jax.value_and_grad(
         lambda q: j_build_model(jcfg).loss(q, jb, wkv_chunked=chunked)))(
             _tp_params(drv.RWKV_ARCH)[0])
@@ -1278,3 +1290,204 @@ def test_tp_gather_forward_and_backward(runs, world, dtype):
             r["tp_gather"][dtype]["plain"]
         assert got[2:] == want[2:] == (dtype, dtype)
         assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# the fsdp axis: each replica over F = 2 fsdp x T tp ranks (case "fsdp")
+# ---------------------------------------------------------------------------
+
+def _ft_axes(jcfg, fsdp: int, tp: int, reps=(1, 1, 1)) -> dict:
+    """{leaf path: (dimension, blocks, "ft" or "tp")} of the dimension
+    the reference's guarded ``hfl_param_specs`` at (fsdp, tp) splits over
+    tensor axes, in the lifted leaf (None: whole): an ``("fsdp", "tp")``
+    entry into fsdp x tp blocks, a ``"tp"`` entry into tp."""
+    shapes = jax.eval_shape(j_build_model(jcfg).init, jax.random.PRNGKey(0))
+    sizes = {"fsdp": fsdp, "tp": tp}
+
+    class Sizes:             # all the reference's guard reads of a mesh
+        shape = dict(zip(jmesh.HFL_AXES, reps + (fsdp, tp)))
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        jmesh.hfl_param_specs(jcfg, shapes, Sizes),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    out = {}
+    for path, spec in flat:
+        cut = None
+        for i, e in enumerate(spec):
+            axes = [a for a in (e if isinstance(e, tuple) else (e,))
+                    if sizes.get(a, 1) > 1]
+            if axes:
+                cut = (i, int(np.prod([sizes[a] for a in axes])),
+                       "ft" if "fsdp" in axes else "tp")
+        out["/".join(k.key for k in path)] = cut
+    return out
+
+
+def _ft_block(a, cut, f: int, t: int, tp: int, lead: int = 0):
+    """``a``'s block at tensor coordinate (f, t) under ``cut``
+    (``_ft_axes``; ``lead`` fewer leading axes than the lifted leaf):
+    fsdp-major, block f T + t of an ft split, block t of a tp split."""
+    if cut is None:
+        return a
+    axis, n, kind = cut
+    return np.split(a, n, axis - lead)[f * tp + t if kind == "ft" else t]
+
+
+def _ft_ranks(world, grid=(1, 1, 1), tp=None):
+    """(rank, replica coordinates, f, t) of every rank over ``grid +
+    (FSDP, tp)``, row-major, tp fastest."""
+    tp = drv.FSDP_TP[world] if tp is None else tp
+    out = []
+    for r in range(world):
+        c = [int(x) for x in np.unravel_index(r, grid + (drv.FSDP, tp))]
+        out.append((r, tuple(c[:3]), c[3], c[4]))
+    return out
+
+
+@pytest.mark.parametrize("arch", [drv.TRAIN_ARCH, drv.AUDIO_ARCH])
+@pytest.mark.parametrize("world", (2, 4))
+def test_fsdp_placement_matches_reference_specs(runs, world, arch):
+    """Replicas (1, 1, 2) on every rank of (1, 1, 2, T), T =
+    ``drv.FSDP_TP[world]`` (tp the fastest rank axis): every rank's
+    coordinates and groups; ``place_params`` of the whole lifted tree
+    (replica r scaled by r + 1) cut as the reference's guarded
+    ``hfl_param_specs`` read fsdp-major (a ``("fsdp", "tp")`` dimension
+    into 2 T blocks, rank (f, t) holding block f T + t, a ``"tp"``
+    dimension into T, the same on both fsdp ranks); ``shardings`` gives
+    the same index; ``gather_params`` and ``gather_replica`` invert the
+    placement bitwise and ``tp_blocks`` of one replica is its placed
+    block."""
+    tp = drv.FSDP_TP[world]
+    reps = drv.FSDP_PLACE_REPS
+    jcfg = drv.tp_config(jconfigs, arch)
+    axes = _ft_axes(jcfg, drv.FSDP, tp, reps)
+    one = _tp_params(arch)[1]
+    whole = {k: np.stack([v * (r + 1) for r in range(reps[2])]).reshape(
+        reps + v.shape) for k, v in one.items()}
+    assert sorted(axes) == sorted(one)
+    if arch == drv.AUDIO_ARCH:     # the MLP and the vocabulary split
+        assert axes["layers/mlp/b_up"][2] == axes["embed"][2] == "ft"
+    for rank, coords, f, t in _ft_ranks(world):
+        res = runs[world][rank]["fsdp"]["place"][arch]
+        m = res["mesh"]
+        assert (m["shape"], m["grid"], m["rank"], m["coords"],
+                m["fsdp_rank"], m["tp_rank"], m["block"]) == (
+            dict(zip(jmesh.HFL_AXES, reps + (drv.FSDP, tp))), (1, 1, 1),
+            rank, coords, f, t, reps)
+        assert m["groups"] == (tp > 1, False, False) and m["ft_group"]
+        for k, v in whole.items():
+            want = _ft_block(v, axes[k], f, t, tp)
+            assert _same(res["place"][k], want), k
+            assert _same(res["place"][k], v[res["shardings"][k]]), k
+        assert res["gather"] and res["blocks"] and res["replica"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jft_loss(arch: str, vocab=None):
+    """The reference's loss and flat gradients of ``drv.tp_config(arch,
+    vocab)`` on the tensor plane's parameters and ``drv.tp_loss_batch``,
+    KV chunks of 16."""
+    jcfg = drv.tp_config(jconfigs, arch, vocab)
+    jb = {k: jnp.asarray(v) for k, v in drv.tp_loss_batch(jcfg).items()}
+    jval, jg = jax.jit(jax.value_and_grad(
+        lambda q: j_build_model(jcfg).loss(q, jb, attn_chunk=16)))(
+            _tp_params(arch, vocab)[0])
+    return float(jval), _flat_tree(jax.tree.map(np.asarray, jg))
+
+
+FSDP_LOSS_CASES = [(w, c) for w in (2, 4) for c in drv.FSDP_LOSSES[w]]
+
+
+@pytest.mark.parametrize("world,case", FSDP_LOSS_CASES, ids=[
+    f"{w}ranks-{a}-f{f}t{t}" + (f"-vocab{v}" if v else "")
+    for w, (a, f, t, v) in FSDP_LOSS_CASES])
+def test_fsdp_loss_and_grads_match_reference(runs, world, case):
+    """``Model.loss(tp=, ft=)`` of reduced qwen3 at (1, 1, 2, 1) and (1, 1,
+    2, 2), and of reduced whisper-base (its batch with ``enc_embed`` (2,
+    32, 256)) at F = 2 and 4, also with an odd vocabulary (515, which the
+    guard keeps whole: the embedding and unembedding whole on every
+    rank, the MLP split), on every rank against ``jax.value_and_grad`` of
+    the reference's ``Model.loss`` on the same numpy parameters and
+    batch, f32: the loss, and each rank's gradient of every leaf against
+    its block (fsdp-major), within 1e-4."""
+    arch, fsdp, tp, vocab = case
+    jval, jg = _jft_loss(arch, vocab)
+    axes = _ft_axes(drv.tp_config(jconfigs, arch, vocab), fsdp, tp)
+    if vocab is not None:
+        assert axes["embed"] is None and axes["unembed"] is None
+        assert axes["layers/mlp/w_up"] is not None
+    for rank in range(world):
+        f, t = divmod(rank, tp)
+        res = runs[world][rank]["fsdp"]["loss"][(arch, vocab)]
+        _close(res["loss"], jval, F32_TOL, F32_TOL)
+        assert sorted(res["grads"]) == sorted(jg)
+        for k, g in jg.items():
+            _close(res["grads"][k], _ft_block(g, axes[k], f, t, tp, 3),
+                   F32_TOL, F32_TOL)
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_fsdp_train_step_matches_reference(runs, world):
+    """Reduced qwen3 (``case_train``'s f32 settings and start) on replicas
+    (1, 2, 2), each replica over F = 2 fsdp ranks (T = 1), rank grid
+    ``drv.FSDP_GRIDS[world]`` (world 4: Eq. 1 and Eq. 2 cross ranks at
+    each fsdp coordinate): replica (0, 0, 0) of a static (2, 2) round
+    gathered whole within 1e-4 of the reference's one-device jitted step
+    (``qwen3-f32-static``); the four replicas bitwise equal; every leaf
+    no spec splits (attention, the norms) bitwise equal across the ranks
+    of each ft group; each rank's launches as its edges imply;
+    ``derive_bank_mesh`` on the ranks at tensor coordinates (0, 0)
+    only."""
+    want = np.load(runs["dirs"]["train_ref"] / f"{TRAIN_CASES[False]}.npz")
+    keys = sorted(k for k in want.files if k != "__replicas_equal__")
+    grid = drv.FSDP_GRIDS[world]
+    block = tuple(d // g for d, g in zip(drv.TRAIN_REPS, grid))
+    res = [r["fsdp"]["round"] for r in runs[world]]
+    got = res[0]["replica0"]
+    assert sorted(got) == keys
+    for k in keys:
+        _close(got[k], want[k], F32_TOL, F32_TOL)
+    for rank, coords, f, _ in _ft_ranks(world, grid, tp=1):
+        r = res[rank]
+        assert r["replicas_equal"] and r["block"] == block
+        assert (r["coords"], r["fsdp_rank"]) == (coords, f)
+        assert r["launches"] == _train_launches(block, coords, False,
+                                                len(keys))
+        assert "layers/attn/wq" in r["replicated"]
+        assert _same(r["replicated"], res[rank - f]["replicated"])
+        bank = runs[world][rank]["fsdp"]["bank"]
+        assert bank == (None if f else ({"edge": grid[1], "fl": grid[2]},
+                                        rank // drv.FSDP))
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_fsdp_refusals(runs, world):
+    """At F = 2 the ssm (rwkv6), hybrid (zamba2), vlm (qwen2-vl) and moe
+    (olmoe) families raise ``NotImplementedError`` from the train step
+    (the tensor plane of item 10 (b)), and at world 4, (1, 1, 2, 2), so
+    does the audio family (whisper) at T = 2."""
+    for r in runs[world]:
+        errs = r["fsdp"]["errors"]
+        assert sorted(errs) == sorted(drv.FSDP_REFUSED + (
+            ("audio_tp",) if world == 4 else ()))
+        assert all(errs.values())
+
+
+@pytest.mark.parametrize("arch,tp,fsdp,ok", [
+    ("qwen3-1.7b", 1, 2, True), ("qwen3-1.7b", 2, 2, True),
+    ("whisper-base", 1, 2, True), ("whisper-base", 2, 1, False),
+    ("rwkv6-1.6b", 1, 2, False), ("zamba2-7b", 1, 2, False),
+    ("qwen2-vl-7b", 1, 2, False), ("olmoe-1b-7b", 1, 2, False)],
+    ids=["qwen3-f2", "qwen3-f2t2", "whisper-f2", "whisper-t2", "rwkv6-f2",
+         "zamba2-f2", "qwen2vl-f2", "olmoe-f2"])
+def test_tp_check_takes_fsdp_for_dense_and_audio(arch, tp, fsdp, ok):
+    """``tp.check(cfg, T, F)`` on the reduced configs: fsdp above 1 is
+    taken for the dense and audio families and raises
+    ``NotImplementedError`` naming item 10 (b) for the others; tp above
+    1 raises it for audio."""
+    cfg = tconfigs.get_config(arch).reduce()
+    if ok:
+        tp_mod.check(cfg, tp, fsdp)
+    else:
+        with pytest.raises(NotImplementedError, match="item 10 \\(b\\)"):
+            tp_mod.check(cfg, tp, fsdp)

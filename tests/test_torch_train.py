@@ -471,14 +471,12 @@ def test_guard_divisibility_matches_reference():
 
 def test_hfl_mesh_one_device():
     """``make_hfl_mesh`` with no rank grid puts every replica on one
-    device (fsdp = tp = 1; fsdp above 1 raises NotImplementedError, the
-    tensor plane of item 10 (b); tp above 1 needs a process group of
+    device (fsdp = tp = 1; fsdp or tp above 1 needs a process group of
     that many ranks, ValueError without one); ``derive_hfl_mesh`` raises
     ValueError when the topology does not factor the devices, as the
-    reference does, and over two devices, replicas or tp ranks, needs a
-    two-rank process group (``tests/test_torch_sharded.py::
-    test_mesh_functions_over_the_ranks`` runs it in one); F above 1
-    raises NotImplementedError."""
+    reference does, and over two devices, replicas, tp or fsdp ranks,
+    needs a two-rank process group (``tests/test_torch_sharded.py::
+    test_mesh_functions_over_the_ranks`` runs it in one)."""
     hm = mesh.make_hfl_mesh((1, 2, 2), device="cpu")
     assert hm.axis_names == mesh.HFL_AXES == jmesh.HFL_AXES
     assert hm.shape == {"pod": 1, "edge": 2, "fl": 2, "fsdp": 1, "tp": 1}
@@ -487,7 +485,7 @@ def test_hfl_mesh_one_device():
         ((1, 1, 1), 1, (0, 0, 0), (1, 2, 2))
     assert (mesh.REPLICA_AXES, mesh.TENSOR_AXES, mesh.SERVE_AXES) == \
         (jmesh.REPLICA_AXES, jmesh.TENSOR_AXES, jmesh.SERVE_AXES)
-    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         mesh.make_hfl_mesh((1, 2, 2), fsdp=2, device="cpu")
     with pytest.raises(ValueError, match="process group of 4 ranks"):
         mesh.make_hfl_mesh((1, 2, 2), tp=4, device="cpu")
@@ -497,7 +495,7 @@ def test_hfl_mesh_one_device():
         mesh.derive_hfl_mesh(["cpu", "cpu"], (2, 1, 1, 1))
     with pytest.raises(ValueError, match="process group of 2 ranks"):
         mesh.derive_hfl_mesh(["cpu", "cpu"], (1, 1, 1, 2))
-    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         mesh.derive_hfl_mesh(["cpu", "cpu"], (1, 1, 2, 1))
     assert mesh.derive_hfl_mesh(["cpu"], (1, 1, 1, 1)).shape["edge"] == 1
     if not torch.cuda.is_available():         # the default is the card
@@ -513,10 +511,10 @@ def test_production_layouts_match_reference():
     ``jax.make_mesh`` does. The reference's ``derive_hfl_mesh(m2, (4, 4,
     1, 16))`` shards each replica over tp = 16 (``{"pod": 2, "edge": 4,
     "fl": 4, "fsdp": 1, "tp": 16}``): the port needs a process group of
-    512 ranks for it (ValueError without one); a topology with fsdp
-    above 1 (qwen2-72b's (4, 2, 2, 16)) raises NotImplementedError (the
-    tensor plane), and so does ``shardings`` of a tp-sharded spec over
-    the serve layout (mesh serving)."""
+    512 ranks for it (ValueError without one), and so does a topology
+    with fsdp above 1 (qwen2-72b's (4, 2, 2, 16)); ``shardings`` of a
+    tp-sharded spec over the serve layout (mesh serving) raises
+    NotImplementedError (the tensor plane of item 10 (b))."""
     m1 = mesh.make_production_mesh(n_ranks=512)
     assert m1.shape == {"data": 16, "model": 16}
     assert np.array_equal(m1.ranks, np.arange(256).reshape(16, 16))
@@ -536,7 +534,7 @@ def test_production_layouts_match_reference():
         mesh.derive_serve_mesh(m1, 7)
     with pytest.raises(ValueError, match="process group of 512 ranks"):
         mesh.derive_hfl_mesh(["cpu"] * 512, (4, 4, 1, 16), n_pods=2)
-    with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
+    with pytest.raises(ValueError, match="process group of 512 ranks"):
         mesh.derive_hfl_mesh(["cpu"] * 512, (4, 2, 2, 16), n_pods=2)
     with pytest.raises(NotImplementedError, match="10 \\(b\\)"):
         mesh.shardings(s, {"w": (None, "tp")})
@@ -571,6 +569,7 @@ def _port_step(arch, act, dynamic, chunked, coll, reference):
     assert specs["embed"][:3] == ("pod", "edge", "fl")
     params = train.lift_params(weights.tree_from_numpy(p0, "cpu"), 1, 2, 2)
     batch = token_batch(0, tref.BATCH, tref.SEQ, cfg.vocab, device="cpu")
+    batch.update({k: torch.from_numpy(v) for k, v in tref.extras(cfg).items()})
     args = (tref.G1E, tref.G2E) if dynamic else ()
     return step(params, batch, *args)
 
@@ -579,9 +578,12 @@ def _port_step(arch, act, dynamic, chunked, coll, reference):
 def test_train_step_matches_reference(reference, case):
     """One cloud round at (g1, g2) = (2, 2), or dynamic with per-edge
     g1e (1, 2), g2e (2, 1) under (3, 3) bounds, of reduced qwen3 / rwkv6
-    on replicas (1, 2, 2): batch 8 x seq 32, two sequences per replica in
-    2 minibatches per epoch (qwen3) or 1 (rwkv6; ``tests/
-    _torch_train_ref.py`` says why), lr 3e-3, KV chunks of 16. Every leaf against the
+    / whisper-base / qwen2-vl on replicas (1, 2, 2): batch 8 x seq 32,
+    two sequences per replica in 2 minibatches per epoch (qwen3,
+    whisper, qwen2-vl) or 1 (rwkv6; ``tests/_torch_train_ref.py`` says
+    why), lr 3e-3, KV chunks of 16; whisper's batch carries ``enc_embed``
+    (8, 32, 256) and qwen2-vl's ``vision_embed`` (8, 16, 256), sliced
+    into the minibatches as the tokens are. Every leaf against the
     reference's jitted step within 1e-4 (f32 activations) or 5e-3 (bf16),
     the four replicas bitwise equal after the round in both packages."""
     name, arch, act, dynamic, chunked, coll = case
@@ -632,3 +634,21 @@ def test_main_runs_on_the_cpu(capsys):
                for ln in lines)
     with pytest.raises(ValueError, match="256"):
         train.main(["--device", "cpu", "--mesh", "single"])
+
+
+def test_main_trains_whisper_with_its_stub_input(capsys):
+    """``main(["--arch", "whisper-base", "--device", "cpu", ...])``: the
+    reduced whisper round with the batch's ``enc_embed``
+    (``serve.stub_extras``), a finite loss; its full config's ``--mesh
+    single`` (the published (8, 16, 2, 1), fsdp 2) in a world smaller
+    than 256 ranks raises ValueError."""
+    train.main(["--device", "cpu", "--rounds", "1", "--seq", "16",
+                "--batch", "4", "--g1", "1", "--g2", "1", "--arch",
+                "whisper-base"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("round 0 loss=")]
+    assert len(lines) == 1
+    assert np.isfinite(float(lines[0].split("loss=")[1].split()[0]))
+    with pytest.raises(ValueError, match="256"):
+        train.main(["--device", "cpu", "--mesh", "single", "--arch",
+                    "whisper-base"])
