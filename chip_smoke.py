@@ -41,7 +41,7 @@ Phases, each fatal on failure (the script exits non-zero):
    shuffle seed) within atol 1e-4, and its wall; (b) ``HFLEnv`` real
    mode at the paper's CIFAR width with T cut to 300 s:
    ``sync.train_agent`` for 2 episodes, then ``run_scheme("arena")``;
-   (c) at the MNIST defaults with T cut to 100 s: every synchronous
+   (c) at the MNIST defaults with T cut to 50 s: every synchronous
    scheme (vanilla-fl, vanilla-hfl, var-freq-a, var-freq-b, favor,
    hwamei trained for one episode then run, share), and
    ``async-fedavg`` raising ``TypeError`` on ``HFLEnv``; each run with
@@ -238,6 +238,23 @@ Phases, each fatal on failure (the script exits non-zero):
    the leaf at each largest printed; the round's wall, the gloo
    ``all_reduce`` and ``all_gather`` calls and seconds over the tp group
    and each rank's peak memory within ``TP_RWKV_MEM_GB``;
+3o. mesh serving (``launch.serve``'s steps over a
+   ``launch.mesh.ServeMesh``), on phase 3l's 4 gloo ranks after its
+   round: (a) full-width qwen3-1.7b (f32 weights from seed 0, bf16
+   activations) over the serve mesh (1, 1, 4), its published T = 4,
+   each rank drawing the seed-0 model on the card in turn and keeping
+   its serve blocks (4 of 16 query heads over 2 of 8 kv heads, a quarter
+   of the FFN and of the vocabulary): phase 3b's prompt (4 x 1024) and
+   32 decode steps fed 3b's greedy tokens through ``greedy_serve(mesh=,
+   forced=)``, ``flash_attention`` held to 28 ``wgmma`` + 896
+   ``split_kv`` calls on every rank, every step's logits bitwise equal
+   on the 4 ranks and within ``SERVE_REL`` (bf16) of 3b's one-device
+   logits, the first step whose own greedy token differs printed; the
+   prefill seconds, decode tokens/s, gloo calls and seconds per prefill
+   and per decode step and each rank's peak memory (within
+   ``SERVE_TP_MEM_GB``); (b) reduced qwen3 (f32 activations) over (1,
+   2, 2), batch 4 split over the two batch groups, within
+   ``SMALL_SERVE_TOL`` of the one-device serve;
 3b. the LLM serving path: a reduced qwen3, rwkv6, olmoe, zamba2,
    whisper and qwen2-vl (f32 activations; the last two with their stub
    inputs) served on the card against the CPU; then the main path,
@@ -310,8 +327,9 @@ Phases, each fatal on failure (the script exits non-zero):
 4b. the same for ``flash_attention`` (qwen3 prefill and decode, olmoe
    prefill and decode, qwen3's windowed prefill and ring decode, zamba2's
    prefill and decode at head dim 112, whisper's encoder, cross prefill,
-   cross decode and self decode, qwen2-vl's prefill and decode, one JSON
-   row each, with
+   cross decode and self decode, qwen2-vl's prefill and decode, phase
+   3o's tp rank's prefill and decode (their launches summed over the 4
+   ranks), one JSON row each, with
    ``scaled_dot_product_attention`` as the library
    yardstick, a boolean mask for the window) and
    ``wkv6`` (rwkv6 prefill; no single library call computes it), with
@@ -707,13 +725,13 @@ AGENT_TOL = 1e-4
 # it only at the default T. T is cut from 12000 s (about 55 rounds) and
 # MNIST's from 3000 s so an episode of the fixed schemes is 1-3 rounds
 # after reset (CIFAR: reset about 60 s, a (5, 4) round about 240 s;
-# MNIST: about 20 s and 70 s); MNIST's 100 s (160 s until the whole
-# script passed 800 s on a slower host) still gives every scheme a
-# round after its reset, and CIFAR's 300 s (500 s until phase 3k came)
-# the agent's episodes theirs
+# MNIST: about 20 s and 70 s); MNIST's 50 s (160 s until the whole
+# script passed 800 s on a slower host, 100 s until phase 3o came)
+# still gives every scheme a round after its reset, and CIFAR's 300 s
+# (500 s until phase 3k came) the agent's episodes theirs
 CIFAR_ARENA = dict(task="cifar", mode="real", n_local=1000, lr=0.01,
                    epsilon=0.004, threshold_time=300.0)
-MNIST_SCHEMES = dict(task="mnist", mode="real", threshold_time=100.0)
+MNIST_SCHEMES = dict(task="mnist", mode="real", threshold_time=50.0)
 STATIC_SCHEMES = ("vanilla-fl", "vanilla-hfl", "var-freq-a", "var-freq-b",
                   "favor", "share")
 
@@ -966,7 +984,7 @@ ASYNC_FAULTS = dict(drop_prob=0.1, transient_prob=0.2, seed=0)
 ASYNC_EVENTS = 20
 ASYNC_OUTAGE = (110.0, 60.0)
 ASYNC_CHURN = (130.0, 200.0)
-# phase 3d (d): T cut to 40 s (phase 3c: 100 s; paper 3000 s; 80 s
+# phase 3d (d): T cut to 40 s (phase 3c: 50 s; paper 3000 s; 80 s
 # until the whole script passed 800 s on a slower host: the agent's
 # episode is then about 12 events, not 54) and async-fedavg to 5 events,
 # so phase 3d stays within its 120 s
@@ -2248,21 +2266,23 @@ def _small_train_setup(torch, configs, model_mod, token_batch, dev):
 class _AllReduceTimer:
     """Wraps the ``torch.distributed`` collectives ``names`` (default:
     ``all_reduce``) while on: each call synchronised and timed, its
-    milliseconds listed by its group (None: the world) in ``ms`` and
-    counted by (name, group) in ``calls``."""
+    milliseconds listed by its group (None: the world) in ``ms``,
+    counted by (name, group) in ``calls`` and listed in call order with
+    its (name, group) in ``order``."""
 
     def __init__(self, torch, dist, names=("all_reduce",)):
         self.torch, self.dist, self.names = torch, dist, names
-        self.ms, self.calls = {}, {}
+        self.ms, self.calls, self.order = {}, {}, []
 
     def _timed(self, name, fn):
         def timed(*args, group=None, **kw):
             t0 = sync_time(self.torch)
             out = fn(*args, group=group, **kw)
-            self.ms.setdefault(group, []).append(
-                (sync_time(self.torch) - t0) * 1e3)
+            ms = (sync_time(self.torch) - t0) * 1e3
+            self.ms.setdefault(group, []).append(ms)
             key = (name, group)
             self.calls[key] = self.calls.get(key, 0) + 1
+            self.order.append((key, ms))
             return out
         return timed
 
@@ -2703,7 +2723,7 @@ TP_RUNS = {
     "3l": dict(arch="qwen3-1.7b", g=FULL_G,
                kw=dict(TRAIN_KW, attn_chunk=128),
                loss_kw={}, ref="full", ref_name="3g (b)",
-               reorder="3g (b')'s KV chunks of 64"),
+               reorder="3g (b')'s KV chunks of 64", serve=True),
     "3m": dict(arch="rwkv6-1.6b", g=1,
                kw=dict(TRAIN_KW, attn_chunk=128, wkv_chunked=True),
                loss_kw=dict(wkv_chunked=True), ref="rwkv", ref_name="3g (e)",
@@ -2850,25 +2870,34 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str,
             token_batch(0, 8, 128, cfg.vocab, device=hm.device),
             token_batch(9999, 8, 128, cfg.vocab, device=hm.device),
             run["loss_kw"], hm.tp_group)
+        if run.get("serve"):
+            del hm
+            torch.cuda.empty_cache()
+            out["serve"] = _serve_tp(torch, dist, configs, model_mod,
+                                     token_batch, outdir)
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def tensor_plane(torch, trained, phase: str) -> dict:
+def tensor_plane(torch, trained, phase: str, serve_ref=None) -> dict:
     """Phase 3l (full-width qwen3-1.7b, one static ``FULL_G`` round at
     phase 3g (b)'s settings) or 3m (full-width rwkv6-1.6b, one static (1,
     1) round at 3g (e)'s): each of replicas (1, 2, 2) split over
     ``TP_WORLD`` gloo tp ranks spawned on the one card (``_tp_rank``),
     held by ``_hold_split`` against phase 3g's one-device round and each
-    rank's peak by ``TP_MEM_GB``. Returns the launches summed over the
-    ranks."""
+    rank's peak by ``TP_MEM_GB``; after 3l's round the same ranks run
+    phase 3o against ``serve_ref`` (phase 3b's qwen3-1.7b serve), held
+    by ``_hold_serve``. Returns the launches summed over the ranks (and
+    3o's flash_attention calls by path under "serve_paths")."""
     import torch.multiprocessing as mp
     run = TP_RUNS[phase]
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_", dir=os.path.join(
         ROOT, "build"))
     try:
+        if run.get("serve"):
+            torch.save(serve_ref, os.path.join(tmp, SERVE_TP_REF))
         torch.cuda.empty_cache()
         mp.spawn(_tp_rank, args=(TP_WORLD, _free_port(), tmp, phase),
                  nprocs=TP_WORLD, join=True)
@@ -2885,11 +2914,21 @@ def tensor_plane(torch, trained, phase: str) -> dict:
                 f"{TP_WORLD} gloo tp ranks sharing the card, batch 8 x seq "
                 f"128, ({run['g']}, {run['g']}), remat{chunks}, plain mode",
                 "tp")
+    out = {k: sum(r["counts"][k] for r in res)
+           for k in ("segment_agg", "segment_broadcast")}
+    wall_3o = 0.0
+    if run.get("serve"):
+        print(f"phase 3o: mesh serving, full-width qwen3-1.7b over the "
+              f"serve mesh (1, 1, {TP_WORLD}) of phase 3l's ranks")
+        out["serve_paths"] = _hold_serve([r["serve"] for r in res],
+                                         serve_ref)
+        wall_3o = max(r["serve"]["wall"] for r in res)
     print(f"  phase {phase} took {time.perf_counter() - t_phase:.1f} s "
-          f"(budget {TP_BUDGET_S[phase]:.0f} s); ranks sharing one card "
-          f"say nothing of multi-GPU scaling")
-    return {k: sum(r["counts"][k] for r in res)
-            for k in ("segment_agg", "segment_broadcast")}
+          f"(budget {TP_BUDGET_S[phase]:.0f} s"
+          + (f", phase 3o's {wall_3o:.1f} s of it on the ranks, budget "
+             f"{SERVE_TP_BUDGET_S:.0f} s" if run.get("serve") else "")
+          + "); ranks sharing one card say nothing of multi-GPU scaling")
+    return out
 
 
 def _hold_split(res: list, ref: dict, phase: str, g: int, ref_name: str,
@@ -2956,6 +2995,218 @@ def _hold_split(res: list, ref: dict, phase: str, g: int, ref_name: str,
           f"{rel_sum:.3e} (bound {sums_bound:.3e})")
     check(max(r["peak"] for r in res) <= mem_gb,
           f"phase {phase}: peak memory over {mem_gb} GB")
+
+
+# ---------------------------------------------------------------------------
+# phase 3o: mesh serving over phase 3l's gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+# qwen3-1.7b served at its published T = 4 (the reference's dry run
+# decodes at tp = hfl_topology[3]) over the serve mesh (1, 1, 4) of phase
+# 3l's 4 ranks: phase 3b's serve (batch 4, prompt 1024, 32 steps), fed
+# 3b's greedy tokens, every step's logits held against 3b's one-device
+# logits of the same seed-0 weights within SERVE_REL (bf16)
+SERVE_TP_REF = "serve_ref.pt"
+SERVE_TP = dict(batch=4, prompt=1024, new=32)
+# (1, 2, 2) on the same ranks: reduced qwen3 with f32 activations, batch 4
+# split over the 2 batch groups, against the one-device serve
+SERVE_TP_SMALL = dict(batch=4, prompt=32, new=4)
+# per rank: a quarter of qwen3-1.7b's 8.13 GB of f32 weights (every
+# matrix and the vocabulary split over tp; the norms, 0.2 MB, whole),
+# the rank's cache (28 x 4 x 1056 x 2 x 128 bf16 k and v, 0.12 GB), the
+# prefill's f32 partial sums (4 x 1024 x 2048, 34 MB) and bf16 casts of
+# a layer's blocks, and the gathered logits (4 x 151,936)
+SERVE_TP_MEM_GB = 3.0
+SERVE_TP_BUDGET_S = 60.0
+
+
+def _hold_serve(res: list, ref: dict) -> dict:
+    """Holds every rank's ``_serve_tp`` result: ``flash_attention``
+    launched 28 times on the tensor-core tile path (the prefill) and 28
+    x 32 on split-KV (the decode) on each rank and nothing else, every
+    step's logits bitwise rank 0's, within ``SERVE_REL`` (bf16) of phase
+    3b's, the reduced f32 serve at (1, 2, 2) within ``SMALL_SERVE_TOL``
+    of the one-device serve, each rank's peak within
+    ``SERVE_TP_MEM_GB``; prints the walls, the gloo calls and seconds
+    per prefill and per decode step and the errors. Returns the flash
+    calls by path summed over the ranks."""
+    new, layers = SERVE_TP["new"], 28
+    want = {"segment_agg": 0, "segment_broadcast": 0,
+            "flash_attention": layers * (1 + new), "wkv6": 0}
+    want_paths = {"split_kv": layers * new, "wgmma": layers, "f32_tile": 0}
+    for i, r in enumerate(res):
+        check(r["counts"] == want, f"phase 3o: rank {i} launches "
+              f"{r['counts']} != {want}")
+        check(r["paths"] == want_paths, f"phase 3o: rank {i} flash paths "
+              f"{r['paths']} != {want_paths}")
+        check(r["finite"], f"phase 3o: rank {i}'s logits are not finite "
+              f"or not of 3b's shape")
+        check(r["steps_equal"], f"phase 3o: rank {i}'s {r['n_calls']} "
+              f"collectives do not split into {new + 1} equal steps")
+        check(r["same"], f"phase 3o: rank {i}'s logits are not bitwise "
+              f"rank 0's")
+        check(r["errs"] == res[0]["errs"], "phase 3o: the ranks' errors "
+              "differ")
+    r0 = res[0]
+    errs, tol = r0["errs"], SERVE_REL["bfloat16"]
+    small = max(r["small_err"] for r in res)
+    b, s = SERVE_TP["batch"], SERVE_TP["prompt"]
+
+    def per_rank(key, spec):
+        return ", ".join(format(r[key], spec) for r in res)
+
+    print(f"  (a) qwen3-1.7b full width (f32 weights from seed 0, bf16 "
+          f"activations) over the serve mesh (1, 1, {TP_WORLD}), each rank "
+          f"4 of 16 query heads over 2 of 8 kv heads, a quarter of the FFN "
+          f"and of the vocabulary (draw and take {r0['init_s']:.1f} s, one "
+          f"rank at a time): prefill {s} tokens x{b} "
+          f"{per_rank('prefill_s', '.4f')} s, {new} decode steps fed 3b's "
+          f"greedy tokens {per_rank('decode_s', '.4f')} s "
+          f"({per_rank('tok_per_s', '.1f')} tok/s; 3b on one device: "
+          f"prefill {ref['prefill_s']:.4f} s, {ref['tok_per_s']:.1f} "
+          f"tok/s); gloo {r0['calls_per_step']} calls a step and rank "
+          f"({r0['calls']} in all): over the tp group a prefill "
+          f"{per_rank('prefill_tp_s', '.4f')} s, a decode step "
+          f"{per_rank('decode_tp_s', '.4f')} s; the logits' all_gather over "
+          f"the world a prefill {per_rank('prefill_world_s', '.4f')} s, a "
+          f"decode step {per_rank('decode_world_s', '.4f')} s; peak "
+          f"memory {per_rank('peak', '.2f')} GB (reckoned "
+          f"{SERVE_TP_MEM_GB:.0f} GB); launches per rank {r0['counts']}, "
+          f"flash paths {r0['paths']}; every step's logits bitwise equal "
+          f"on the {len(res)} ranks")
+    print(f"    vs phase 3b's one-device logits (same weights, prompt and "
+          f"fed tokens): relative L2 prefill {errs[0]:.3e}, decode max "
+          f"{max(errs[1:]):.3e}, mean {sum(errs[1:]) / new:.3e}, largest "
+          f"{max(errs):.3e} (tolerance {tol}); first step whose own greedy "
+          f"token differs from 3b's: "
+          f"{'none' if r0['first_flip'] is None else r0['first_flip']}")
+    print(f"  (b) reduced qwen3 (f32 activations) over the serve mesh (1, 2,"
+          f" 2), batch {SERVE_TP_SMALL['batch']} split over 2 batch groups, "
+          f"prefill {SERVE_TP_SMALL['prompt']} + {SERVE_TP_SMALL['new']} "
+          f"steps vs the one-device serve: max|err| {small:.3e} (tolerance "
+          f"{SMALL_SERVE_TOL})")
+    check(max(errs) <= tol, f"phase 3o: logits {max(errs):.3e} from 3b's")
+    check(small <= SMALL_SERVE_TOL, f"phase 3o (b): {small:.3e} from the "
+          f"one-device serve")
+    check(max(r["peak"] for r in res) <= SERVE_TP_MEM_GB,
+          f"phase 3o: peak memory over {SERVE_TP_MEM_GB} GB")
+    return {k: sum(r["paths"][k] for r in res) for k in want_paths}
+
+
+def _serve_tp_small(torch, dist, configs, model_mod, serve, mesh_lib,
+                    token_batch) -> float:
+    """Phase 3o (b): reduced qwen3 (f32 activations, seed-3 weights drawn
+    on the card) served over the serve mesh (1, 2, 2) of the 4 ranks and
+    on one device in this process, the mesh fed the one-device serve's
+    greedy tokens; returns the largest abs difference of any step's
+    logits (held by ``SMALL_SERVE_TOL``)."""
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b").reduce(),
+                              activ_dtype="float32")
+    mesh = mesh_lib.make_serve_mesh(2, ranks=(1, 2))
+    dev = mesh.device
+    b, s, new = (SERVE_TP_SMALL[k] for k in ("batch", "prompt", "new"))
+    params = model_mod.build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(3), dev)
+    toks = token_batch(2, b, s, cfg.vocab, device=dev)["tokens"]
+    one = serve.greedy_serve(cfg, params, toks, new)
+    _, param_sh, _, _ = serve.make_prefill_step(cfg, mesh, batch=b, seq=s,
+                                                max_new=new)
+    split = serve.greedy_serve(cfg, serve.take(params, param_sh), toks, new,
+                               mesh=mesh, forced=one["tokens"])
+    return max(float((a - c).abs().max())
+               for a, c in zip(split["logits"], one["logits"]))
+
+
+def _serve_tp(torch, dist, configs, model_mod, token_batch,
+              outdir: str) -> dict:
+    """Phase 3o on one of phase 3l's ranks: (a) full-width qwen3-1.7b
+    (f32 weights from seed 0, bf16 activations) over the serve mesh (1,
+    1, 4): each rank draws the seed-0 model on the card in turn and keeps
+    its serve blocks (``serve.take`` of the prefill step's
+    ``param_sh``); a warm-up serve, then ``greedy_serve(mesh=)`` of 3b's
+    prompt fed 3b's greedy tokens (``forced``), the launch counts and
+    flash paths set to 0 just before and read just after, the gloo
+    collectives timed in call order, the peak memory; each step's
+    relative L2 error against 3b's logits, the first step whose own
+    argmax differs from 3b's token, and whether every step's logits are
+    bitwise rank 0's (broadcast as bytes); (b) ``_serve_tp_small``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = configs.get_config("qwen3-1.7b")
+    b, s, new = (SERVE_TP[k] for k in ("batch", "prompt", "new"))
+    mesh = mesh_lib.make_serve_mesh(world)
+    dev = mesh.device
+    _, param_sh, _, _ = serve.make_prefill_step(cfg, mesh, batch=b, seq=s,
+                                                max_new=new)
+    t0 = time.perf_counter()
+    for r in range(world):                   # one whole model at a time
+        if r == rank:
+            p1 = model_mod.build_model(cfg).init(
+                torch.Generator(device=dev).manual_seed(0), dev)
+            blocks = serve.take(p1, param_sh)
+            del p1
+            torch.cuda.empty_cache()
+        dist.barrier()
+    t_init = time.perf_counter() - t0
+    ref = torch.load(os.path.join(outdir, SERVE_TP_REF), weights_only=False)
+    toks = token_batch(0, b, s, cfg.vocab, device=dev)["tokens"]
+    serve.greedy_serve(cfg, blocks, toks[:, :64], 2, mesh=mesh)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _AllReduceTimer(torch, dist, ("all_reduce", "all_gather")) as timer:
+        ops.reset_launches()
+        fa.reset_paths()
+        res = serve.greedy_serve(cfg, blocks, toks, new, mesh=mesh,
+                                 forced=ref["tokens"].to(dev))
+        counts, paths = dict(ops.LAUNCHES), dict(fa.PATH_CALLS)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    # held by _hold_serve in the main process: a rank that raised here
+    # would leave the others waiting in a collective
+    errs, first_flip, same, finite = [], None, True, True
+    for i, lg in enumerate(res["logits"]):
+        want = ref["logits"][i].to(dev)
+        finite = finite and lg.shape == want.shape and bool(
+            torch.isfinite(lg.float()).all())
+        errs.append(rel_err(torch, lg, want))
+        if i < new and first_flip is None and not torch.equal(
+                lg.argmax(-1).cpu(), ref["tokens"][:, i].long()):
+            first_flip = i
+        r0 = lg.contiguous().view(torch.uint8).clone()
+        dist.broadcast(r0, src=0)
+        same = same and torch.equal(r0, lg.contiguous().view(torch.uint8))
+    # every step makes the same collectives: the first of new + 1 equal
+    # runs of the call order are the prefill's
+    k, rem = divmod(len(timer.order), new + 1)
+    keys = [key for key, _ in timer.order]
+    steps_equal = rem == 0 and all(keys[i * k:(i + 1) * k] == keys[:k]
+                                   for i in range(new + 1))
+    # seconds per prefill and per decode step over the tp group (the row
+    # products' and the lookup's all_reduce) and the world (the logits'
+    # all_gather)
+    gloo = {}
+    for part, calls in (("prefill", timer.order[:k]),
+                        ("decode", timer.order[k:])):
+        per = 1 if part == "prefill" else new
+        for where, tp_group in (("tp", True), ("world", False)):
+            gloo[f"{part}_{where}_s"] = sum(
+                m for (_, g), m in calls if (g is not None) == tp_group
+            ) / 1e3 / per
+    times = {k_: res[k_] for k_ in ("prefill_s", "decode_s", "tok_per_s")}
+    del blocks, res
+    torch.cuda.empty_cache()
+    small = _serve_tp_small(torch, dist, configs, model_mod, serve,
+                            mesh_lib, token_batch)
+    return {"counts": counts, "paths": paths, "peak": peak,
+            "init_s": t_init, "errs": errs, "first_flip": first_flip,
+            "same": same, "finite": finite, "steps_equal": steps_equal,
+            "n_calls": len(timer.order), "calls_per_step": k,
+            "calls": {f"{n}/{'tp' if g is not None else 'world'}": c
+                      for (n, g), c in timer.calls.items()},
+            "small_err": small, "wall": time.perf_counter() - t_phase,
+            **gloo, **times}
 
 
 # ---------------------------------------------------------------------------
@@ -3190,7 +3441,11 @@ FLASH_CASES = [("qwen3-prefill", 4, 16, 8, 1024, 1024, 128, True, 0, 0),
                ("qwen2vl-decode", 4, 28, 4, 1, 1312, 128, True, 0, 1311),
                ("ragged-rep7", 2, 28, 4, 300, 300, 128, True, 0, 0),
                ("non-causal-40x300", 2, 8, 8, 40, 300, 64, False, 0, 0),
-               ("split-rep7-sq2", 2, 28, 4, 2, 300, 128, True, 0, 298)]
+               ("split-rep7-sq2", 2, 28, 4, 2, 300, 128, True, 0, 298),
+               # phase 3o: a tp rank of qwen3-1.7b at T = 4, its 4 query
+               # heads over 2 kv heads, prefill and decode
+               ("qwen3-tp4-prefill", 4, 4, 2, 1024, 1024, 128, True, 0, 0),
+               ("qwen3-tp4-decode", 4, 4, 2, 1, 1056, 128, True, 0, 1055)]
 # (name, B, S, nh, chunk, decay range)
 WKV_CASES = [("rwkv6-prefill", 4, 1024, 32, 64, (0.3, 0.999)),
              ("ragged", 2, 1000, 8, 64, (0.3, 0.999)),
@@ -3214,7 +3469,10 @@ MAIN_FLASH = {"qwen3-prefill": ("qwen3-1.7b", "wgmma", None),
                                        "cross-decode"),
               "whisper-self-decode": ("whisper-base", "split_kv", "decode"),
               "qwen2vl-prefill": ("qwen2-vl-7b", "wgmma", "prefill"),
-              "qwen2vl-decode": ("qwen2-vl-7b", "split_kv", "decode")}
+              "qwen2vl-decode": ("qwen2-vl-7b", "split_kv", "decode"),
+              # phase 3o's calls summed over its 4 ranks
+              "qwen3-tp4-prefill": ("qwen3-1.7b-tp4", "wgmma", None),
+              "qwen3-tp4-decode": ("qwen3-1.7b-tp4", "split_kv", None)}
 
 
 def flash_inputs(torch, dev, b, h, hkv, sq, skv, d, dtype, seed=0):
@@ -3410,6 +3668,11 @@ def serve_path(torch, ops, fa, configs, model_mod, serve, arch, dev,
     if not timed_only:
         out["rel_err"] = logits_check(torch, ops, model, cfg, params, toks,
                                       res)
+        if cfg.family == "dense":      # phase 3o's reference
+            out["ref"] = {"logits": [lg.cpu() for lg in res["logits"]],
+                          "tokens": res["tokens"].cpu(),
+                          "prefill_s": res["prefill_s"],
+                          "tok_per_s": res["tok_per_s"]}
     del res
     out.update(profile_decode(torch, serve, cfg, params, toks))
     if timed_only:
@@ -4230,8 +4493,10 @@ def main() -> int:
     fsdp = fsdp_plane(torch, replicas["fsdp"], trained, replicas["wall"])
 
     print(f"phase 3l: the tensor plane, each replica over {TP_WORLD} gloo tp "
-          f"ranks on the one card ({smi})")
-    tensor = tensor_plane(torch, trained, "3l")
+          f"ranks on the one card, then phase 3o on its ranks ({smi})")
+    tensor = tensor_plane(torch, trained, "3l",
+                          served["qwen3-1.7b"].pop("ref"))
+    served["qwen3-1.7b-tp4"] = {"paths": tensor.pop("serve_paths")}
 
     print(f"phase 3m: the tensor plane of the ssm family, each rwkv6-1.6b "
           f"replica over {TP_WORLD} gloo tp ranks on the one card ({smi})")

@@ -38,10 +38,21 @@ are pure functions: a spec is a tuple with one entry per dimension,
 ``PartitionSpec`` reads entry for entry; ``shardings`` turns one into
 this rank's index of a leaf.
 
-**Production layouts.** ``make_production_mesh`` and
-``derive_serve_mesh`` return a :class:`RankMesh`, the port's stand-in
-for a ``jax.sharding.Mesh``: the ranks laid out over named axes. Nothing
-runs over them here: their tensor axes are the tensor plane.
+**Production layouts.** ``make_production_mesh`` returns a
+:class:`RankMesh`, the port's stand-in for a ``jax.sharding.Mesh``: the
+ranks laid out over named axes, a layout only. ``derive_serve_mesh``
+returns one too, unless a process group spans its ranks.
+
+**Serve mesh.** Serving has no replicas: the reference refactors the
+devices into ``("pod", "batch", "tp")``, the request batch split over
+``("pod", "batch")`` and each model's tensors over ``tp``. A
+:class:`ServeMesh` lays those axes over the ranks of an initialised
+process group, row-major over ``(pod, batch, tp)`` with tp the fastest,
+as the reference reshapes its devices (``make_serve_mesh``; and
+``derive_serve_mesh`` where a process group spans its ranks). It owns
+the tp group of each ``(pod, batch)`` coordinate; ``shardings`` gives
+each rank its index into a leaf under the reference's serve specs
+(``launch.serve``), and ``gather_serve`` joins the ranks' blocks whole.
 
 **Bank mesh.** The reference's bank mesh is a ``jax.sharding.Mesh``
 with axes ``("edge", "fl")``, the HFL mesh's replica plane. Here a
@@ -58,6 +69,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -77,6 +89,18 @@ def _world():
     """``torch.distributed``, or None when no process group is up."""
     import torch.distributed as dist
     return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def torchrun_world() -> bool:
+    """Under ``torchrun`` (``WORLD_SIZE`` in the environment) and with no
+    process group up yet: initialise the world from the environment on
+    gloo (which runs CPU and CUDA tensors) and return True; else
+    False."""
+    import torch.distributed as dist
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    dist.init_process_group("gloo")
+    return True
 
 
 def _rank_device(device) -> torch.device:
@@ -493,16 +517,180 @@ def make_production_mesh(*, multi_pod: bool = False,
     return RankMesh(np.arange(need).reshape(shape), axes)
 
 
-def derive_serve_mesh(mesh: RankMesh, tp: int) -> RankMesh:
+def derive_serve_mesh(mesh: RankMesh, tp: int, *, device="cuda"):
     """Serving has no replicas: ``("pod", "batch", "tp")`` over the same
-    ranks, as the reference derives it. A layout only: serving over it
-    is the tensor plane of item 10 (b)."""
+    ranks, as the reference derives it (``ValueError`` where ``tp`` does
+    not divide a pod's ranks). Where an initialised process group spans
+    exactly those ranks a runnable :class:`ServeMesh` on ``device``
+    (``make_serve_mesh``, which every rank calls), else a
+    :class:`RankMesh`, a layout only."""
     ranks = mesh.ranks
     n_pods = ranks.shape[0] if ranks.ndim == 3 else 1
     per_pod = ranks.size // n_pods
     if per_pod % tp:
         raise ValueError(f"tp={tp} does not divide {per_pod}")
+    dist = _world()
+    if (dist.get_world_size() if dist is not None else 1) == ranks.size:
+        return make_serve_mesh(tp, ranks=(n_pods, per_pod // tp),
+                               device=device)
     return RankMesh(ranks.reshape(n_pods, per_pod // tp, tp), SERVE_AXES)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeMesh:
+    """``dims`` = (pod, batch, tp) over the ranks of a process group,
+    row-major, tp the fastest axis: rank ``rank`` at ``coords``, on
+    ``device``. ``tp_group`` is the process group of the T ranks at its
+    ``(pod, batch)`` coordinate (None when T = 1). One device: (1, 1, 1),
+    rank 0, no group."""
+    dims: tuple
+    device: torch.device
+    rank: int = 0
+    tp_group: object = dataclasses.field(default=None, compare=False)
+
+    @property
+    def axis_names(self) -> tuple:
+        return SERVE_AXES
+
+    @property
+    def shape(self) -> dict:
+        """``{"pod": p, "batch": b, "tp": T}``, as a JAX mesh's ``shape``
+        reads."""
+        return dict(zip(SERVE_AXES, self.dims))
+
+    @property
+    def tp(self) -> int:
+        return int(self.dims[2])
+
+    @property
+    def n_ranks(self) -> int:
+        return math.prod(self.dims)
+
+    @property
+    def coords(self) -> tuple:
+        """This rank's ``(pod, batch, tp)`` coordinates."""
+        return _coords(self.rank, self.dims)
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coords[2]
+
+    @property
+    def tp_context(self):
+        """The ``models.tp.TPContext`` of this rank's tp group (the
+        serving layers' ``tp=``), None when T = 1."""
+        if self.tp == 1:
+            return None
+        return tp_mod.TPContext(self.tp_group, self.tp, self.tp_rank)
+
+    def index(self, spec: tuple, shape) -> tuple:
+        """This rank's index into a leaf of ``shape`` laid out by
+        ``spec`` (``_serve_index``)."""
+        return _serve_index(spec, tuple(shape), self.dims, self.coords)
+
+
+def _coords(rank: int, dims: tuple) -> tuple:
+    return tuple(int(c) for c in np.unravel_index(rank, dims))
+
+
+def _serve_index(spec: tuple, shape: tuple, dims: tuple, coords: tuple):
+    """The index of the rank at ``coords`` of a serve mesh ``dims`` into
+    a leaf of ``shape`` laid out by ``spec``: one slice per entry, a
+    dimension split over the entry's axes cut into as many equal
+    contiguous blocks as they have ranks, the block of the rank's
+    coordinates over them in row-major order (``("pod", "batch")``: pod
+    p, batch b holds block p B + b, as a ``NamedSharding`` reads two
+    axes); an entry whose axes have one rank, and None, whole. An entry
+    over both ``"batch"`` (of more than one rank) and ``"tp"``, the
+    reference's ``fsdp_serve`` weights, raises ``NotImplementedError``
+    (item 10 (b)); a dimension its blocks do not divide ``ValueError``."""
+    sizes = dict(zip(SERVE_AXES, dims))
+    at = dict(zip(SERVE_AXES, coords))
+    out = []
+    for i, entry in enumerate(spec):
+        axes = () if entry is None else \
+            entry if isinstance(entry, tuple) else (entry,)
+        wide = [a for a in axes if sizes[a] > 1]
+        if "batch" in wide and "tp" in wide:
+            raise NotImplementedError(
+                f"spec {spec} merges a weight's dimension over ('batch', "
+                f"'tp') (the reference's fsdp_serve): {MESH_ITEM}")
+        n, k = 1, 0
+        for a in wide:
+            n, k = n * sizes[a], k * sizes[a] + at[a]
+        if n == 1:
+            out.append(slice(None))
+            continue
+        if shape[i] % n:
+            raise ValueError(f"spec {spec} splits dimension {i} of {shape} "
+                             f"into {n} blocks")
+        m = shape[i] // n
+        out.append(slice(k * m, (k + 1) * m))
+    return tuple(out)
+
+
+def make_serve_mesh(tp: int, *, ranks=None, device="cuda") -> ServeMesh:
+    """A serve mesh of ``ranks`` = (pod, batch) rank coordinates (default
+    ``(1, world / tp)``; one device without a process group) times
+    ``tp`` tp ranks, over an initialised process group of exactly that
+    many ranks, row-major over ``(pod, batch, tp)``. It builds the tp
+    groups with ``dist.new_group``, so every rank calls it with the same
+    arguments; ``device="cuda"`` puts this rank's blocks on ``cuda:{r %
+    cards}``. ``ValueError`` where the group does not fit the mesh."""
+    tp = int(tp)
+    dist = _world()
+    world = dist.get_world_size() if dist is not None else 1
+    if ranks is None:
+        if tp < 1 or world % tp:
+            raise ValueError(f"tp={tp} does not divide the world's {world} "
+                             f"ranks")
+        ranks = (1, world // tp)
+    dims = tuple(int(a) for a in ranks) + (tp,)
+    if len(dims) != 3 or min(dims) < 1:
+        raise ValueError(f"serve mesh {dims} must be (pod, batch, tp) >= 1")
+    k = math.prod(dims)
+    if k == 1:
+        return ServeMesh(dims=dims, device=resolve_device(device))
+    if world != k:
+        raise ValueError(f"serve mesh {dims} needs an initialised "
+                         f"torch.distributed process group of {k} ranks")
+    rank = dist.get_rank()
+    dev = _rank_device(device)
+    group = None
+    if tp > 1:
+        for members in np.arange(k).reshape(-1, tp):
+            g = dist.new_group(members.tolist())     # every rank, in order
+            if rank in members:
+                group = g
+    return ServeMesh(dims=dims, device=dev, rank=rank, tp_group=group)
+
+
+def gather_serve(block, spec: tuple, mesh: ServeMesh):
+    """The whole leaf on every rank from each rank's ``block`` of it laid
+    out by ``spec`` over ``mesh`` (``shardings``): one ``all_gather`` of
+    the blocks' bytes over the mesh's ranks (every rank calls it), each
+    placed at its rank's index; of ranks that hold the same block (an
+    axis the spec does not name) the lowest rank's is kept. The block
+    itself when ``spec`` splits nothing."""
+    sizes = mesh.shape
+    n = []
+    for entry in spec:
+        axes = () if entry is None else \
+            entry if isinstance(entry, tuple) else (entry,)
+        n.append(math.prod(sizes[a] for a in axes))
+    n += [1] * (block.dim() - len(n))
+    if math.prod(n) == 1:
+        return block
+    whole_shape = tuple(s * m for s, m in zip(block.shape, n))
+    raw = block.contiguous().view(torch.uint8)
+    parts = [torch.empty_like(raw) for _ in range(mesh.n_ranks)]
+    _world().all_gather(parts, raw)
+    whole = torch.empty(whole_shape, dtype=block.dtype, device=block.device)
+    for r in reversed(range(mesh.n_ranks)):    # the lowest rank writes last
+        idx = _serve_index(spec, whole_shape, mesh.dims,
+                           _coords(r, mesh.dims))
+        whole[idx] = parts[r].view(block.dtype).view(block.shape)
+    return whole
 
 
 # ---------------------------------------------------------------------------
@@ -631,13 +819,16 @@ def hfl_param_specs(cfg, params_shape, mesh=None) -> dict:
 def _map_specs(fn, tree, shapes=None):
     """``fn(spec, shape)`` over a tree of specs (dicts and lists of
     tuples), ``shape`` the ``.shape`` of the leaf at the same place in
-    ``shapes`` (None without ``shapes``)."""
+    ``shapes`` (a tuple there is the shape itself; None without
+    ``shapes``)."""
     at = (lambda k: None) if shapes is None else (lambda k: shapes[k])
     if isinstance(tree, dict):
         return {k: _map_specs(fn, v, at(k)) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_map_specs(fn, v, at(i)) for i, v in enumerate(tree)]
-    return fn(tree, None if shapes is None else tuple(shapes.shape))
+    if shapes is None:
+        return fn(tree, None)
+    return fn(tree, tuple(getattr(shapes, "shape", shapes)))
 
 
 def shardings(mesh, specs, shapes=None):
@@ -648,10 +839,15 @@ def shardings(mesh, specs, shapes=None):
     ``("fsdp", "tp")``), as a ``PartitionSpec`` reads, and the whole of
     every other dimension. A tensor block needs the leaf's size:
     ``shapes`` is a tree of the whole leaves (anything with ``.shape``,
-    lifted as the specs are), else ``ValueError``. An entry naming a
-    tensor axis of more than one rank of another layout (a
-    ``derive_serve_mesh`` layout's tp, say) raises
+    or shape tuples, lifted as the specs are), else ``ValueError``. On a
+    :class:`ServeMesh` the specs are the serve layout's
+    (``launch.serve``'s ``serve_specs_for_params``, ``cache_specs``) and
+    each index is the rank's block under them (``ServeMesh.index``:
+    ``shapes`` needed). An entry naming a tensor axis of more than one
+    rank of a layout only (a :class:`RankMesh`'s tp, say) raises
     ``NotImplementedError``: the tensor plane of item 10 (b)."""
+    if isinstance(mesh, ServeMesh):
+        return _map_specs(mesh.index, specs, shapes)
     hfl = isinstance(mesh, HFLMesh)
     sizes = dict(mesh.shape)
 

@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import argparse
 import math
-import os
 import time
 from typing import Optional
 
@@ -63,6 +62,7 @@ from repro_torch.device import disable_tf32
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import tp as tp_mod
+from repro_torch.models import transformer
 from repro_torch.models.model import build_model
 
 
@@ -342,16 +342,10 @@ def make_hfl_train_step(cfg, hfl_mesh, *, lr: float = 1e-3,
                 _cloud_mean(params, hfl_mesh, low)
             return params
 
-    param_specs = mesh_lib.hfl_param_specs(cfg, _meta_params(cfg), hfl_mesh)
+    param_specs = mesh_lib.hfl_param_specs(
+        cfg, transformer.meta_params(cfg), hfl_mesh)
     batch_spec = (mesh_lib.REPLICA_AXES,)
     return train_step, param_specs, batch_spec
-
-
-def _meta_params(cfg) -> dict:
-    """The parameter tree's shapes, as meta tensors (nothing allocated)."""
-    from repro_torch.models import transformer
-    return transformer.init_params(torch.Generator(), cfg,
-                                   torch.device("meta"))
 
 
 def lift_params(params, n_pod: int, n_edge: int, n_fl: int) -> dict:
@@ -361,18 +355,6 @@ def lift_params(params, n_pod: int, n_edge: int, n_fl: int) -> dict:
     the round would train it in place)."""
     return _map(lambda a: a.expand((n_pod, n_edge, n_fl) + tuple(a.shape))
                 .clone(memory_format=torch.contiguous_format), params)
-
-
-def _torchrun_world():
-    """Under ``torchrun`` (``WORLD_SIZE`` in the environment) and with no
-    process group up yet: initialise the world from the environment on
-    gloo (which runs CPU and CUDA tensors) and return True; else
-    False."""
-    import torch.distributed as dist
-    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
-        return False
-    dist.init_process_group("gloo")
-    return True
 
 
 def main(argv=None):
@@ -426,7 +408,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    owned = _torchrun_world()
+    owned = mesh_lib.torchrun_world()
     try:
         k = dist.get_world_size() if dist.is_initialized() else 1
         if args.mesh == "micro":

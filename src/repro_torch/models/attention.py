@@ -183,22 +183,33 @@ def self_attention(params, cfg, x, positions=None, *, causal=True,
                           device=x.device)
         out = chunked_attention(q, k, v, causal=False, chunk=chunk,
                                 kv_positions=kvp).reshape(b, s, -1)
-    wo = params["wo"].to(x.dtype)
+    return _out_proj(params, out, tp)
+
+
+def _out_proj(params, out, tp):
+    """The output projection ``out @ wo``; under ``tp`` the row-parallel
+    product of this rank's heads and its row block of ``wo``
+    (``tp.row``: the f32 partials summed over the group, rounded once)."""
+    wo = params["wo"].to(out.dtype)
     return out @ wo if tp is None else tp_mod.row(out, wo, tp)
 
 
-def prefill_attention(params, cfg, x, *, window: int = 0, mpos=None):
+def prefill_attention(params, cfg, x, *, window: int = 0, mpos=None,
+                      tp=None):
     """Prefill: returns (out, (k, v, kvpos)) with k/v (B, C, Hkv, D) and
     kvpos (B, C) int32 absolute positions. The attention runs the
     kernel's causal mask, with ``window`` its sliding window. C = S,
     except with ``window`` and S > window: then the cache is a ring of
     the last ``window`` positions, position p at slot ``p % window``
     (the reference's ring buffer). ``mpos``: M-RoPE's position streams;
-    the cache positions stay the slots' 0 .. S - 1."""
+    the cache positions stay the slots' 0 .. S - 1. ``tp`` (serving over
+    a serve mesh): ``params`` hold this rank's heads (``_project_qkv``),
+    the kernel sees H / T query heads over Hkv / T kv heads, k/v are the
+    rank's Hkv / T heads and ``out`` is whole (``_out_proj``)."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
-    q, k, v = _project_qkv(params, cfg, x, positions, mpos)
-    out = _attend(q, k, v, window=window) @ params["wo"].to(x.dtype)
+    q, k, v = _project_qkv(params, cfg, x, positions, mpos, tp)
+    out = _out_proj(params, _attend(q, k, v, window=window), tp)
     pos = positions.expand(b, s).contiguous()
     if window and s > window:
         # position s - window + j goes to slot (s + j) % window: the tail
@@ -210,7 +221,7 @@ def prefill_attention(params, cfg, x, *, window: int = 0, mpos=None):
 
 
 def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0,
-                     mpos=None):
+                     mpos=None, tp=None):
     """One-token decode. x: (B, 1, d); cache: (k, v, kvpos) with k/v
     (B, C, Hkv, D) and kvpos (B, C) absolute positions (-1 = empty); pos:
     the new token's absolute position (a host int). ``mpos`` (3, B, 1):
@@ -237,7 +248,10 @@ def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0,
       a shorter prompt's cache). The reference's mask then keeps every
       slot, which is **non-causal** attention over all C slots; softmax
       is order-free, so only the summation order differs. A wrapped ring
-      longer than the window would need explicit positions and raises."""
+      longer than the window would need explicit positions and raises.
+
+    ``tp``: as in ``prefill_attention``, the cache holding this rank's
+    Hkv / T heads."""
     b = x.shape[0]
     k_cache, v_cache, kvpos = cache
     c = k_cache.shape[1]
@@ -249,7 +263,7 @@ def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0,
                          f"window {window}")
     slot = pos % c
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(params, cfg, x, positions, mpos)
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions, mpos, tp)
     k_cache[:, slot] = k_new[:, 0]
     v_cache[:, slot] = v_new[:, 0]
     kvpos[:, slot] = pos
@@ -257,7 +271,7 @@ def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0,
         out = _attend(q, k_cache, v_cache, causal=False)
     else:
         out = _attend(q, k_cache, v_cache, window=window, q_offset=pos)
-    return out @ params["wo"].to(x.dtype), (k_cache, v_cache, kvpos)
+    return _out_proj(params, out, tp), (k_cache, v_cache, kvpos)
 
 
 # ---------------------------------------------------------------------------

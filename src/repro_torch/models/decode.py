@@ -32,6 +32,15 @@ over the ring (``attention.decode_attention``). As in the reference, an
 ``decode_step`` updates the cache tensors IN PLACE and returns the same
 dict (the reference returns an updated copy; the port saves a copy of
 the whole cache per generated token).
+
+``tp`` (a ``models.tp.TPContext``; the dense family only,
+``tp.check_serve``): serving on one rank of a serve mesh
+(``launch.serve``). ``params`` are the rank's blocks under the
+reference's serve specs, the cache holds the rank's batch rows and its
+Hkv / T kv heads (``launch.serve.cache_specs``), attention runs on the
+rank's heads, the FFN over its column and row blocks, the embedding
+vocab-parallel, and the logits are the rank's vocabulary block
+(``transformer.logits_from_hidden``).
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, rwkv, ssm, transformer
+from repro_torch.models import tp as tp_mod
 
 
 def _n_app(cfg) -> int:
@@ -50,13 +60,14 @@ def _n_app(cfg) -> int:
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, window: int = 0,
-               enc_seq=None, device="cuda") -> dict[str, Any]:
+               enc_seq=None, device="cuda", tp=None) -> dict[str, Any]:
     """Zeroed cache on ``device`` (empty kv slots have position -1).
     ``cache_len`` already equals the ring's length for windowed decode;
     ``window`` is the reference's argument and changes nothing here.
     ``enc_seq``: an audio model's encoder length (default
-    ``cfg.enc_seq``)."""
+    ``cfg.enc_seq``). ``tp``: a rank's cache, Hkv / T kv heads."""
     transformer.check_family(cfg)
+    _check_tp(cfg, tp)
     device = resolve_device(device)
     L, dt = cfg.n_layers, cfg.adtype
     if cfg.family == "hybrid":
@@ -73,7 +84,8 @@ def init_cache(cfg, batch: int, cache_len: int, *, window: int = 0,
                                    dtype=torch.int32, device=device),
                 "t": 0}
     if cfg.family != "ssm":
-        kv = (L, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        nkv = cfg.n_kv_heads // (1 if tp is None else tp.size)
+        kv = (L, batch, cache_len, nkv, cfg.head_dim)
         out = {"k": torch.zeros(kv, dtype=dt, device=device),
                "v": torch.zeros(kv, dtype=dt, device=device),
                "pos": torch.full((L, batch, cache_len), -1,
@@ -97,8 +109,13 @@ def init_cache(cfg, batch: int, cache_len: int, *, window: int = 0,
             "t": 0}
 
 
+def _check_tp(cfg, tp) -> None:
+    if tp is not None:
+        tp_mod.check_serve(cfg, tp.size)
+
+
 def prefill(params, cfg, tokens, *, extras=None, window: int = 0,
-            max_new: int = 0):
+            max_new: int = 0, tp=None):
     """Processes the prompt, returns (last-position logits (B, V), cache).
     ``max_new`` reserves cache headroom for subsequent decode steps: the
     attention cache is allocated at S + max_new slots and each layer's
@@ -111,10 +128,12 @@ def prefill(params, cfg, tokens, *, extras=None, window: int = 0,
     decoder layer's cross k/v go into the cache's ``ck``/``cv``) or
     ``vision_embed`` (vlm: the projected vision embeddings precede the
     prompt, so S counts them, and ``dpos`` = the last text position's
-    M-RoPE position + 1 - S)."""
+    M-RoPE position + 1 - S). ``tp``: one rank of a serve mesh (module
+    docstring); the logits are the rank's vocabulary block."""
     transformer.check_family(cfg)
+    _check_tp(cfg, tp)
     b, s = tokens.shape
-    x, mpos = transformer.embed_inputs(params, cfg, tokens, extras)
+    x, mpos = transformer.embed_inputs(params, cfg, tokens, extras, tp)
     if cfg.family == "hybrid":
         x, cache = _hybrid_prefill(params, cfg, x, window=window,
                                    max_new=max_new)
@@ -128,17 +147,18 @@ def prefill(params, cfg, tokens, *, extras=None, window: int = 0,
         s = x.shape[1]
         n = min(s, window) if window else s
         cache = init_cache(cfg, b, n if window else s + max_new,
-                           device=x.device)
+                           device=x.device, tp=tp)
         for i in range(cfg.n_layers):
             lp = transformer.layer(params["layers"], i)
             h = common.rms_norm(x, lp["ln1"])
             out, (k, v, p) = attention.prefill_attention(
-                lp["attn"], cfg, h, window=window, mpos=mpos)
+                lp["attn"], cfg, h, window=window, mpos=mpos, tp=tp)
             cache["k"][i, :, :n] = k
             cache["v"][i, :, :n] = v
             cache["pos"][i, :, :n] = p
             x = x + out
-            h, _ = transformer.ffn(lp, cfg, common.rms_norm(x, lp["ln2"]))
+            h, _ = transformer.ffn(lp, cfg, common.rms_norm(x, lp["ln2"]),
+                                   ft=tp)
             x = x + h
         if mpos is not None:
             # the last text token sits at M-RoPE position g + n_text - 1
@@ -160,7 +180,7 @@ def prefill(params, cfg, tokens, *, extras=None, window: int = 0,
             cache["ax"][i], cache["S"][i], cache["cx"][i] = ax, st, cx
     cache["t"] = s
     h = common.rms_norm(x[:, -1:], params["final_norm"])
-    return transformer.logits_from_hidden(params, cfg, h)[:, 0], cache
+    return transformer.logits_from_hidden(params, cfg, h, tp)[:, 0], cache
 
 
 def _hybrid_prefill(params, cfg, x, *, window: int, max_new: int):
@@ -265,12 +285,15 @@ def _hybrid_decode(params, cfg, cache, x, pos: int, *, window: int):
     return transformer.logits_from_hidden(params, cfg, h)[:, 0], cache
 
 
-def decode_step(params, cfg, cache, tokens, *, window: int = 0):
+def decode_step(params, cfg, cache, tokens, *, window: int = 0, tp=None):
     """tokens: (B, 1) int. Returns (logits (B, V), cache), the cache
-    updated in place and ``cache["t"]`` advanced by one."""
+    updated in place and ``cache["t"]`` advanced by one. ``tp``: one rank
+    of a serve mesh (module docstring); the logits are the rank's
+    vocabulary block."""
     transformer.check_family(cfg)
+    _check_tp(cfg, tp)
     pos = cache["t"]
-    x = transformer.embed(params, cfg, tokens[:, :1])
+    x = transformer.embed(params, cfg, tokens[:, :1], tp)
     if cfg.family == "hybrid":
         return _hybrid_decode(params, cfg, cache, x, pos, window=window)
     if cfg.family == "audio":
@@ -287,9 +310,10 @@ def decode_step(params, cfg, cache, tokens, *, window: int = 0):
             out, _ = attention.decode_attention(
                 lp["attn"], cfg, h,
                 (cache["k"][i], cache["v"][i], cache["pos"][i]), pos,
-                window=window, mpos=mpos)
+                window=window, mpos=mpos, tp=tp)
             x = x + out
-            h, _ = transformer.ffn(lp, cfg, common.rms_norm(x, lp["ln2"]))
+            h, _ = transformer.ffn(lp, cfg, common.rms_norm(x, lp["ln2"]),
+                                   ft=tp)
             x = x + h
         else:
             out, (ax, st) = rwkv.time_mix_forward(
@@ -303,4 +327,4 @@ def decode_step(params, cfg, cache, tokens, *, window: int = 0):
             cache["ax"][i], cache["S"][i], cache["cx"][i] = ax, st, cx
     cache["t"] = pos + 1
     h = common.rms_norm(x, params["final_norm"])
-    return transformer.logits_from_hidden(params, cfg, h)[:, 0], cache
+    return transformer.logits_from_hidden(params, cfg, h, tp)[:, 0], cache

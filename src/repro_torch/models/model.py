@@ -96,19 +96,22 @@ class Model:
         return transformer.logits_from_hidden(params, self.cfg, h)
 
     # ---- serving ----------------------------------------------------------
+    # ``tp`` (a ``models.tp.TPContext``): one rank of a serve mesh, the
+    # dense family only (``models.decode``, ``launch.serve``)
     def init_cache(self, batch: int, cache_len: int, *, window: int = 0,
-                   enc_seq=None, device="cuda"):
+                   enc_seq=None, device="cuda", tp=None):
         return decode.init_cache(self.cfg, batch, cache_len, window=window,
-                                 enc_seq=enc_seq, device=device)
+                                 enc_seq=enc_seq, device=device, tp=tp)
 
     def prefill(self, params, tokens, *, extras=None, window: int = 0,
-                max_new: int = 0):
+                max_new: int = 0, tp=None):
         return decode.prefill(params, self.cfg, tokens, extras=extras,
-                              window=window, max_new=max_new)
+                              window=window, max_new=max_new, tp=tp)
 
-    def decode_step(self, params, cache, tokens, *, window: int = 0):
+    def decode_step(self, params, cache, tokens, *, window: int = 0,
+                    tp=None):
         return decode.decode_step(params, self.cfg, cache, tokens,
-                                  window=window)
+                                  window=window, tp=tp)
 
 
 def _extras(batch: dict) -> dict:

@@ -64,6 +64,12 @@ nh/T, (t + 1) nh/T)`` of r, k, v, g and the decay, and their rows of
 does not divide stays whole on every rank (``launch.mesh``'s guard, the
 reference's rule: whisper's vocabulary of 51,865 over F x T = 2);
 ``split`` tells the layers which leaves are split from their shapes.
+
+Serving over a serve mesh (``launch.serve``) runs the same forward
+products on a rank's blocks, without gradients: the attention and FFN
+products through ``column`` and ``row``, the vocab-parallel lookup
+through ``reduce_from``, and the logits as the rank's vocabulary block
+(``check_serve`` says which models it takes).
 """
 from __future__ import annotations
 
@@ -114,6 +120,27 @@ def check(cfg, size: int, fsdp: int = 1) -> None:
         raise ValueError(
             f"{cfg.name}: tp={size} does not divide " + " and ".join(
                 f"{k}={v}" for k, v in heads.items()) + " into whole heads")
+
+
+def check_serve(cfg, size: int) -> None:
+    """Raise where ``cfg`` cannot be served over a serve mesh whose
+    replicas are split over ``size`` tp ranks (``launch.serve``'s steps
+    over a ``launch.mesh.ServeMesh``): ``NotImplementedError`` outside
+    the dense family (mesh serving of the other families is the tensor
+    plane of item 10 (b)), ``ValueError`` where T does not divide both
+    head counts. There the reference's ``cache_specs`` splits the cache
+    length over tp instead of the kv heads, which the port does not run
+    yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: mesh serving of the {cfg.family!r} family is the "
+            f"tensor plane of {TP_ITEM}; only the dense family is served "
+            f"over a serve mesh")
+    if cfg.n_heads % size or cfg.n_kv_heads % size:
+        raise ValueError(
+            f"{cfg.name}: tp={size} does not divide n_heads={cfg.n_heads} "
+            f"and n_kv_heads={cfg.n_kv_heads} into whole heads (the cache "
+            f"split over its length is {TP_ITEM})")
 
 
 def split(ctx, local: int, whole: int):

@@ -184,6 +184,12 @@ def init_params(gen: torch.Generator, cfg, device) -> dict[str, Any]:
     return params
 
 
+def meta_params(cfg) -> dict:
+    """The parameter tree's shapes and dtypes, as meta tensors (nothing
+    allocated)."""
+    return init_params(torch.Generator(), cfg, torch.device("meta"))
+
+
 def ffn(bp, cfg, h, *, ep_axis=None, ep_size=1, ft=None):
     """The block's FFN: (out, aux), aux the MoE load-balance loss or None
     for a SwiGLU block. ``ft`` (the ft group's context): the SwiGLU's
@@ -474,6 +480,13 @@ def _hybrid_forward(params, cfg, x, *, remat, window, attn_chunk):
     return x
 
 
-def logits_from_hidden(params, cfg, h):
+def logits_from_hidden(params, cfg, h, tp=None):
+    """``h @ unembed`` (``embed.T`` when tied) in ``h``'s dtype. Under
+    ``tp`` (serving over a serve mesh) with the vocabulary split this
+    rank's vocab block of the logits, ``[:, i V/T, (i + 1) V/T)`` at tp
+    rank i: each logit is one dot product over d, so the block is bitwise
+    those columns of the one-device logits; with the vocabulary whole
+    (T does not divide it) the whole logits."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    tp_mod.split(tp, w.shape[1], cfg.vocab)      # whole or 1/T, else raise
     return h @ w.to(h.dtype)

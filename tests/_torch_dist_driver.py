@@ -37,7 +37,9 @@ from repro_torch.data.synthetic import token_batch
 from repro_torch.device import deterministic_algorithms
 from repro_torch.kernels import hier_agg, ops, ref
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import serve
 from repro_torch.models import tp as tp_mod
+from repro_torch.models import transformer
 from repro_torch.models.model import build_model
 from repro_torch.runtime import (AsyncConfig, ChurnEvent, FaultSpec,
                                  StalenessBuffer)
@@ -90,6 +92,17 @@ FSDP_LOSSES = {2: [(TRAIN_ARCH, 2, 1, None), (AUDIO_ARCH, 2, 1, None),
                4: [(TRAIN_ARCH, 2, 2, None), (AUDIO_ARCH, 4, 1, None)]}
 # families fsdp above 1 still refuses (item 10 (b))
 FSDP_REFUSED = (RWKV_ARCH, "zamba2-7b", "qwen2-vl-7b", "olmoe-1b-7b")
+# mesh serving: tp_config's reduced qwen3 over the serve mesh (pod,
+# batch, tp) of each world, at each request batch (world 4: batch 2 split
+# over the two batch groups, batch 3 replicated by _batch_axes), prefill
+# of SERVE_PROMPT tokens, SERVE_STEPS teacher-forced decode steps, with
+# and without a window (8 < the prompt: a ring that wraps)
+SERVE_LAYOUTS = {2: [((1, 1, 2), 2)], 4: [((1, 2, 2), 2), ((1, 2, 2), 3)]}
+SERVE_PROMPT, SERVE_STEPS = 16, 4
+SERVE_WINDOWS = (0, 8)
+# a dense model over 4 GiB of f32 parameters a rank at T = 2: the
+# reference's fsdp_serve, which mesh serving refuses
+SERVE_FSDP_ARCH = "phi3-medium-14b"
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +240,13 @@ def tp_loss_batch(cfg) -> dict:
         out["enc_embed"] = np.random.default_rng(6).normal(
             size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
     return out
+
+
+def serve_tokens(batch: int):
+    """The mesh serve's tokens: ``batch`` sequences of the prompt and the
+    fed tokens (seed 11), numpy."""
+    return token_batch(11, batch, SERVE_PROMPT + SERVE_STEPS, 512,
+                       device="cpu")["tokens"].numpy()
 
 
 def resync_inputs():
@@ -875,7 +895,7 @@ def _placement(hm, reps, cfg, params: dict) -> dict:
     """``shardings``, ``place_params``, ``tp_blocks``, ``gather_params``
     and ``gather_replica`` on ``hm`` of ``cfg``'s flat numpy ``params``,
     replica r scaled by r + 1, lifted to replicas ``reps``."""
-    specs = mesh_lib.hfl_param_specs(cfg, train._meta_params(cfg), hm)
+    specs = mesh_lib.hfl_param_specs(cfg, transformer.meta_params(cfg), hm)
     one = weights.tree_from_numpy(_nest(params), "cpu")
     whole = train._map(lambda a: torch.stack([a * (r + 1) for r in range(
         reps[2])]).reshape(reps + tuple(a.shape)), one)
@@ -1185,6 +1205,86 @@ def case_mesh(world, inp):
     return out
 
 
+def _serve_run(cfg, params, mesh, batch: int, window: int) -> dict:
+    """``serve``'s steps over ``mesh`` from the whole ``params``: the
+    prefill of ``SERVE_PROMPT`` tokens (``max_new`` ``SERVE_STEPS``)
+    and ``SERVE_STEPS`` decode steps fed ``serve_tokens(batch)``, each
+    on this rank's blocks and rows (``serve.take`` of the factories'
+    shardings). Returns the rank's prefill logits and cache blocks, the
+    decode steps' logits and the cache blocks after the last step."""
+    toks = torch.from_numpy(serve_tokens(batch))
+    pre, param_sh, batch_sh, _ = serve.make_prefill_step(
+        cfg, mesh, batch=batch, seq=SERVE_PROMPT, window=window,
+        max_new=SERVE_STEPS)
+    blocks = serve.take(params, param_sh)
+    c = min(SERVE_PROMPT, window) if window else SERVE_PROMPT + SERVE_STEPS
+    dec, _, _, token_sh = serve.make_decode_step(
+        cfg, mesh, batch=batch, cache_len=c, window=window)
+    with torch.no_grad():
+        logits, cache = pre(blocks,
+                            {"tokens": toks[batch_sh][:, :SERVE_PROMPT]})
+        # copies: the decode steps write the cache in place
+        out = {"prefill": _np(logits), "prefill_cache": _np({
+            k: cache[k].clone() for k in ("k", "v", "pos")}),
+            "t": [cache["t"]]}
+        steps = []
+        for i in range(SERVE_PROMPT, SERVE_PROMPT + SERVE_STEPS):
+            lg, cache = dec(blocks, cache, toks[:, i:i + 1][token_sh])
+            steps.append(_np(lg))
+            out["t"].append(cache["t"])
+    out["steps"] = steps
+    out["cache"] = _np({k: cache[k] for k in ("k", "v", "pos")})
+    return out
+
+
+def case_serve_mesh(world, inp):
+    """Mesh serving over this world: for each layout and batch of
+    ``SERVE_LAYOUTS[world]`` and each window of ``SERVE_WINDOWS``,
+    ``_serve_run`` of ``tp_config``'s reduced qwen3 (f32 activations) on
+    ``inp["tp_params"]``; the mesh's shape, coordinates and group; this
+    rank's parameter blocks at the first layout; ``derive_serve_mesh``
+    of the world's ranks at tp = 2; and the refusals:
+    reduced rwkv6 (a non-dense family: ``NotImplementedError``), at world
+    4 reduced qwen3 at T = 4 (2 kv heads: ``ValueError``) and
+    ``SERVE_FSDP_ARCH`` at (1, 2, 2) (``fsdp_serve`` with batch 2:
+    ``NotImplementedError``)."""
+    cfg = tp_config(configs)
+    params = weights.tree_from_numpy(_nest(inp["tp_params"][TRAIN_ARCH]),
+                                     "cpu")
+    out = {"runs": {}}
+    for dims, batch in SERVE_LAYOUTS[world]:
+        mesh = mesh_lib.make_serve_mesh(dims[2], ranks=dims[:2],
+                                        device="cpu")
+        out["mesh"] = (mesh.shape, mesh.coords, mesh.tp_rank,
+                       mesh.tp_group is not None)
+        if "blocks" not in out:
+            param_sh = serve.make_prefill_step(cfg, mesh, batch=batch,
+                                               seq=SERVE_PROMPT)[1]
+            out["blocks"] = _np(_flat(serve.take(params, param_sh)))
+        for window in SERVE_WINDOWS:
+            out["runs"][(dims, batch, window)] = _serve_run(
+                cfg, params, mesh, batch, window)
+    # the world's ranks as a one-pod ("data", "model") layout: a process
+    # group spans them, so derive_serve_mesh builds a runnable mesh
+    layout = mesh_lib.RankMesh(np.arange(world).reshape(1, world),
+                               ("data", "model"))
+    derived = mesh_lib.derive_serve_mesh(layout, 2, device="cpu")
+    out["derived"] = (type(derived).__name__, derived.shape,
+                      derived.coords)
+    errors = {"family": _raises(NotImplementedError, lambda: (
+        serve.make_decode_step(tp_config(configs, RWKV_ARCH), mesh,
+                               batch=2, cache_len=20)))}
+    if world == 4:
+        m4 = mesh_lib.make_serve_mesh(4, device="cpu")
+        errors["heads"] = _raises(ValueError, lambda: (
+            serve.make_prefill_step(cfg, m4, batch=2, seq=16)))
+        errors["fsdp_serve"] = _raises(NotImplementedError, lambda: (
+            serve.make_decode_step(configs.get_config(SERVE_FSDP_ARCH), mesh,
+                                   batch=2, cache_len=20)))
+    out["errors"] = errors
+    return out
+
+
 CASES = [("context", (1,), case_context),
          ("agg_mixed", (1, 2, 4), case_agg_mixed),
          ("uneven", (4,), case_uneven),
@@ -1209,7 +1309,8 @@ CASES = [("context", (1,), case_context),
          ("tp", (2, 4), case_tp),
          ("tp_rwkv", (2, 4), case_tp_rwkv),
          ("tp_gather", (2, 4), case_tp_gather),
-         ("fsdp", (2, 4), case_fsdp)]
+         ("fsdp", (2, 4), case_fsdp),
+         ("serve_mesh", (2, 4), case_serve_mesh)]
 
 
 def card_aggregation(rank: int, world: int, port: int, outdir: str) -> None:
@@ -1499,6 +1600,49 @@ def card_fsdp_loss(rank: int, world: int, port: int, outdir: str) -> None:
                               "grads": {k: g.cpu() for k, g in
                                         grads.items()}}
             out[vocab] = res
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def card_serve_mesh(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of a gloo group on the card (a spawn target of
+    ``tests/test_torch_cuda.py``): reduced qwen3 (seed-3 weights drawn on
+    the card) served over the serve mesh ``(1, 1, world)``, prefill of 16
+    tokens and 4 decode steps fed the one-device serve's greedy tokens,
+    in bf16 and in f32 activations, beside the one-device serve of the
+    same weights in this process; the launch counts and flash paths set
+    to 0 just before each mesh serve. Writes every step's logits of both
+    serves (on the CPU), the launches and the paths to
+    ``outdir/rank<r>.pt``."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = mesh_lib.make_serve_mesh(world, device="cuda")
+        dev = mesh.device
+        out = {"device": str(dev)}
+        for act in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH).reduce(),
+                                      activ_dtype=act)
+            params = build_model(cfg).init(
+                torch.Generator(device=dev).manual_seed(3), dev)
+            toks = token_batch(4, 2, 16, cfg.vocab, device=dev)["tokens"]
+            one = serve.greedy_serve(cfg, params, toks, 4)
+            _, param_sh, _, _ = serve.make_prefill_step(
+                cfg, mesh, batch=2, seq=16, max_new=4)
+            blocks = serve.take(params, param_sh)
+            ops.reset_launches()
+            fa.reset_paths()
+            split = serve.greedy_serve(cfg, blocks, toks, 4, mesh=mesh,
+                                       forced=one["tokens"])
+            out[act] = {"launches": dict(ops.LAUNCHES),
+                        "paths": dict(fa.PATH_CALLS),
+                        "one": [lg.cpu() for lg in one["logits"]],
+                        "mesh": [lg.cpu() for lg in split["logits"]],
+                        "fed": split["tokens"].cpu(),
+                        "greedy": one["tokens"].cpu()}
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -1129,6 +1129,42 @@ def test_tp_train_step_on_card(cuda_dev, tmp_path):
                        for k, v in r["replicated"][i].items())
 
 
+def test_serve_mesh_two_ranks_on_card(cuda_dev, tmp_path):
+    """Mesh serving on the card: reduced qwen3 served over the serve mesh
+    (1, 1, 2) of 2 gloo ranks spawned on the one card (a rank's 2 query
+    heads over 1 kv head), prefill of 16 tokens and 4 decode steps fed
+    the one-device serve's greedy tokens: every step's logits whole and
+    bitwise equal on both ranks, within relative L2 0.1 of the
+    one-device serve's in bf16 and 1e-4 in f32; each rank launches
+    ``flash_attention`` once per layer for the prefill (the ``wgmma``
+    path in bf16) and once per layer and step for the decode
+    (``split_kv``)."""
+    import torch.multiprocessing as mp
+    import _torch_dist_driver as drv
+    mp.spawn(drv.card_serve_mesh, args=(2, _free_port(), str(tmp_path)),
+             nprocs=2, join=True)
+    res = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    for r in res:
+        assert r["device"].startswith("cuda")
+        for act in ("bfloat16", "float32"):
+            got = r[act]
+            assert torch.equal(got["fed"], got["greedy"])
+            assert got["launches"]["flash_attention"] == 2 * 5
+            assert got["paths"] == {
+                "wgmma": 2 if act == "bfloat16" else 0,
+                "f32_tile": 0 if act == "bfloat16" else 2,
+                "split_kv": 2 * 4}
+            for a, b, c in zip(got["mesh"], got["one"],
+                               res[0][act]["mesh"]):
+                assert torch.equal(a, c)
+                if act == "bfloat16":
+                    rel = (a.float() - b.float()).norm() / b.float().norm()
+                    assert float(rel) <= 0.1
+                else:
+                    assert torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
 def test_fsdp_train_step_on_card(cuda_dev, tmp_path):
     """The fsdp axis on the card: the reduced qwen3 (2, 2) round (f32
     activations, vocab 128) on replicas (1, 2, 2), each replica over F =

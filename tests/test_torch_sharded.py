@@ -34,6 +34,7 @@ from _torch_parity import (jax_async_perm_sources, jax_env_perm_source,
 from repro import configs as jconfigs
 from repro.core import hfl as jhfl
 from repro.launch import mesh as jmesh
+from repro.launch import serve as jserve
 from repro.core import sync as jsync
 from repro.kernels import ref as jref
 from repro.models import build_model as j_build_model
@@ -1491,3 +1492,146 @@ def test_tp_check_takes_fsdp_for_dense_and_audio(arch, tp, fsdp, ok):
     else:
         with pytest.raises(NotImplementedError, match="item 10 \\(b\\)"):
             tp_mod.check(cfg, tp, fsdp)
+
+
+# ---------------------------------------------------------------------------
+# mesh serving: reduced qwen3 over a (pod, batch, tp) serve mesh (case
+# "serve_mesh" of `_torch_dist_driver.py`)
+# ---------------------------------------------------------------------------
+
+SERVE_CASES = [(w, dims, b, win) for w in (2, 4)
+               for dims, b in drv.SERVE_LAYOUTS[w]
+               for win in drv.SERVE_WINDOWS]
+
+
+class _ServeShape:
+    """All the reference's serve spec functions read of a mesh."""
+
+    def __init__(self, dims):
+        self.shape = dict(zip(jmesh.SERVE_AXES, dims))
+
+
+def _serve_block(a, spec, dims, coords):
+    """The block of ``a`` that ``spec`` (a ``PartitionSpec``) gives the
+    serve-mesh rank at ``coords`` of ``dims``: each named dimension
+    ``np.split`` into as many blocks as its axes have ranks, the rank's
+    block row-major over them."""
+    sizes = dict(zip(jmesh.SERVE_AXES, dims))
+    at = dict(zip(jmesh.SERVE_AXES, coords))
+    for i, entry in enumerate(spec):
+        axes = () if entry is None else \
+            entry if isinstance(entry, tuple) else (entry,)
+        n, k = 1, 0
+        for ax in axes:
+            n, k = n * sizes[ax], k * sizes[ax] + at[ax]
+        a = np.split(a, n, i)[k]
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def _jserve(batch: int, window: int):
+    """The reference's ``Model.prefill`` of ``drv.SERVE_PROMPT`` tokens
+    of ``drv.serve_tokens(batch)`` and ``drv.SERVE_STEPS`` teacher-forced
+    ``decode_step``s of reduced qwen3 (f32 activations) on
+    ``_tp_params()``: (prefill logits, its cache, [step logits], the
+    cache after the last step), numpy."""
+    jm = j_build_model(drv.tp_config(jconfigs))
+    jp = _tp_params()[0]
+    toks = jnp.asarray(drv.serve_tokens(batch))
+    p = drv.SERVE_PROMPT
+    jl, jc = jax.jit(functools.partial(
+        jm.prefill, window=window,
+        max_new=0 if window else drv.SERVE_STEPS))(jp, toks[:, :p])
+    kv = lambda c: {k: np.asarray(c[k]) for k in ("k", "v", "pos")}
+    pre = (np.asarray(jl), kv(jc))
+    dec = jax.jit(functools.partial(jm.decode_step, window=window))
+    steps = []
+    for i in range(p, p + drv.SERVE_STEPS):
+        jl, jc = dec(jp, jc, toks[:, i:i + 1])
+        steps.append(np.asarray(jl))
+    return pre[0], pre[1], steps, kv(jc)
+
+
+@pytest.mark.parametrize("world,dims,batch,window", SERVE_CASES, ids=[
+    f"w{w}-{'x'.join(map(str, d))}-b{b}-win{win}"
+    for w, d, b, win in SERVE_CASES])
+def test_serve_mesh_matches_reference(runs, world, dims, batch, window):
+    """Reduced qwen3 (4 heads over 2 kv heads, vocab 512, f32
+    activations) served over a serve mesh of this world (``(1, 1, 2)``;
+    ``(1, 2, 2)`` with batch 2 split over the batch groups and batch 3
+    replicated by ``_batch_axes``), with and without a window of 8 (the
+    ring wraps): on every rank, the prefill logits and the cache blocks
+    after the prefill and after 4 teacher-forced decode steps are the
+    blocks the reference's out shardings give it (its ``cache_specs``;
+    the logits over (batch axes, 'tp')) of the reference's
+    ``Model.prefill``/``decode_step`` on the same numpy parameters,
+    within 1e-4 (the positions exactly); every decode step's logits are
+    whole on every rank (the reference's ``P()``), within 1e-4 of the
+    reference's and bitwise equal across the ranks."""
+    jl, jc, jsteps, jlast = _jserve(batch, window)
+    shape = _ServeShape(dims)
+    jcfg = drv.tp_config(jconfigs)
+    cspecs = jserve.cache_specs(jcfg, shape, batch)
+    lspec = (jserve._batch_axes(shape, batch), "tp")
+    steps0 = None
+    for rank, r in enumerate(runs[world]):
+        coords = tuple(int(c) for c in np.unravel_index(rank, dims))
+        res = r["serve_mesh"]["runs"][(dims, batch, window)]
+        _close(res["prefill"], _serve_block(jl, lspec, dims, coords),
+               F32_TOL, F32_TOL)
+        for got, want in ((res["prefill_cache"], jc), (res["cache"], jlast)):
+            for k in ("k", "v"):
+                _close(got[k], _serve_block(want[k], cspecs[k], dims, coords),
+                       F32_TOL, F32_TOL)
+            assert _same(got["pos"], _serve_block(
+                want["pos"], cspecs["pos"], dims, coords))
+        assert res["t"] == list(range(drv.SERVE_PROMPT, drv.SERVE_PROMPT
+                                      + drv.SERVE_STEPS + 1))
+        assert len(res["steps"]) == len(jsteps)
+        for got, want in zip(res["steps"], jsteps):
+            _close(got, want, F32_TOL, F32_TOL)
+        steps0 = steps0 or res["steps"]
+        assert _same(res["steps"], steps0)
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_serve_mesh_places_the_reference_specs(runs, world):
+    """Each rank of the serve mesh (ranks row-major over (pod, batch,
+    tp), the tp group of its batch coordinate) holds of every parameter
+    the block the reference's ``serve_specs_for_params`` gives it
+    (``np.split``), bitwise; ``derive_serve_mesh`` of the world's ranks
+    at tp = 2 builds a runnable ``ServeMesh`` (1, world / 2, 2)."""
+    dims, batch = drv.SERVE_LAYOUTS[world][0]
+    jcfg = drv.tp_config(jconfigs)
+    specs = _flat_tree(jax.tree.map(
+        tuple, jserve.serve_specs_for_params(jcfg, _ServeShape(dims)),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)))
+    one = _tp_params()[1]
+    assert sorted(specs) == sorted(one)
+    for rank, r in enumerate(runs[world]):
+        coords = tuple(int(c) for c in np.unravel_index(rank, dims))
+        res = r["serve_mesh"]
+        assert res["mesh"] == (dict(zip(jmesh.SERVE_AXES, dims)), coords,
+                               coords[2], True)
+        two = (1, world // 2, 2)
+        assert res["derived"] == (
+            "ServeMesh", dict(zip(jmesh.SERVE_AXES, two)),
+            tuple(int(c) for c in np.unravel_index(rank, two)))
+        assert sorted(res["blocks"]) == sorted(one)
+        for k, a in one.items():
+            assert _same(res["blocks"][k],
+                         _serve_block(a, specs[k], dims, coords)), k
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_serve_mesh_refusals(runs, world):
+    """Mesh serving refuses what it does not run, naming item 10 (b):
+    a non-dense family (reduced rwkv6) raises ``NotImplementedError``; at
+    world 4 reduced qwen3 at T = 4 (2 kv heads, where the reference
+    splits the cache length) raises ``ValueError``, and phi3-medium-14b
+    at (1, 2, 2) (over 4 GiB of parameters a rank: the reference's
+    ``fsdp_serve`` merge over ('batch', 'tp')) ``NotImplementedError``."""
+    want = {"family"} | ({"heads", "fsdp_serve"} if world == 4 else set())
+    for r in runs[world]:
+        errs = r["serve_mesh"]["errors"]
+        assert set(errs) == want and all(errs.values())
